@@ -1,0 +1,28 @@
+"""The port's planning path: the paper's offline schedulers (BNA, DMA,
+DMA-SRT/RT, the Algorithm 5 order, G-DM / G-DM-RT, O(m)Alg) on PyTorch,
+with the batched BNA step and the merge alphas on hand-written CUDA
+kernels.  Each module mirrors its namesake in ``repro.core``."""
+
+from .backend import (bna_pieces_many, cache_stats, clear_caches,
+                      compute_alphas, group_block, grouping_prefix,
+                      no_caches, prefetch_bna)
+from .baseline import om_alg
+from .bna import bna, verify_bna_schedule
+from .convert import (instance_from_arrays, instance_to_arrays,
+                      transcript_to_arrays)
+from .dma import dma, isolated_job_unit
+from .dma_srt import dma_rt, dma_srt, path_subjobs, srt_start_times
+from .engine import (PlanResult, available_schedulers, make_scheduler, plan,
+                     register_scheduler, scheduler_options)
+from .gdm import gdm, geometric_bucket, group_jobs
+from .matching import bna_many, bucket_width
+from .ordering import OrderResult, cached_job_order, job_order
+from .result import CompositeSchedule, Transcript, twct
+from .simulator import verify_schedule, verify_transcript
+from .timeline import FinalSchedule, UnitSchedule, merge_and_fix
+from .traces import build_jobs, fb_like_coflows, paper_workload
+from .types import (Coflow, Instance, Job, aggregate_size, coflow_layers,
+                    critical_path_size, effective_size, is_rooted_tree,
+                    topological_order)
+
+__all__ = [name for name in dir() if not name.startswith("_")]

@@ -1,0 +1,121 @@
+"""Hand-written Hopper kernels for the planning path, plus the device probe
+and the build helper they share.
+
+Each kernel ships, under ``<name>/``:
+  csrc/<name>.cu — CUDA C++ for sm_90a with a plain C entry point
+  ops.py         — the wrapper: checks, int32 guards, dispatch by device,
+                   and a launch counter (``<wrapper>.launches``)
+  ref.py         — the plain PyTorch version, which a CPU tensor takes
+
+Kernels (the TPU kernel each one replaces is named in its source note):
+  bna_step     — one lock-step BNA iteration over a (B, w, w) demand stack
+  coflow_merge — alpha per merged interval: running per-port counts down the
+                 interval axis, maxed over ports
+
+Dispatch is by device, never by a knob: a CPU tensor takes the plain
+version, a CUDA tensor launches the kernel or raises.  Nothing here falls
+back.
+
+Build: at first use, ``nvcc -gencode arch=compute_90a,code=sm_90a -shared``
+compiles each source into ``build/repro_torch_kernels/`` at the root of the
+checkout (listed in ``.gitignore``); the library is loaded with ``ctypes``.
+The file name carries a hash of the source, so an edited kernel rebuilds.
+No PyTorch header is compiled, which keeps a build to seconds.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+__all__ = ["BUILD_DIR", "resolve_device", "build_kernels", "load_kernel"]
+
+_KERNELS_DIR = Path(__file__).resolve().parent
+BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def resolve_device(device: "str | torch.device") -> torch.device:
+    """The device an entry point runs on.  ``cpu`` takes the plain PyTorch
+    versions; ``cuda`` needs a card and raises without one (there is no
+    silent CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return dev
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but no CUDA card is available; "
+            "pass device='cpu' to run the plain PyTorch versions")
+    return dev
+
+
+def _source(name: str) -> Path:
+    return _KERNELS_DIR / name / "csrc" / f"{name}.cu"
+
+
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha256(_source(name).read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and "
+                           "on PATH); the CUDA kernels cannot be built")
+    return found
+
+
+def build_kernels(names: "list[str]") -> dict[str, str]:
+    """Compile every named kernel that is not built yet, one ``nvcc`` per
+    source, all started together.  Returns name -> the compiler's
+    ``-Xptxas -v`` report (registers, shared memory, spills); an empty
+    string for a library that was already built.  Raises on any failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_source(name))]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    reports = {name: "" for name in names}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        reports[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name} (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return reports
+
+
+def load_kernel(name: str) -> ctypes.CDLL:
+    """The kernel's shared library, built at first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build_kernels([name])
+        lib = ctypes.CDLL(str(_library_path(name)))
+        _loaded[name] = lib
+    return lib
