@@ -1,12 +1,25 @@
 """Kernel entry points and compute caches for the scheduler engine — the
 port of ``repro.core.backend``.
 
-Dispatch is by device, not by knob.  Every entry point takes ``device``
-(default ``"cuda"``): on a card the two planning-path kernels run
-(``kernels/bna_step`` inside ``bna_many``, ``kernels/coflow_merge`` inside
-:func:`compute_alphas`); with ``device="cpu"`` their plain PyTorch versions
-run.  Both give the same integers, so plans are bit-identical.  Nothing
-falls back: a kernel that fails to build or launch raises.
+Dispatch is by device and by an explicit plan backend, never by a knob
+read from the environment.  Every entry point takes ``device`` (default
+``"cuda"``): on a card the kernels run, with ``device="cpu"`` their plain
+PyTorch versions.  Both give the same integers, so plans are
+bit-identical.  The plan backend (:func:`resolve_plan_backend`) picks the
+planning path, as the reference's ``use_plan_backend`` does:
+
+* ``"python"`` — the per-coflow path: ``bna_many`` (``kernels/bna_step``
+  per lock-step step, host augmenting-path repair) and
+  :func:`compute_alphas` (``kernels/coflow_merge``);
+* ``"pipeline"`` — ``core/pipeline.py`` (the reference's ``jit``): one
+  ``kernels/bna_decompose`` call per width bucket, step and repair, behind
+  :func:`prefetch_plan` / :func:`plan_edges`, the device segment sum behind
+  :func:`plan_order_loads`, and the fused ``kernels/merge_fix`` behind
+  :func:`fused_merge_fix`.
+
+Its default follows the device: ``"pipeline"`` on a card (the reference
+resolves ``auto`` to ``jit`` on its accelerator), ``"python"`` on the
+CPU.  Nothing falls back: a kernel that fails to build or launch raises.
 
 Caches, with the reference's key discipline:
 
@@ -18,6 +31,8 @@ Caches, with the reference's key discipline:
   :func:`bna_pieces` (the walk's per-coflow lookup) also goes through
   ``bna_many`` on the device, so every decomposition on the planning path
   runs the ``bna_step`` kernel on a card, whatever the cache holds.
+* **edge cache** — the pipeline's start-relative edge intervals per demand
+  (``pipeline.edge_cache``), keyed like the BNA cache.
 * **order cache** — the primal-dual job order (Algorithm 5), keyed on the
   exact scheduling state (``ordering.instance_signature``).
 * **group-block cache** — spread-mode G-DM / G-DM-RT group parts built at
@@ -48,9 +63,16 @@ import numpy as np
 import torch
 
 from ..kernels.coflow_merge import edge_interval_alphas
+from ..kernels.merge_fix import merge_fix_step
 from . import matching
 
 __all__ = [
+    "PLAN_BACKENDS",
+    "resolve_plan_backend",
+    "prefetch_plan",
+    "plan_edges",
+    "plan_order_loads",
+    "fused_merge_fix",
     "compute_alphas",
     "bna_pieces",
     "bna_pieces_many",
@@ -77,6 +99,83 @@ def compute_alphas(events: np.ndarray, edges, m: int,
         return np.zeros(K, dtype=np.int64)
     return edge_interval_alphas(events, edges.t0, edges.t1, edges.s,
                                 edges.r, m, device=device)
+
+
+# --------------------------------------------------------------------------
+# plan backend dispatch (the reference's REPRO_PLAN_BACKEND; core/pipeline.py)
+# --------------------------------------------------------------------------
+
+PLAN_BACKENDS = ("python", "pipeline")
+
+
+def resolve_plan_backend(plan_backend: "str | None",
+                         device: "str | torch.device") -> str:
+    """The planning path of a call: ``plan_backend`` when given, else the
+    device's default (``"pipeline"`` on a card, ``"python"`` on the
+    CPU)."""
+    if plan_backend is None:
+        return "pipeline" if torch.device(device).type == "cuda" \
+            else "python"
+    if plan_backend not in PLAN_BACKENDS:
+        raise ValueError(f"unknown plan backend {plan_backend!r}; "
+                         f"expected one of {PLAN_BACKENDS}")
+    return plan_backend
+
+
+def prefetch_plan(demands: "Iterable[np.ndarray]",
+                  plan_backend: "str | None" = None,
+                  device: "str | torch.device" = "cuda") -> None:
+    """Instance-level prefetch on the plan backend: under ``"pipeline"``
+    it warms the BNA *and* edge-interval caches through the
+    width-bucketed sweep (``pipeline.prefetch_demands``); under
+    ``"python"`` it is exactly :func:`prefetch_bna`."""
+    ds = list(demands)
+    if resolve_plan_backend(plan_backend, device) == "pipeline":
+        from . import pipeline
+
+        pipeline.prefetch_demands(ds, device=device)
+        return
+    prefetch_bna(ds, device=device)
+
+
+def plan_edges(demand: np.ndarray, plan_backend: "str | None" = None,
+               device: "str | torch.device" = "cuda"):
+    """Relative (t0, t1, s, r) edge intervals of one coflow's BNA schedule
+    under the ``"pipeline"`` backend; None routes the caller to the python
+    path."""
+    if resolve_plan_backend(plan_backend, device) != "pipeline":
+        return None
+    from . import pipeline
+
+    return pipeline.coflow_edges_rel(demand, device=device)
+
+
+def plan_order_loads(instance, plan_backend: "str | None" = None,
+                     device: "str | torch.device" = "cuda"):
+    """Algorithm 5 load vectors from the device segment sum (bit-identical
+    integer sums) under ``"pipeline"``; None routes the caller to the host
+    computation."""
+    if resolve_plan_backend(plan_backend, device) != "pipeline":
+        return None
+    from . import pipeline
+
+    return pipeline.instance_load_vectors(instance, device=device)
+
+
+def fused_merge_fix(events: np.ndarray, edges, m: int,
+                    plan_backend: "str | None" = None,
+                    device: "str | torch.device" = "cuda"):
+    """(alphas, expansion deltas) in one call on `device` through the fused
+    ``kernels/merge_fix`` step (its plain version on the CPU) under
+    ``"pipeline"``.  None routes the caller to the two-stage path (also
+    for an empty merge).  Bit-identical: integer counts and int64
+    durations."""
+    if resolve_plan_backend(plan_backend, device) != "pipeline":
+        return None
+    if not (edges.size and events.size > 1):
+        return None
+    return merge_fix_step(events, edges.t0, edges.t1, edges.s, edges.r, m,
+                          device=device)
 
 
 # --------------------------------------------------------------------------
@@ -138,6 +237,7 @@ class LRUCache:
 
 
 bna_cache = LRUCache(4096, "bna")
+edge_cache = LRUCache(4096, "plan_edges")
 order_cache = LRUCache(256, "order")
 group_cache = LRUCache(512, "group")
 loads_cache = LRUCache(4096, "loads")
@@ -250,10 +350,12 @@ def _group_sig(jobs) -> tuple:
 def group_block(kind: str, jobs, m: int, *, beta: float = 2.0,
                 decompose: bool = False, nested: bool = True,
                 require_tree: bool = True, delays: str = "spread",
-                device: "str | torch.device" = "cuda"):
+                device: "str | torch.device" = "cuda",
+                plan_backend: "str | None" = None):
     """One geometric group's DMA (kind="gdm") / DMA-RT (kind="gdm_rt")
-    schedule built at **origin 0** on `device`, memoized on the
-    construction's full input.  Callers place the block with
+    schedule built at **origin 0** on `device` and `plan_backend`, memoized
+    on the construction's full input (the device and the plan backend are
+    not part of the key: every one of them builds the same block).  Callers place the block with
     ``.shifted_expanded(start)``.  The returned FinalSchedule is shared
     and read-only.  Randomized delay modes are rejected."""
     from .dma import dma
@@ -274,10 +376,11 @@ def group_block(kind: str, jobs, m: int, *, beta: float = 2.0,
             part = dma_rt(list(jobs), m, beta=beta, rng=None, origin=0,
                           decompose=decompose, nested=nested,
                           require_tree=require_tree, delays=delays,
-                          device=device)
+                          device=device, plan_backend=plan_backend)
         else:
             part = dma(list(jobs), m, beta=beta, rng=None, origin=0,
-                       decompose=decompose, delays=delays, device=device)
+                       decompose=decompose, delays=delays, device=device,
+                       plan_backend=plan_backend)
         group_cache.store(key, part)
     return part
 
@@ -343,26 +446,32 @@ def grouping_prefix(instance, order: list) -> np.ndarray:
 
 
 def cache_stats() -> dict:
+    from . import pipeline
+
     return {"bna": {**bna_cache.stats(), "batch": dict(_bna_batch),
                     **matching.stats},
             "order": order_cache.stats(),
             "group": group_cache.stats(),
             "loads": loads_cache.stats(),
-            "gkey": {**gkey_cache.stats(), "prefix": dict(_gkey_counts)}}
+            "gkey": {**gkey_cache.stats(), "prefix": dict(_gkey_counts)},
+            "plan": pipeline.pipeline_stats()}
 
 
 # every result memo this module owns — the single list clear_caches and
 # no_caches iterate
-_RESULT_CACHES = (bna_cache, order_cache, group_cache, loads_cache,
-                  gkey_cache)
+_RESULT_CACHES = (bna_cache, edge_cache, order_cache, group_cache,
+                  loads_cache, gkey_cache)
 
 
 def clear_caches() -> None:
+    from . import pipeline
+
     for cache in _RESULT_CACHES:
         cache.clear()
     for counts in (_bna_batch, _gkey_counts, matching.stats):
         for k in counts:
             counts[k] = type(counts[k])(0)
+    pipeline.clear_pipeline_caches()
 
 
 @contextmanager

@@ -26,21 +26,25 @@ __all__ = ["om_alg"]
 
 
 def om_alg(instance: Instance, decompose: bool = False,
-           device: "str | torch.device" = "cuda") -> CompositeSchedule:
+           device: "str | torch.device" = "cuda",
+           plan_backend: "str | None" = None) -> CompositeSchedule:
     by_id = {j.jid: j for j in instance.jobs}
-    res = cached_job_order(instance)
+    res = cached_job_order(instance, plan_backend=plan_backend,
+                           device=device)
     units = []
     delays: dict[int, int] = {}
     t = 0
     for jid in res.order:
         job = by_id[jid]
         start = max(t, int(job.release))
-        units.append(isolated_job_unit(job, start=start, device=device))
+        units.append(isolated_job_unit(job, start=start, device=device,
+                                       plan_backend=plan_backend))
         t = start + sum(c.D for c in job.coflows)
     # jobs never overlap -> every merged interval has alpha <= 1 and the
     # "expansion" is the identity; merge_and_fix just assembles accounting.
     sched = merge_and_fix(units, instance.m, delays, origin=0,
-                          decompose=decompose, device=device)
+                          decompose=decompose, device=device,
+                          plan_backend=plan_backend)
     assert (sched.alphas <= 1).all(), "O(m)Alg sub-schedules must not overlap"
     return CompositeSchedule([sched], instance, meta={
         "order": res.order, "algorithm": "O(m)Alg",

@@ -12,9 +12,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .backend import bna_pieces
+from .backend import bna_pieces, plan_edges
 from .timeline import (EdgeIntervals, FinalSchedule, UnitSchedule,
-                       merge_and_fix, unit_from_coflow_plan)
+                       merge_and_fix, unit_from_coflow_edges,
+                       unit_from_coflow_plan)
 from .types import Job, aggregate_size, topological_order
 
 __all__ = ["isolated_job_unit", "draw_delays", "dma", "coflow_unit",
@@ -34,17 +35,24 @@ def check_delays_mode(delays: str) -> None:
 
 
 def coflow_unit(jid: int, cid: int, demand: np.ndarray, start: int,
-                device: "str | torch.device" = "cuda") -> UnitSchedule:
-    """UnitSchedule for one coflow: its BNA pieces (memoized on the
-    demand's bytes in the backend's LRU, which the engine's batched
-    prefetch warms; a miss decomposes on `device`) RLE-compressed into
-    edge intervals from `start`."""
+                device: "str | torch.device" = "cuda",
+                plan_backend: "str | None" = None) -> UnitSchedule:
+    """UnitSchedule for one coflow, via the plan backend: the pipeline
+    serves cached start-relative edge intervals (``backend.plan_edges`` →
+    ``core/pipeline.py``, bit-identical to the python RLE); the python
+    path fetches the BNA pieces (memoized on the demand's bytes in the
+    backend's LRU, which the engine's batched prefetch warms) and
+    RLE-compresses them from `start`.  A miss decomposes on `device`."""
+    rel = plan_edges(demand, plan_backend, device)
+    if rel is not None:
+        return unit_from_coflow_edges(jid, cid, demand, rel, start)
     return unit_from_coflow_plan(jid, cid, demand,
                                  bna_pieces(demand, device=device), start)
 
 
 def isolated_job_unit(job: Job, start: int = 0,
-                      device: "str | torch.device" = "cuda") -> UnitSchedule:
+                      device: "str | torch.device" = "cuda",
+                      plan_backend: "str | None" = None) -> UnitSchedule:
     """Step 1: feasible isolated schedule — coflows back-to-back in
     topological order, each scheduled optimally by BNA (Lemma 1)."""
     order = topological_order(job.mu, job.edges)
@@ -52,7 +60,8 @@ def isolated_job_unit(job: Job, start: int = 0,
     parts: list[UnitSchedule] = []
     for cid in order:
         c = job.coflows[cid]
-        u = coflow_unit(job.jid, cid, c.demand, t, device=device)
+        u = coflow_unit(job.jid, cid, c.demand, t, device=device,
+                        plan_backend=plan_backend)
         parts.append(u)
         t += c.D
     edges = EdgeIntervals.concat([p.edges for p in parts]).with_owner(job.jid)
@@ -83,17 +92,20 @@ def dma(
     decompose: bool = False,
     delays: str = "random",
     device: "str | torch.device" = "cuda",
+    plan_backend: "str | None" = None,
 ) -> FinalSchedule:
     """Schedule a set of general-DAG jobs; makespan O(mu * g(m)) x OPT whp
     (Theorem 2).  delays="spread" selects the deterministic evenly-spaced
-    Step 2 delays (see check_delays_mode); `device` is where the coflows
-    are decomposed and merge_and_fix computes its alphas."""
+    Step 2 delays (see check_delays_mode); `device` and `plan_backend` are
+    where and how the coflows are decomposed and merged."""
     check_delays_mode(delays)
     if rng is None:
         rng = np.random.default_rng(0)
-    units = [isolated_job_unit(j, device=device) for j in jobs]
+    units = [isolated_job_unit(j, device=device, plan_backend=plan_backend)
+             for j in jobs]
     delta = aggregate_size(c.demand for j in jobs for c in j.coflows)
     delay_map = draw_delays([j.jid for j in jobs], delta, beta,
                             None if delays == "spread" else rng)
     return merge_and_fix(units, m, delay_map, origin=origin,
-                         decompose=decompose, device=device)
+                         decompose=decompose, device=device,
+                         plan_backend=plan_backend)

@@ -122,6 +122,7 @@ def dma_srt(
     require_tree: bool = True,
     delays: str = "random",
     device: "str | torch.device" = "cuda",
+    plan_backend: "str | None" = None,
 ) -> FinalSchedule:
     """Single rooted-tree job; makespan O(sqrt(mu) * h(m, mu)) x OPT whp
     (Theorem 3).  delays="spread" de-randomizes the per-path delays
@@ -133,10 +134,10 @@ def dma_srt(
     units: list[UnitSchedule] = []
     for cid, c in enumerate(job.coflows):
         units.append(coflow_unit(job.jid, cid, c.demand, starts[cid],
-                                 device=device))
+                                 device=device, plan_backend=plan_backend))
         units[-1].uid = cid
     return merge_and_fix(units, m, origin=origin, decompose=decompose,
-                         device=device)
+                         device=device, plan_backend=plan_backend)
 
 
 def dma_rt(
@@ -150,6 +151,7 @@ def dma_rt(
     nested: bool = True,
     delays: str = "random",
     device: "str | torch.device" = "cuda",
+    plan_backend: "str | None" = None,
 ) -> FinalSchedule:
     """Multiple rooted-tree jobs; makespan O(sqrt(mu) g(m) h(m, mu)) x OPT
     whp (Theorem 4).
@@ -170,7 +172,7 @@ def dma_rt(
         units = [
             dma_srt(j, m, beta, rng, decompose=True,
                     require_tree=require_tree, delays=delays,
-                    device=device).to_unit(j.jid)
+                    device=device, plan_backend=plan_backend).to_unit(j.jid)
             for j in jobs
         ]
     else:
@@ -181,7 +183,7 @@ def dma_rt(
                                      None if delays == "spread" else rng,
                                      require_tree=require_tree)
             parts = [coflow_unit(j.jid, cid, c.demand, starts[cid],
-                                 device=device)
+                                 device=device, plan_backend=plan_backend)
                      for cid, c in enumerate(j.coflows)]
             edges = EdgeIntervals.concat([p.edges for p in parts]).with_owner(j.jid)
             units.append(UnitSchedule(
@@ -191,4 +193,5 @@ def dma_rt(
     delay_map = draw_delays([j.jid for j in jobs], delta, beta,
                             None if delays == "spread" else rng)
     return merge_and_fix(units, m, delay_map, origin=origin,
-                         decompose=decompose, device=device)
+                         decompose=decompose, device=device,
+                         plan_backend=plan_backend)

@@ -15,17 +15,26 @@ om_alg     O(m)Alg baseline (Tian et al. [5]): one-at-a-time jobs in
            Algorithm 5 order, each coflow optimally via BNA (Algorithm 1)
 ========== ==============================================================
 
-Every plan runs on a device: ``plan(instance, name, device="cuda")`` (the
-default) decomposes the coflows through the ``bna_step`` kernel and
-computes every merge_and_fix alpha through the ``coflow_merge`` kernel;
-``device="cpu"`` runs their plain PyTorch versions.  The plans are
-bit-identical.  Asking for ``cuda`` without a card raises.
+Every plan runs on a device and a plan backend:
+``plan(instance, name, device="cuda", plan_backend=None)``.
+
+* ``plan_backend="pipeline"`` (the default on a card, the reference's
+  ``jit``) decomposes each width bucket of coflows, step and repair, in
+  one ``bna_decompose`` call, and runs every merge_and_fix through the
+  fused ``merge_fix``;
+* ``plan_backend="python"`` (the default on the CPU) decomposes through
+  ``bna_step`` with the repair on the host, and computes the alphas
+  through ``coflow_merge``.
+
+``device="cpu"`` runs the kernels' plain PyTorch versions.  Every
+combination gives the same plan, bit for bit.  Asking for ``cuda``
+without a card raises.
 
 Adding a scheduler is one decorator::
 
     @register_scheduler("my_sched", "one-line description",
                         options=("seed",))
-    def _my_sched(instance, *, device, seed=0):
+    def _my_sched(instance, *, device, plan_backend, seed=0):
         return ...  # CompositeSchedule
 """
 from __future__ import annotations
@@ -90,24 +99,25 @@ _REGISTRY: dict[str, _Entry] = {}
 
 def register_scheduler(name: str, doc: str = "",
                        options: tuple[str, ...] = ()):
-    """Register `factory(instance, *, device, **opts)` under `name`
-    (decorator).
+    """Register `factory(instance, *, device, plan_backend, **opts)` under
+    `name` (decorator).
 
     ``options`` declares the option names the factory accepts;
     :func:`make_scheduler` rejects anything else.  The declared tuple is
     checked against the factory's signature at registration: every
-    keyword-only parameter but ``device`` must be declared, and every
-    declared option must be a real parameter."""
+    keyword-only parameter but ``device`` and ``plan_backend`` must be
+    declared, and every declared option must be a real parameter."""
 
     def deco(factory: _Factory) -> _Factory:
         if name in _REGISTRY:
             raise ValueError(f"scheduler {name!r} already registered")
         params = inspect.signature(factory).parameters.values()
         kw = {p.name for p in params if p.kind == p.KEYWORD_ONLY}
-        if "device" not in kw:
-            raise ValueError(f"scheduler {name!r}: the factory must take a "
-                             f"keyword-only 'device'")
-        kw.discard("device")
+        for arg in ("device", "plan_backend"):
+            if arg not in kw:
+                raise ValueError(f"scheduler {name!r}: the factory must "
+                                 f"take a keyword-only {arg!r}")
+            kw.discard(arg)
         declared = set(options)
         if kw != declared:
             raise ValueError(f"scheduler {name!r}: declared options "
@@ -135,29 +145,37 @@ def scheduler_options(name: str) -> tuple[str, ...]:
 
 @dataclass
 class _Registered:
-    """A registry entry bound to its options and device."""
+    """A registry entry bound to its options, device and plan backend."""
 
     name: str
     device: torch.device
+    plan_backend: str
     opts: dict = field(default_factory=dict)
 
     def plan_full(self, instance: Instance) -> PlanResult:
         # instance-level prefetch: one batched decomposition on the device
-        # warms the BNA cache for every coflow BEFORE the factory walks the
-        # jobs one at a time (results-identical either way)
-        backend.prefetch_bna((c.demand for j in instance.jobs
-                              for c in j.coflows), device=self.device)
+        # (the pipeline's bucket sweep, or bna_many) warms the caches for
+        # every coflow BEFORE the factory walks the jobs one at a time
+        # (results-identical either way)
+        backend.prefetch_plan((c.demand for j in instance.jobs
+                               for c in j.coflows),
+                              plan_backend=self.plan_backend,
+                              device=self.device)
         return PlanResult(self.name, _REGISTRY[self.name].factory(
-            instance, device=self.device, **self.opts))
+            instance, device=self.device, plan_backend=self.plan_backend,
+            **self.opts))
 
     def plan(self, instance: Instance) -> Transcript:
         return self.plan_full(instance).transcript()
 
 
 def make_scheduler(name: str, device: "str | torch.device" = "cuda",
+                   plan_backend: "str | None" = None,
                    **opts) -> _Registered:
-    """Instantiate a registered scheduler with bound options on `device`.
-    An unknown option raises immediately with the valid set; ``cuda``
+    """Instantiate a registered scheduler with bound options on `device`
+    and `plan_backend` (``"python"`` or ``"pipeline"``; None takes the
+    device's default, ``"pipeline"`` on a card and ``"python"`` on the
+    CPU).  An unknown option or plan backend raises immediately; ``cuda``
     without a card raises."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown scheduler {name!r}; "
@@ -167,13 +185,18 @@ def make_scheduler(name: str, device: "str | torch.device" = "cuda",
         raise TypeError(
             f"unknown option(s) {unknown} for scheduler {name!r}; "
             f"valid options: {sorted(_REGISTRY[name].options)}")
-    return _Registered(name, resolve_device(device), opts)
+    dev = resolve_device(device)
+    return _Registered(name, dev, backend.resolve_plan_backend(plan_backend,
+                                                               dev), opts)
 
 
 def plan(instance: Instance, name: str,
-         device: "str | torch.device" = "cuda", **opts) -> PlanResult:
-    """One-shot: plan `instance` with scheduler `name` on `device`."""
-    return make_scheduler(name, device=device, **opts).plan_full(instance)
+         device: "str | torch.device" = "cuda",
+         plan_backend: "str | None" = None, **opts) -> PlanResult:
+    """One-shot: plan `instance` with scheduler `name` on `device` through
+    `plan_backend` (see :func:`make_scheduler`)."""
+    return make_scheduler(name, device=device, plan_backend=plan_backend,
+                          **opts).plan_full(instance)
 
 
 # --------------------------------------------------------------------------
@@ -193,33 +216,36 @@ _OM_ALG_OPTS = ("decompose", "seed")
                            "geometric groups + DMA per group; "
                            "delays=random|spread",
                     options=_GDM_OPTS)
-def _gdm(instance: Instance, *, device, beta: float = 2.0, seed: int = 0,
+def _gdm(instance: Instance, *, device, plan_backend, beta: float = 2.0,
+         seed: int = 0,
          rng=None, nested: bool = True, decompose: bool = False,
          delays: str = "random", gamma=None) -> CompositeSchedule:
     return gdm(instance, beta=beta, rng=_rng(rng, seed), rooted=False,
                decompose=decompose, nested=nested, delays=delays,
-               gamma=gamma, device=device)
+               gamma=gamma, device=device, plan_backend=plan_backend)
 
 
 @register_scheduler("gdm_rt", "G-DM-RT (Algorithm 4 over rooted trees, "
                               "DMA-RT groups; nested=False = flat fast "
                               "path; delays=random|spread)",
                     options=_GDM_RT_OPTS)
-def _gdm_rt(instance: Instance, *, device, beta: float = 2.0, seed: int = 0,
-            rng=None, nested: bool = True, decompose: bool = False,
+def _gdm_rt(instance: Instance, *, device, plan_backend, beta: float = 2.0,
+            seed: int = 0, rng=None, nested: bool = True, decompose: bool = False,
             require_tree: bool = True,
             delays: str = "random", gamma=None) -> CompositeSchedule:
     return gdm(instance, beta=beta, rng=_rng(rng, seed), rooted=True,
                decompose=decompose, nested=nested, require_tree=require_tree,
-               delays=delays, gamma=gamma, device=device)
+               delays=delays, gamma=gamma, device=device,
+               plan_backend=plan_backend)
 
 
 @register_scheduler("om_alg", "O(m)Alg baseline: one-at-a-time jobs in "
                               "Algorithm 5 order, BNA per coflow",
                     options=_OM_ALG_OPTS)
-def _om_alg(instance: Instance, *, device, decompose: bool = False,
-            seed: int = 0) -> CompositeSchedule:
+def _om_alg(instance: Instance, *, device, plan_backend,
+            decompose: bool = False, seed: int = 0) -> CompositeSchedule:
     # `seed` is accepted for registry uniformity; the baseline is
     # deterministic.
     del seed
-    return om_alg(instance, decompose=decompose, device=device)
+    return om_alg(instance, decompose=decompose, device=device,
+                  plan_backend=plan_backend)

@@ -84,6 +84,7 @@ def gdm(
     delays: str = "random",
     gamma=None,
     device: "str | torch.device" = "cuda",
+    plan_backend: "str | None" = None,
 ) -> CompositeSchedule:
     """G-DM (rooted=False) / G-DM-RT (rooted=True).
 
@@ -102,7 +103,8 @@ def gdm(
     natural gamma); the grouping analysis holds up to the pin's bounded
     ratio.
 
-    ``device`` is where every merge_and_fix computes its alphas."""
+    ``device`` and ``plan_backend`` are where and how the coflows are
+    decomposed and every merge_and_fix computes its alphas."""
     from .dma import check_delays_mode, dma
     from .dma_srt import dma_rt
 
@@ -110,7 +112,8 @@ def gdm(
     if rng is None:
         rng = np.random.default_rng(0)
     by_id = {j.jid: j for j in instance.jobs}
-    res = cached_job_order(instance)
+    res = cached_job_order(instance, plan_backend=plan_backend,
+                           device=device)
     eff_gamma = Fraction(gamma) if gamma is not None \
         else Fraction(instance.gamma())
     groups = group_jobs(instance, res.order, gamma=eff_gamma)
@@ -126,16 +129,19 @@ def gdm(
             sub = backend.group_block(
                 kind, jobs, instance.m, beta=beta, decompose=decompose,
                 nested=nested, require_tree=require_tree, delays=delays,
-                device=device).shifted_expanded(int(start))
+                device=device, plan_backend=plan_backend
+            ).shifted_expanded(int(start))
         elif rooted:
             sub = dma_rt(jobs, instance.m, beta=beta, rng=rng,
                          origin=int(start), decompose=decompose,
                          nested=nested, require_tree=require_tree,
-                         delays=delays, device=device)
+                         delays=delays, device=device,
+                         plan_backend=plan_backend)
         else:
             sub = dma(jobs, instance.m, beta=beta, rng=rng,
                       origin=int(start), decompose=decompose,
-                      delays=delays, device=device)
+                      delays=delays, device=device,
+                      plan_backend=plan_backend)
         parts.append(sub)
         t_cur = int(math.ceil(sub.makespan))
     return CompositeSchedule(parts, instance, meta={

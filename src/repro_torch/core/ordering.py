@@ -16,6 +16,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+import torch
+
 from .types import Instance, Job
 
 __all__ = ["job_order", "cached_job_order", "OrderResult",
@@ -110,20 +112,24 @@ def instance_signature(instance: Instance) -> tuple:
         for j in instance.jobs)
 
 
-def cached_job_order(instance: Instance) -> OrderResult:
+def cached_job_order(instance: Instance, plan_backend: "str | None" = None,
+                     device: "str | torch.device" = "cuda") -> OrderResult:
     """job_order memoized on the exact scheduling state (bounded LRU).
 
     Hits whenever the same state is re-planned: the G-DM vs O(m)Alg A/B
     pairs in the benchmarks, beta sweeps over one instance, and online
     reschedules whose active set only shrank with every surviving job's
     remaining demand untouched.  Returns a fresh copy so callers may
-    mutate the order list safely."""
+    mutate the order list safely.  A miss under the ``"pipeline"`` plan
+    backend takes its load vectors from the device segment sum
+    (``backend.plan_order_loads``), the same integers."""
     from . import backend
 
     key = instance_signature(instance)
     found, res = backend.order_cache.lookup(key)
     if not found:
-        res = job_order(instance)
+        res = job_order(instance, loads=backend.plan_order_loads(
+            instance, plan_backend, device))
         backend.order_cache.store(key, res)
     return OrderResult(list(res.order), dict(res.eta), list(res.lambdas),
                        dict(res.residual))

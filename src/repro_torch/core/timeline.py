@@ -405,16 +405,20 @@ def merge_and_fix(
     origin: int = 0,
     decompose: bool = False,
     device: "str | torch.device" = "cuda",
+    plan_backend: "str | None" = None,
 ) -> FinalSchedule:
     """DMA Steps 3-4 (Lemma 6): delay, merge, and expand to feasibility.
 
     delays: per-uid integer delay (Step 2); default 0.
     decompose: also produce the packet-level schedule (BNA per merged
       interval) — needed for verification and for nesting into DMA-RT.
-    device: where the alphas are computed (the coflow_merge kernel on a
-      card, its plain version on the CPU; the same integers either way).
+    device: where the alphas are computed (a kernel on a card, its plain
+      version on the CPU; the same integers either way).
+    plan_backend: "pipeline" computes alphas and expanded durations in one
+      fused merge_fix call; "python" runs coflow_merge, then the product on
+      the host (default: by device, see backend.resolve_plan_backend).
     """
-    from .backend import compute_alphas
+    from .backend import compute_alphas, fused_merge_fix
 
     delays = delays or {}
     shifted: list[EdgeIntervals] = []
@@ -428,11 +432,19 @@ def merge_and_fix(
     else:
         events = np.zeros(0, dtype=np.int64)
 
-    alphas = compute_alphas(events, edges, m, device=device)
-    K = alphas.size
-    lens = (events[1:] - events[:-1]) if K else np.zeros(0, dtype=np.int64)
-    rates = np.maximum(alphas, 1)
-    exp = np.concatenate([[0], np.cumsum(lens * rates)]).astype(np.float64)
+    fused = fused_merge_fix(events, edges, m, plan_backend, device)
+    if fused is not None:
+        alphas, deltas = fused
+        K = alphas.size
+        exp = np.concatenate([[0], np.cumsum(deltas)]).astype(np.float64)
+    else:
+        alphas = compute_alphas(events, edges, m, device=device)
+        K = alphas.size
+        lens = (events[1:] - events[:-1]) if K else \
+            np.zeros(0, dtype=np.int64)
+        rates = np.maximum(alphas, 1)
+        exp = np.concatenate([[0], np.cumsum(lens * rates)]) \
+            .astype(np.float64)
     # anchor: relative time 0 corresponds to `origin`; the idle lead-in up
     # to the first event passes at rate 1 (delays / release waits are real)
     exp += origin + (float(events[0]) if K else 0.0)

@@ -7,10 +7,15 @@ Each kernel ships, under ``<name>/``:
                    and a launch counter (``<wrapper>.launches``)
   ref.py         — the plain PyTorch version, which a CPU tensor takes
 
-Kernels (the TPU kernel each one replaces is named in its source note):
-  bna_step     — one lock-step BNA iteration over a (B, w, w) demand stack
-  coflow_merge — alpha per merged interval: running per-port counts down the
-                 interval axis, maxed over ports
+Kernels (what each one replaces is named in its source note):
+  bna_step      — one lock-step BNA iteration over a (B, w, w) demand stack
+  coflow_merge  — alpha per merged interval: running per-port counts down
+                  the interval axis, maxed over ports
+  bna_decompose — a whole width bucket's BNA decomposition, step and
+                  augmenting-path repair, one block per matrix
+  merge_fix     — the fused merge_and_fix tail: binning, delta scatter,
+                  coflow_merge's scan and the Lemma 6 durations
+Headers shared between kernels (``*/csrc/*.cuh``) are included by path.
 
 Dispatch is by device, never by a knob: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises.  Nothing here falls
@@ -19,7 +24,8 @@ back.
 Build: at first use, ``nvcc -gencode arch=compute_90a,code=sm_90a -shared``
 compiles each source into ``build/repro_torch_kernels/`` at the root of the
 checkout (listed in ``.gitignore``); the library is loaded with ``ctypes``.
-The file name carries a hash of the source, so an edited kernel rebuilds.
+The file name carries a hash of the source and of every shared header, so
+an edited kernel or header rebuilds.
 No PyTorch header is compiled, which keeps a build to seconds.
 """
 from __future__ import annotations
@@ -64,7 +70,10 @@ def _source(name: str) -> Path:
 
 
 def _library_path(name: str) -> Path:
-    digest = hashlib.sha256(_source(name).read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256(_source(name).read_bytes())
+    for header in sorted(_KERNELS_DIR.glob("*/csrc/*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

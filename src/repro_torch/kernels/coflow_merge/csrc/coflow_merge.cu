@@ -7,19 +7,11 @@
 // (_merge_kernel, launched by coflow_merge_padded).  The TPU walks the
 // interval axis as a sequential grid and carries the running counts from
 // one grid step to the next in VMEM scratch.  Blocks of a CUDA grid run in
-// no order, so the carry becomes a block-sum scan in three launches:
-//   1. block_totals: per block of kRows rows, each port's column total;
-//   2. block_carry:  per port, an exclusive scan of those totals down the
-//                    blocks (the carry into each block).  One CUDA block
-//                    per 32 ports, 32 threads per port: each thread sums
-//                    its segment of the block axis, one thread per port
-//                    scans the 32 segment sums in shared memory, and each
-//                    thread re-walks its segment writing the carries, so
-//                    the serial chain is nblocks / 32 long, not nblocks;
-//   3. block_alphas: each block re-scans its rows from its carry, one
-//                    thread per port, into a shared-memory tile; then one
-//                    warp per row takes the max over ports (shuffle max).
-// The TPU's padding of 2m to 128 lanes is not needed and is gone.
+// no order, so the carry becomes the three-pass block-sum scan of
+// merge_scan.cuh (column totals per block, a segmented exclusive scan of
+// the totals per port, a re-scan of each block from its carry with a warp
+// max per row), shared with merge_fix.  The epilogue here stores alpha as
+// int32.  The TPU's padding of 2m to 128 lanes is not needed and is gone.
 //
 // Bound on the card: memory.  The function reads K * P int32 deltas once
 // and writes K int32 alphas; this design reads the deltas twice (passes 1
@@ -28,107 +20,25 @@
 // (the wrapper's guard); all offsets are 64-bit, so K * P may exceed the
 // int32 index space.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <climits>
+#include "merge_scan.cuh"
 
 namespace {
 
-constexpr int kRows = 32;      // rows per block
-constexpr int kThreads = 256;  // threads per block
-constexpr int kCarryPorts = 32;  // ports per block_carry block (x)
-constexpr int kCarrySegs = 32;   // segments of the block axis per port (y)
-
-__global__ void block_totals(const int32_t* __restrict__ delta, int64_t K,
-                             int P, int32_t* __restrict__ totals) {
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kRows;
-  const int64_t r1 = (r0 + kRows < K) ? r0 + kRows : K;
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    int32_t acc = 0;
-    for (int64_t r = r0; r < r1; ++r) acc += delta[r * P + p];
-    totals[static_cast<int64_t>(blockIdx.x) * P + p] = acc;
+struct StoreAlpha {
+  int32_t* alphas;
+  __device__ void operator()(int64_t k, int32_t alpha) const {
+    alphas[k] = alpha;
   }
-}
-
-__global__ void block_carry(int32_t* __restrict__ totals, int64_t nblocks,
-                            int P) {
-  __shared__ int32_t seg[kCarrySegs][kCarryPorts];
-  const int p = blockIdx.x * kCarryPorts + threadIdx.x;
-  const int64_t len = (nblocks + kCarrySegs - 1) / kCarrySegs;
-  const int64_t b0 = threadIdx.y * len;
-  const int64_t b1 = (b0 + len < nblocks) ? b0 + len : nblocks;
-  int32_t acc = 0;
-  if (p < P)
-    for (int64_t b = b0; b < b1; ++b) acc += totals[b * P + p];
-  seg[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0) {
-    int32_t run = 0;  // exclusive scan of this port's segment sums
-    for (int j = 0; j < kCarrySegs; ++j) {
-      const int32_t v = seg[j][threadIdx.x];
-      seg[j][threadIdx.x] = run;
-      run += v;
-    }
-  }
-  __syncthreads();
-  if (p >= P) return;
-  acc = seg[threadIdx.y][threadIdx.x];
-  for (int64_t b = b0; b < b1; ++b) {
-    const int32_t v = totals[b * P + p];
-    totals[b * P + p] = acc;  // exclusive: the carry into block b
-    acc += v;
-  }
-}
-
-__global__ void block_alphas(const int32_t* __restrict__ delta, int64_t K,
-                             int P, const int32_t* __restrict__ carry,
-                             int32_t* __restrict__ alphas) {
-  extern __shared__ int32_t counts[];  // [kRows][P]
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kRows;
-  const int rows = static_cast<int>((K - r0 < kRows) ? K - r0 : kRows);
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    int32_t acc = carry[static_cast<int64_t>(blockIdx.x) * P + p];
-    for (int i = 0; i < rows; ++i) {
-      acc += delta[(r0 + i) * P + p];
-      counts[i * P + p] = acc;
-    }
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = warp; i < rows; i += blockDim.x >> 5) {
-    int32_t v = INT32_MIN;
-    for (int p = lane; p < P; p += 32) v = max(v, counts[i * P + p]);
-    for (int off = 16; off > 0; off >>= 1)
-      v = max(v, __shfl_down_sync(0xffffffffu, v, off));
-    if (lane == 0) alphas[r0 + i] = v;
-  }
-}
+};
 
 }  // namespace
 
 // Scratch: `totals` holds ceil(K / 32) * P int32.  Returns cudaGetLastError().
 extern "C" int coflow_merge_launch(void* delta, long long K, int P,
                                    void* totals, void* alphas, void* stream) {
-  if (K <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t nblocks = (K + kRows - 1) / kRows;
-  const size_t shmem = static_cast<size_t>(kRows) * P * sizeof(int32_t);
-  if (shmem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        block_alphas, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(shmem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int32_t* d = static_cast<const int32_t*>(delta);
-  int32_t* tot = static_cast<int32_t*>(totals);
-  block_totals<<<static_cast<unsigned>(nblocks), kThreads, 0, st>>>(d, K, P, tot);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  block_carry<<<(P + kCarryPorts - 1) / kCarryPorts,
-                dim3(kCarryPorts, kCarrySegs), 0, st>>>(tot, nblocks, P);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  block_alphas<<<static_cast<unsigned>(nblocks), kThreads, shmem, st>>>(
-      d, K, P, tot, static_cast<int32_t*>(alphas));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(merge_scan::scan(
+      static_cast<const int32_t*>(delta), K, P,
+      static_cast<int32_t*>(totals),
+      StoreAlpha{static_cast<int32_t*>(alphas)},
+      static_cast<cudaStream_t>(stream)));
 }

@@ -9,13 +9,17 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (bna, bna_many, clear_caches, no_caches,
-                              paper_workload,
-                              plan, transcript_to_arrays, verify_transcript)
+from repro_torch.core import (bna, bna_many, cache_stats, clear_caches,
+                              no_caches, paper_workload, plan,
+                              transcript_to_arrays, verify_transcript)
+from repro_torch.kernels.bna_decompose import bna_decompose
+from repro_torch.kernels.bna_decompose.ref import bna_decompose_ref
 from repro_torch.kernels.bna_step import bna_step, stage_int32
 from repro_torch.kernels.bna_step.ref import bna_step_ref
 from repro_torch.kernels.coflow_merge import coflow_merge, interval_alphas
 from repro_torch.kernels.coflow_merge.ref import alphas_ref
+from repro_torch.kernels.merge_fix import merge_fix
+from repro_torch.kernels.merge_fix.ref import merge_fix_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -101,18 +105,7 @@ def test_bna_many_on_card_equals_scalar_bna():
             assert t1 == t2 and np.array_equal(p1, p2)
 
 
-@pytest.mark.parametrize("sched", ["gdm", "gdm_rt", "om_alg"])
-def test_plan_on_card_equals_cpu(sched):
-    _card()
-    inst = paper_workload(m=20, mu_bar=3, seed=0, scale=0.05,
-                          rooted=(sched == "gdm_rt"))
-    clear_caches()
-    bna_step.launches = coflow_merge.launches = 0
-    got = plan(inst, sched, device="cuda", seed=0)
-    assert bna_step.launches > 0 and coflow_merge.launches > 0
-    clear_caches()
-    want = plan(inst, sched, device="cpu", seed=0)
-    verify_transcript(inst, got.transcript())
+def _assert_plans_equal(got, want):
     assert got.twct() == want.twct()
     assert got.job_completions() == want.job_completions()
     a = transcript_to_arrays(got.transcript())
@@ -123,16 +116,120 @@ def test_plan_on_card_equals_cpu(sched):
         assert all(np.array_equal(u, v) for u, v in zip(x[4:], y[4:]))
 
 
+@pytest.mark.parametrize("sched", ["gdm", "gdm_rt", "om_alg"])
+def test_plan_on_card_equals_cpu(sched):
+    """The python plan path on the card: bna_step and coflow_merge."""
+    _card()
+    inst = paper_workload(m=20, mu_bar=3, seed=0, scale=0.05,
+                          rooted=(sched == "gdm_rt"))
+    clear_caches()
+    bna_step.launches = coflow_merge.launches = 0
+    got = plan(inst, sched, device="cuda", plan_backend="python", seed=0)
+    assert bna_step.launches > 0 and coflow_merge.launches > 0
+    clear_caches()
+    want = plan(inst, sched, device="cpu", seed=0)
+    verify_transcript(inst, got.transcript())
+    _assert_plans_equal(got, want)
+
+
+@pytest.mark.parametrize("sched", ["gdm", "gdm_rt", "om_alg"])
+def test_pipeline_plan_on_card_equals_cpu(sched):
+    """The pipeline plan path, the card's default: bna_decompose and
+    merge_fix, no host repair, no bna_step."""
+    _card()
+    inst = paper_workload(m=20, mu_bar=3, seed=0, scale=0.05,
+                          rooted=(sched == "gdm_rt"))
+    clear_caches()
+    bna_step.launches = coflow_merge.launches = 0
+    bna_decompose.launches = merge_fix.launches = 0
+    got = plan(inst, sched, device="cuda", seed=0)
+    stats = cache_stats()
+    assert bna_decompose.launches > 0 and merge_fix.launches > 0
+    assert bna_step.launches == 0 and coflow_merge.launches == 0
+    assert stats["bna"]["repairs"] == 0
+    assert stats["plan"]["decompose"]["bucket_fallbacks"] == 0
+    for pb in ("pipeline", "python"):
+        clear_caches()
+        want = plan(inst, sched, device="cpu", plan_backend=pb, seed=0)
+        _assert_plans_equal(got, want)
+
+
 def test_plan_without_caches_launches_bna_step_on_card():
     """No prefetch (caches off): each coflow's decomposition still runs
     the kernel."""
     _card()
     inst = paper_workload(m=20, mu_bar=3, seed=0, scale=0.05)
     clear_caches()
-    want = plan(inst, "gdm", device="cuda", seed=0)
+    want = plan(inst, "gdm", device="cuda", plan_backend="python", seed=0)
     bna_step.launches = 0
     with no_caches():
-        got = plan(inst, "gdm", device="cuda", seed=0)
+        got = plan(inst, "gdm", device="cuda", plan_backend="python",
+                   seed=0)
     assert bna_step.launches > 0
     assert got.twct() == want.twct()
     assert got.job_completions() == want.job_completions()
+
+
+def _random_bucket(rng, B, w, density):
+    d = np.zeros((B, w, w), np.int32)
+    ks = np.zeros(B, np.int32)
+    for b in range(B - 1):                          # the last lane is empty
+        k = w if b == 0 else int(rng.integers(1, w + 1))
+        x = rng.integers(0, 40, size=(k, k))
+        x[rng.random((k, k)) > density] = 0
+        d[b, :k, :k] = x
+        ks[b] = k
+    nnz = int((d > 0).sum(axis=(1, 2)).max())
+    T_cap = 1 << (nnz + 6 * w + 8 - 1).bit_length()
+    return torch.from_numpy(d), torch.from_numpy(ks), T_cap
+
+
+@pytest.mark.parametrize("B,w,density,t_store", [
+    (3, 1, 1.0, None), (4, 2, 0.7, None), (5, 8, 0.5, 3), (6, 64, 0.2, None),
+    (3, 256, 0.02, 40), (2, 512, 0.003, None)])
+def test_bna_decompose_kernel_equals_plain(B, w, density, t_store):
+    dev = _card()
+    d, ks, T_cap = _random_bucket(np.random.default_rng(w), B, w, density)
+    want = bna_decompose_ref(d, ks, T_cap)
+    before = bna_decompose.launches
+    got = bna_decompose(d.to(dev), ks.to(dev), T_cap, t_store=t_store)
+    torch.cuda.synchronize()
+    assert bna_decompose.launches > before
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("E,m", [(1, 2), (400, 7), (20_000, 150)])
+def test_merge_fix_kernel_equals_plain(E, m):
+    dev = _card()
+    rng = np.random.default_rng(E)
+    t0 = rng.integers(0, 10**6, E)
+    t1 = t0 + rng.integers(1, 5000, E)
+    args = [torch.as_tensor(a, dtype=torch.int64) for a in (
+        np.unique(np.concatenate([t0, t1])), t0, t1,
+        rng.integers(0, m, E), rng.integers(0, m, E))]
+    want = merge_fix_ref(*args, m)
+    before = merge_fix.launches
+    got = merge_fix(*[a.to(dev) for a in args], m)
+    torch.cuda.synchronize()
+    assert merge_fix.launches == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+
+
+def test_refused_launch_raises():
+    """A launch the card refuses (the scan's row tile of 32 x 2m int32
+    exceeds a block's shared memory at 2m = 2000) raises; nothing falls
+    back and nothing is counted."""
+    dev = _card()
+    m = 1000
+    ev = torch.arange(3, dtype=torch.int64, device=dev)
+    e = torch.zeros(1, dtype=torch.int64, device=dev)
+    before = merge_fix.launches
+    with pytest.raises(RuntimeError, match="merge_fix kernel launch failed"):
+        merge_fix(ev, e, e + 1, e, e, m)
+    assert merge_fix.launches == before
+    with pytest.raises(ValueError, match="w <= 1024"):
+        bna_decompose(torch.zeros((1, 2048, 2048), dtype=torch.int32,
+                                  device=dev),
+                      torch.ones(1, dtype=torch.int32, device=dev), 8)

@@ -1,0 +1,422 @@
+"""The port's planning pipeline (src/repro_torch/core/pipeline.py, the plan
+backend ``"pipeline"``) against the reference's jit plan backend
+(src/repro/core/pipeline.py), on the CPU: the plain versions of the
+``bna_decompose`` and ``merge_fix`` kernels, the bucket decomposition, the
+RLE, the load vectors and whole plans must equal the reference's exactly
+(all the arithmetic is integer).  The reference's compiled bucket program
+runs under ``jax.jit`` on the CPU, its merge_fix in Pallas interpret mode,
+as tests/test_pipeline.py and tests/test_kernels.py run them.  The CUDA
+kernels are held against the plain versions on the card in
+tests/test_torch_cuda.py."""
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import repro.core as ref
+from repro import scenarios
+from repro.core import backend as ref_backend
+from repro.core import pipeline as ref_pipeline
+from repro.core.bna import support_restrict as ref_support_restrict
+from repro.core.matching import bucket_width as ref_bucket_width
+from repro.kernels.merge_fix import merge_fix_step as ref_merge_fix_step
+from repro.kernels.merge_fix.ref import merge_fix_ref as ref_merge_fix_ref
+from repro_torch.core import (backend, cache_stats, clear_caches,
+                              instance_from_arrays, instance_to_arrays,
+                              make_scheduler, no_caches, plan,
+                              transcript_to_arrays, verify_transcript)
+from repro_torch.core import pipeline
+from repro_torch.kernels.bna_decompose import bna_decompose
+from repro_torch.kernels.merge_fix import merge_fix, merge_fix_step
+from repro_torch.kernels.merge_fix.ref import merge_fix_ref
+
+SCHEDULERS = ("gdm", "gdm_rt", "om_alg")
+# tiny per-scenario sizes, as tests/test_scenarios.py
+TINY = {
+    "fb_like": dict(m=6, scale=0.03),
+    "fb_like_rt": dict(m=6, scale=0.03),
+    "alibaba_sparse": dict(m=6, scale=0.15),
+    "incast": dict(m=6, scale=0.1),
+    "shuffle_heavy": dict(m=6, scale=0.2),
+    "wide_shallow": dict(m=6, scale=0.2),
+    "deep_chain": dict(m=6, scale=0.25),
+    "online_poisson": dict(m=6, scale=0.03),
+    "dist_collectives": dict(m=8, scale=0.5),
+}
+
+
+# --------------------------------------------------------------------------
+# demand sets: the cases of tests/test_pipeline.py's decomposition tests
+# --------------------------------------------------------------------------
+
+def _width_bucket_demands():
+    rng = np.random.default_rng(7)
+    demands = [np.zeros((4, 4), np.int64),            # zero-demand coflow
+               np.array([[5]], np.int64),             # 1x1 singleton
+               np.zeros((1, 1), np.int64)]            # 1x1 zero
+    for m in (2, 3, 7, 8, 9, 16, 17):                 # bucket cuts 8|9, 16|17
+        d = rng.integers(0, 25, size=(m, m))
+        d[rng.random((m, m)) > 0.5] = 0
+        demands.append(d)
+    demands.append(np.diag(rng.integers(1, 9, 6)))    # permutation support
+    demands.append(np.eye(5, dtype=np.int64) * 3)     # another diagonal
+    return demands
+
+
+def _sparse_support_demands():
+    rng = np.random.default_rng(11)
+    demands = []
+    for m, k in ((12, 2), (16, 3), (20, 5)):
+        d = np.zeros((m, m), np.int64)
+        rows = rng.choice(m, size=k, replace=False)
+        cols = rng.choice(m, size=k, replace=False)
+        for a in rows:
+            for b in cols:
+                if rng.random() < 0.7:
+                    d[a, b] = int(rng.integers(1, 30))
+        demands.append(d)
+    return demands
+
+
+DEMAND_SETS = {"width_buckets": _width_bucket_demands,
+               "sparse_support": _sparse_support_demands}
+
+
+def _buckets(demands):
+    """The reference's bucket stacks for `demands`: (w, d (B_pad, w, w)
+    int32, ks (B_pad,) int32, T_cap), batch padded with all-zero lanes as
+    ``_decompose_bucket_jit`` pads it."""
+    by_w: dict = {}
+    for dem in demands:
+        sub, _, _ = ref_support_restrict(np.asarray(dem, np.int64))
+        if sub is not None:
+            by_w.setdefault(ref_bucket_width(sub.shape[0]), []).append(sub)
+    out = []
+    for w, subs in sorted(by_w.items()):
+        B_pad = ref_pipeline._pow2(len(subs))
+        nnz = max(int((s > 0).sum()) for s in subs)
+        d = np.zeros((B_pad, w, w), np.int32)
+        ks = np.zeros(B_pad, np.int32)
+        for i, s in enumerate(subs):
+            d[i, :s.shape[0], :s.shape[0]] = s
+            ks[i] = s.shape[0]
+        out.append((w, d, ks, ref_pipeline._pow2(nnz + 6 * w + 8)))
+    return out
+
+
+@pytest.mark.parametrize("cases", sorted(DEMAND_SETS))
+def test_bna_decompose_plain_equals_reference_program(cases):
+    for w, d, ks, T_cap in _buckets(DEMAND_SETS[cases]()):
+        fn = jax.jit(ref_pipeline._build_decompose(w, T_cap))
+        want_ts, want_pc, want_D = (np.asarray(x) for x in fn(d, ks))
+        ts, pc, D, n = bna_decompose(torch.from_numpy(d),
+                                     torch.from_numpy(ks), T_cap)
+        T = ts.shape[1]
+        assert np.array_equal(ts.numpy(), want_ts[:, :T]), f"w={w}: ts"
+        assert np.array_equal(pc.numpy(), want_pc[:, :T]), f"w={w}: pieces"
+        assert (want_ts[:, T:] == 0).all() and (want_pc[:, T:] == -1).all()
+        assert np.array_equal(D.numpy(), want_D), f"w={w}: D_final"
+        assert np.array_equal(n.numpy(), (want_ts > 0).sum(axis=1))
+
+
+@pytest.mark.parametrize("w,B,density", [(1, 3, 1.0), (2, 4, 0.7),
+                                         (8, 5, 0.5), (16, 6, 0.3),
+                                         (32, 3, 0.15)])
+def test_bna_decompose_plain_equals_reference_random(w, B, density):
+    """Random buckets with a full-width lane, narrower lanes and an
+    all-zero lane; stored in fewer steps than a lane takes, which only
+    changes memory."""
+    rng = np.random.default_rng(w)
+    d = np.zeros((B, w, w), np.int32)
+    ks = np.zeros(B, np.int32)
+    for b in range(B - 1):
+        k = w if b == 0 else int(rng.integers(1, w + 1))
+        x = rng.integers(0, 40, size=(k, k))
+        x[rng.random((k, k)) > density] = 0
+        d[b, :k, :k] = x
+        ks[b] = k
+    nnz = int((d > 0).sum(axis=(1, 2)).max())
+    T_cap = ref_pipeline._pow2(nnz + 6 * w + 8)
+    want = [np.asarray(x) for x in
+            jax.jit(ref_pipeline._build_decompose(w, T_cap))(d, ks)]
+    got = bna_decompose(torch.from_numpy(d), torch.from_numpy(ks), T_cap,
+                        t_store=2)
+    T = got[0].shape[1]
+    assert np.array_equal(got[0].numpy(), want[0][:, :T])
+    assert np.array_equal(got[1].numpy(), want[1][:, :T])
+    assert np.array_equal(got[2].numpy(), want[2])
+    assert int(got[3][B - 1]) == 0 and int(got[2][B - 1]) == 0
+
+
+def test_bna_decompose_rejects_bad_inputs():
+    d = torch.zeros((2, 4, 4), dtype=torch.int32)
+    ks = torch.full((2,), 4, dtype=torch.int32)
+    with pytest.raises(TypeError, match="int32"):
+        bna_decompose(d.long(), ks, 8)
+    with pytest.raises(ValueError, match="ks must be"):
+        bna_decompose(d, ks[:1], 8)
+    with pytest.raises(ValueError, match="T_cap"):
+        bna_decompose(d, ks, -1)
+    before = bna_decompose.launches
+    ts, pc, D, n = bna_decompose(d, ks, 8)
+    assert bna_decompose.launches == before        # CPU: plain version
+    assert ts.shape == (2, 0) and pc.shape == (2, 0, 4)
+    assert D.tolist() == [0, 0] and n.tolist() == [0, 0]
+
+
+# --------------------------------------------------------------------------
+# pipeline level: decompositions, RLE, load vectors
+# --------------------------------------------------------------------------
+
+def _ref_plan_decompositions(demands):
+    with ref_backend.use_plan_backend("jit"):
+        return ref_pipeline._plan_decompositions(demands)
+
+
+@pytest.mark.parametrize("cases", sorted(DEMAND_SETS))
+def test_plan_decompositions_equal_reference(cases):
+    demands = DEMAND_SETS[cases]()
+    want_p, want_e = _ref_plan_decompositions(demands)
+    got_p, got_e = pipeline._plan_decompositions(demands, device="cpu")
+    for i, (gp, wp, ge, we) in enumerate(zip(got_p, want_p, got_e, want_e)):
+        assert len(gp) == len(wp), f"demand {i}: piece count"
+        for (t1, p1), (t2, p2) in zip(gp, wp):
+            assert t1 == t2 and p1.dtype == p2.dtype \
+                and np.array_equal(p1, p2), f"demand {i}: pieces"
+        for name, a, b in zip(("t0", "t1", "s", "r"), ge, we):
+            assert a.dtype == b.dtype and np.array_equal(a, b), \
+                f"demand {i}: edge {name}"
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_rle_batch_equals_reference(seed):
+    rng = np.random.default_rng(seed)
+    B, T, w = 5, 12, 6
+    ts = rng.integers(1, 9, size=(B, T)).astype(np.int32)
+    pieces = rng.integers(-1, w, size=(B, T, w)).astype(np.int32)
+    pieces[:, 3:6, :] = pieces[:, 3:4, :]           # runs across steps
+    for b, n in enumerate((T, 7, 1, 0, 4)):          # lane prefixes
+        ts[b, n:] = 0
+        pieces[b, n:] = -1
+    want = ref_pipeline._rle_batch(ts, pieces)
+    got = pipeline._rle_batch(torch.from_numpy(ts), torch.from_numpy(pieces))
+    for a, b in zip(got, want):
+        assert a.dtype == np.int64 and np.array_equal(a, b)
+
+
+def test_steps_to_lists_equals_reference():
+    rng = np.random.default_rng(5)
+    ts = rng.integers(1, 9, size=(3, 6)).astype(np.int32)
+    pieces = rng.integers(-1, 4, size=(3, 6, 4)).astype(np.int32)
+    ts[1, 2:] = 0
+    ts[2, :] = 0
+    ks = [4, 3, 2]
+    want = ref_pipeline._steps_to_lists(ts, pieces, ks)
+    got = pipeline._steps_to_lists(torch.from_numpy(ts),
+                                   torch.from_numpy(pieces), ks)
+    assert [len(x) for x in got] == [len(x) for x in want] == [6, 2, 0]
+    for g, wnt in zip(got, want):
+        for (t1, p1), (t2, p2) in zip(g, wnt):
+            assert t1 == t2 and np.array_equal(p1, p2) \
+                and p1.dtype == p2.dtype
+
+
+@pytest.mark.parametrize("scen", ["fb_like", "incast", "dist_collectives"])
+def test_instance_load_vectors_equal_reference(scen):
+    built = scenarios.build(scen, seed=0, **TINY[scen])
+    with ref_backend.use_plan_backend("jit"):
+        want = ref_pipeline.instance_load_vectors(built.instance)
+    got = pipeline.instance_load_vectors(_port_instance(built.instance),
+                                         device="cpu")
+    assert got.dtype == want.dtype == np.float64
+    assert np.array_equal(got, want)
+
+
+def test_instance_load_vectors_int32_guard_returns_none():
+    from repro_torch.core import Coflow, Instance, Job
+
+    d = np.array([[2**31 - 1, 0], [0, 1]], np.int64)
+    inst = Instance(2, [Job(0, [Coflow(0, 0, d)], [], weight=1.0,
+                            release=0)])
+    assert pipeline.instance_load_vectors(inst, device="cpu") is None
+
+
+def test_overflow_bucket_takes_the_batched_path(monkeypatch):
+    """A bucket whose loads reach 2^31 - 1 leaves the bna_decompose path
+    for matching._bna_core_batch on the same device and is counted.  The
+    batched path stages int32 too and raises there (ROADMAP Queue 3: the
+    reference's numpy path decomposes such demands in int64)."""
+    clear_caches()
+    monkeypatch.setattr(pipeline, "_warned_overflow", False)
+    with pytest.warns(RuntimeWarning, match="exceed int32"):
+        with pytest.raises(ValueError, match="int32"):
+            pipeline._plan_decompositions(
+                [np.array([[2**31 - 1]], np.int64)], device="cpu")
+    stats = cache_stats()["plan"]["decompose"]
+    assert stats["bucket_fallbacks"] == 1 and stats["buckets"] == 0
+
+
+# --------------------------------------------------------------------------
+# merge_fix (K3) plain version
+# --------------------------------------------------------------------------
+
+def _edges(seed):
+    rng = np.random.default_rng(seed)
+    m = int(rng.integers(2, 30))
+    E = int(rng.integers(1, 400))
+    t0 = rng.integers(0, 250, E)
+    t1 = t0 + rng.integers(1, 50, E)
+    s = rng.integers(0, m, E)
+    r = rng.integers(0, m, E)
+    return np.unique(np.concatenate([t0, t1])), t0, t1, s, r, m
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_merge_fix_plain_equals_reference(seed):
+    events, t0, t1, s, r, m = _edges(seed)
+    al, de = merge_fix_step(events, t0, t1, s, r, m, device="cpu")
+    for use_kernel in (True, False):
+        ral, rde = ref_merge_fix_step(events, t0, t1, s, r, m,
+                                      use_kernel=use_kernel, block_k=64)
+        assert np.array_equal(al, ral) and np.array_equal(de, rde)
+    oal, ode = ref_merge_fix_ref(events, t0, t1, s, r, m)
+    assert np.array_equal(al, oal) and np.array_equal(de, ode)
+    assert al.dtype == de.dtype == np.int64
+
+
+def test_merge_fix_empty_and_int64_lens():
+    z = np.zeros(0, np.int64)
+    al, de = merge_fix_step(np.array([0], np.int64), z, z, z, z, 4,
+                            device="cpu")
+    ral, rde = ref_merge_fix_step(np.array([0], np.int64), z, z, z, z, 4)
+    assert al.size == de.size == ral.size == rde.size == 0
+    # interval lengths past int32: the reference's host int64 branch
+    t0 = np.array([0, 0], np.int64)
+    t1 = np.array([2**33, 2**32], np.int64)
+    s = np.array([0, 1], np.int64)
+    r = np.array([1, 0], np.int64)
+    events = np.unique(np.concatenate([t0, t1]))
+    al, de = merge_fix_step(events, t0, t1, s, r, 2, device="cpu")
+    ral, rde = ref_merge_fix_step(events, t0, t1, s, r, 2)
+    assert np.array_equal(al, ral) and np.array_equal(de, rde)
+    assert de.dtype == np.int64 and de.max() > 2**31
+
+
+def test_merge_fix_edge_count_guard_and_checks():
+    E = 2**31 - 1                      # one past the last exact count
+    big = np.broadcast_to(np.int64(0), (E,))      # a view, no memory
+    with pytest.raises(ValueError, match="2\\^31-1"):
+        merge_fix_step(np.arange(3), big, big, big, big, 2, device="cpu")
+    ev = torch.arange(4)
+    e = torch.zeros(3, dtype=torch.int64)
+    with pytest.raises(ValueError, match="int64"):
+        merge_fix(ev.int(), e, e, e, e, 2)
+    with pytest.raises(ValueError, match="entries"):
+        merge_fix(ev, e, e[:2], e, e, 2)
+    before = merge_fix.launches
+    got = merge_fix(ev, e, e + 1, e, e, 2)
+    assert merge_fix.launches == before            # CPU: plain version
+    want = merge_fix_ref(ev, e, e + 1, e, e, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# --------------------------------------------------------------------------
+# whole plans: port pipeline == reference jit == port python
+# --------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _tiny(name):
+    return scenarios.build(name, seed=0, **TINY[name])
+
+
+def _port_instance(ref_inst):
+    return instance_from_arrays(*instance_to_arrays(ref_inst))
+
+
+def _assert_plans_equal(got, want, ctx):
+    a = transcript_to_arrays(got.transcript())
+    b = transcript_to_arrays(want.transcript())
+    assert len(a) == len(b), f"{ctx}: {len(a)} entries != {len(b)}"
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert x[:4] == y[:4], f"{ctx}: entry {i} {x[:4]} != {y[:4]}"
+        for u, v in zip(x[4:], y[4:]):
+            assert u.dtype == v.dtype and np.array_equal(u, v), \
+                f"{ctx}: entry {i} differs"
+    assert got.job_completions() == want.job_completions(), ctx
+    assert got.twct() == want.twct(), ctx
+    assert got.makespan == want.makespan, ctx
+
+
+@pytest.mark.parametrize("sched", SCHEDULERS)
+@pytest.mark.parametrize("scen", sorted(TINY))
+def test_pipeline_plan_equals_reference_jit_and_python(scen, sched):
+    built = _tiny(scen)
+    opts = scenarios.scheduler_opts(sched, built.meta)
+    with ref_backend.use_plan_backend("jit"):
+        ref_backend.clear_caches()
+        want = ref.plan(built.instance, sched, seed=0, **opts)
+    inst = _port_instance(built.instance)
+    clear_caches()
+    got = plan(inst, sched, device="cpu", plan_backend="pipeline", seed=0,
+               **opts)
+    stats = cache_stats()
+    assert stats["plan"]["decompose"]["buckets"] > 0
+    assert stats["bna"]["steps"] == 0 and stats["bna"]["repairs"] == 0
+    _assert_plans_equal(got, want, f"{scen}/{sched}/pipeline vs jit")
+    clear_caches()
+    py = plan(inst, sched, device="cpu", plan_backend="python", seed=0,
+              **opts)
+    assert cache_stats()["plan"]["decompose"]["buckets"] == 0
+    _assert_plans_equal(got, py, f"{scen}/{sched}/pipeline vs python")
+    verify_transcript(inst, got.transcript())
+
+
+@pytest.mark.parametrize("sched,opts", [
+    ("gdm", dict(delays="spread", decompose=True)),
+    ("gdm_rt", dict(nested=False)),
+    ("om_alg", dict(decompose=True)),
+])
+def test_pipeline_plan_options_equal_reference(sched, opts):
+    built = _tiny("fb_like_rt")
+    with ref_backend.use_plan_backend("jit"):
+        ref_backend.clear_caches()
+        want = ref.plan(built.instance, sched, **opts)
+    clear_caches()
+    got = plan(_port_instance(built.instance), sched, device="cpu",
+               plan_backend="pipeline", **opts)
+    _assert_plans_equal(got, want, f"{sched}/{opts}")
+
+
+def test_plan_backend_default_follows_device_and_is_validated():
+    assert make_scheduler("gdm", device="cpu").plan_backend == "python"
+    assert backend.resolve_plan_backend(None, "cuda") == "pipeline"
+    assert backend.resolve_plan_backend(None, "cpu") == "python"
+    assert make_scheduler("gdm", device="cpu",
+                          plan_backend="pipeline").plan_backend == "pipeline"
+    with pytest.raises(ValueError, match="unknown plan backend"):
+        make_scheduler("gdm", device="cpu", plan_backend="jit")
+
+
+def test_pipeline_caches_warm_clear_and_switch_off():
+    built = _tiny("incast")
+    inst = _port_instance(built.instance)
+    clear_caches()
+    cold = plan(inst, "gdm", device="cpu", plan_backend="pipeline", seed=0)
+    edges = cache_stats()["plan"]["edges"]
+    assert edges["size"] > 0 and edges["hits"] > 0
+    warm = plan(inst, "gdm", device="cpu", plan_backend="pipeline", seed=0)
+    _assert_plans_equal(warm, cold, "warm vs cold")
+    assert cache_stats()["plan"]["decompose"]["batches"] == 1
+    with no_caches():
+        assert pipeline.edge_cache.maxsize == 0
+        off = plan(inst, "gdm", device="cpu", plan_backend="pipeline",
+                   seed=0)
+        assert len(pipeline.edge_cache) == 0
+    _assert_plans_equal(off, cold, "no_caches vs cached")
+    assert pipeline.edge_cache.maxsize == backend.bna_cache.maxsize > 0
+    clear_caches()
+    assert len(pipeline.edge_cache) == 0
+    assert cache_stats()["plan"]["decompose"] == {
+        "launches": 0, "buckets": 0, "batches": 0, "bucket_fallbacks": 0}

@@ -182,9 +182,11 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch\n"
         "from repro_torch.core import paper_workload, plan\n"
         "inst = paper_workload(m=8, mu_bar=3, seed=0, scale=0.04)\n"
-        "for s in ('gdm', 'om_alg'):\n"
-        "    plan(inst, s, device='cpu', seed=0)\n"
-        "plan(inst, 'gdm_rt', device='cpu', seed=0, require_tree=False)\n"
+        "for pb in ('python', 'pipeline'):\n"
+        "    for s in ('gdm', 'om_alg'):\n"
+        "        plan(inst, s, device='cpu', plan_backend=pb, seed=0)\n"
+        "    plan(inst, 'gdm_rt', device='cpu', plan_backend=pb, seed=0,\n"
+        "         require_tree=False)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith('jax.') or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"
