@@ -5,14 +5,18 @@
 
 Phases; any failure exits non-zero and prints no result line:
 
-1. Build the four kernels from the sources in the checkout (one ``nvcc``
+1. Build the five kernels from the sources in the checkout (one ``nvcc``
    per source, started together) and print ``-Xptxas -v``'s registers and
    shared memory per kernel.
 2. Hold ``bna_step`` against its plain PyTorch version on the card, for
    exact equality, on random states (B in {1, 37, 256}, w in {1, 8, 64,
-   256}, drained matrices included); and ``bna_decompose`` on random
-   buckets (w in {1, 2, 8, 64, 256}: all-zero lanes, sparse support,
-   lanes of one step, stacks stored short so the wrapper relaunches).
+   256}, drained matrices included), its int64 instance on random states
+   with effective sizes past 2^31, and the demand ``[[2^31 - 1]]`` through
+   the pipeline's int32-overflow branch (the int64 instance, equal to the
+   CPU and to the reference's ``[(2147483647, [0])]``); and
+   ``bna_decompose`` on random buckets (w in {1, 2, 8, 64, 256}: all-zero
+   lanes, sparse support, lanes of one step, stacks stored short so the
+   wrapper relaunches).
 3. Python plan path, checked: gdm at the main path's size with every
    ``bna_step`` launch held against the plain version on a clone of the
    same state and every ``coflow_merge`` call against the plain version on
@@ -37,13 +41,37 @@ Phases; any failure exits non-zero and prints no result line:
    BNA.
 6. gdm and om_alg at ``scale=1.0`` (the paper's 267 coflows) through the
    pipeline on the card: feasible, 0 host repairs, 0 overflow buckets.
-7. Time each kernel at the largest shapes the main path gave it (CUDA
+7. ``flash_attention`` (K4) against its plain version on the card, float32
+   and bfloat16, causal and not, at the reference sweep's shapes and
+   qwen3-1.7b's prefill shapes (B=1, Hq=16, Hkv=8, d=128, S in {1, 127,
+   2048}).  Tolerances: 2e-5 in float32 (the reference's test; the sums
+   run in another order), 4e-2 in bfloat16 (both round a float32 result to
+   bfloat16, so they may differ by an ulp of values up to a few units).
+8. Serve qwen3-1.7b at its published full width (28 layers, d_model 2048,
+   vocab 151936, bf16; 2.03 B parameters from seed 0) with
+   ``ServingEngine(ServeConfig(slots=4, capacity=4096, admission="fifo"))``:
+   a checked prefill first holds every K4 launch (28) against the plain
+   version on the same q/k/v; then, with the counts set to 0, 8 requests
+   (prompts of 512-3072 tokens, 32 new tokens each) must all complete with
+   28 K4 launches per prefill.  Prints prefill seconds per request, decode
+   ms per token, tokens/s and the peak device memory.
+9. The same full-width weights on the CPU (the plain path): one 64-token
+   prefill on the card and on the CPU, last-position logits within 5% of
+   the largest logit (bf16 keeps 8 bits: its unit roundoff is 2^-9, and the
+   two devices round at other places in each of 28 layers), and whether
+   the argmax agrees.
+10. Time each kernel at the largest shapes the main path gave it (CUDA
    events for the asynchronous ones; host clock around the call for
    ``bna_decompose``, whose wrapper reads the step counts back), beside
-   its plain version and its bound (bytes moved over the card's
-   3.35 TB/s), and print the ``kernels`` line, the plan wall times and
-   counts, and the card's name and power limit.  The last line is the
-   result line.
+   its plain version and its bound (the larger of bytes over the card's
+   3.35 TB/s and operations over its peak rate); K4 also at S=32768 (the
+   ``prefill_32k`` sequence length) and beside
+   ``scaled_dot_product_attention``.  Print the ``kernels`` line, the plan
+   and serve timings and counts, and the card's name and power limit.  The
+   last line is the result line.
+
+float32 matrix products run in full float32 (``allow_tf32`` is set False,
+PyTorch's default, for matmul and cuDNN).
 
 The full record also goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -58,12 +86,17 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
+BF16_FLOPS = 989e12                 # H100 SXM dense bf16 tensor-core peak
 # gdm_rt at 0.25 spends minutes in the host fix-up BNA (timeline._decompose
 # on 150 x 150 merged matrices) on each of its runs, so the time limit cuts
 # it to 0.1; gdm and om_alg keep 0.25
 SCALES = {"gdm": 0.25, "gdm_rt": 0.1, "om_alg": 0.25}
 FULL_SCALE = ("gdm", "om_alg")      # planned at scale 1.0 on the pipeline
-KERNELS = ("bna_step", "coflow_merge", "bna_decompose", "merge_fix")
+KERNELS = ("bna_step", "coflow_merge", "bna_decompose", "merge_fix",
+           "flash_attention")
+SERVE_ARCH = "qwen3-1.7b"
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 4e-2}
+LOGIT_TOL = 0.05                    # of the largest logit, bf16 card vs CPU
 
 
 def _fail(msg: str) -> None:
@@ -117,6 +150,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import kernels
+    from repro_torch.models.lm import tree_leaves
     from repro_torch.core import (backend, bna, bna_many, cache_stats,
                                   clear_caches, matching, no_caches,
                                   paper_workload, pipeline, plan,
@@ -124,16 +158,21 @@ def main() -> int:
                                   verify_transcript)
     from repro_torch.kernels.bna_decompose import bna_decompose
     from repro_torch.kernels.bna_decompose.ref import bna_decompose_ref
-    from repro_torch.kernels.bna_step import bna_step, stage_int32
+    from repro_torch.kernels.bna_step import bna_step, stage_state
     from repro_torch.kernels.bna_step.ref import bna_step_ref
     from repro_torch.kernels.coflow_merge import coflow_merge
     from repro_torch.kernels.coflow_merge.ref import alphas_ref, build_delta
     from repro_torch.kernels.merge_fix import merge_fix
     from repro_torch.kernels.merge_fix.ref import merge_fix_ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     wrappers = {"bna_step": bna_step, "coflow_merge": coflow_merge,
-                "bna_decompose": bna_decompose, "merge_fix": merge_fix}
+                "bna_decompose": bna_decompose, "merge_fix": merge_fix,
+                "flash_attention": flash_attention}
     record: dict = {"device": torch.cuda.get_device_name(0)}
     t_start = time.perf_counter()
 
@@ -194,13 +233,52 @@ def main() -> int:
     rng = np.random.default_rng(0)
     for B in (1, 37, 256):
         for w in (1, 8, 64, 256):
-            state = stage_int32(*random_state(rng, B, w), dev)
+            state = stage_state(*random_state(rng, B, w), dev)
             note("bna_step", step_err(list(state)),
                  f"a random state (B={B}, w={w})")
+    n_step_i32 = checked["bna_step"]
+    for B in (1, 37):
+        for w in (1, 8, 64, 256):
+            d, row, col, D, match = random_state(rng, B, w)
+            d = d * (2**33 + 1)
+            d[-1, 0, 0] = 2**33
+            row, col = d.sum(axis=2), d.sum(axis=1)
+            D = np.maximum(row.max(axis=1), col.max(axis=1))
+            state = stage_state(d, row, col, D, match, dev)
+            if state[0].dtype != torch.int64:
+                _fail("a state past 2^31 was not staged int64")
+            note("bna_step", step_err(list(state)),
+                 f"a random int64 state (B={B}, w={w})")
     n_step_random = checked["bna_step"]
     torch.cuda.synchronize()
-    print(f"bna_step: equal to the plain version on {n_step_random} random "
-          f"states (B in 1/37/256, w in 1/8/64/256)")
+    print(f"bna_step: equal to the plain version on {n_step_i32} random "
+          f"int32 states (B in 1/37/256, w in 1/8/64/256) and "
+          f"{n_step_random - n_step_i32} int64 states (effective sizes "
+          "past 2^31)")
+
+    overflow = [np.array([[2**31 - 1]], np.int64)]
+    clear_caches()
+    bna_step.launches = 0
+    got_o = pipeline._plan_decompositions(overflow, device="cuda")
+    torch.cuda.synchronize()
+    n_i64 = bna_step.launches
+    fallbacks = cache_stats()["plan"]["decompose"]["bucket_fallbacks"]
+    clear_caches()
+    want_o = pipeline._plan_decompositions(overflow, device="cpu")
+    as_lists = [[(int(t), p.tolist()) for t, p in r[0][0]] for r in
+                (got_o, want_o)]
+    if not (n_i64 and fallbacks == 1
+            and as_lists[0] == as_lists[1] == [(2**31 - 1, [0])]
+            and all(np.array_equal(x, y)
+                    for x, y in zip(got_o[1][0], want_o[1][0]))):
+        _fail(f"[[2^31 - 1]] on the card: {as_lists[0]}, {n_i64} bna_step "
+              f"launches, {fallbacks} overflow buckets")
+    record["overflow_bucket"] = {"pieces": as_lists[0],
+                                 "bna_step_int64_launches": n_i64,
+                                 "bucket_fallbacks": fallbacks}
+    print(f"[[2^31 - 1]] through the pipeline's overflow branch on the card: "
+          f"{as_lists[0]} ({n_i64} int64 bna_step launch), equal to the CPU "
+          "and to the reference's result")
 
     def random_bucket(rng, w, density):
         """Lanes: full width, random narrower widths, one lane of one step
@@ -544,7 +622,225 @@ def main() -> int:
     print(f"bna_many on the card equals the scalar BNA on {len(small)} "
           "coflows")
 
-    # 7. timings ------------------------------------------------------------
+    # 7. flash_attention (K4) against its plain version --------------------
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_lm, layers, prefill
+    from repro_torch.models.lm import tree_map
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    from repro_torch.serve import engine as serve_engine
+
+    def attn_err(q, k, v, causal, scale=None) -> float:
+        got = flash_attention(q, k, v, causal=causal, scale=scale)
+        want = attention_ref(q, k, v, causal=causal, scale=scale)
+        if got.dtype != q.dtype or got.shape != q.shape:
+            return float("inf")
+        return float((got.float() - want.float()).abs().max())
+
+    def note_attn(err: float, dtype, what: str) -> None:
+        name = str(dtype).split(".")[-1]
+        max_err["flash_attention"] = max(max_err["flash_attention"], err)
+        checked["flash_attention"] += 1
+        if not err < ATTN_TOL[name]:
+            _fail(f"flash_attention != plain version on {what} "
+                  f"({name}, max |diff| {err} >= {ATTN_TOL[name]})")
+
+    attn_shapes = [(1, 2, 2, 16, 16, 32), (2, 4, 2, 33, 33, 24),
+                   (1, 8, 2, 64, 128, 48), (1, 4, 1, 1, 96, 64),
+                   (1, 4, 4, 48, 48, 128)] + \
+        [(1, 16, 8, S, S, 128) for S in (1, 127, 2048)]
+    arng = np.random.default_rng(7)
+    for shape in attn_shapes:
+        B, Hq, Hkv, Sq, Sk, d = shape
+        arrays = [arng.normal(size=sz).astype(np.float32) for sz in
+                  ((B, Hq, Sq, d), (B, Hkv, Sk, d), (B, Hkv, Sk, d))]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.as_tensor(a).to(dev, dtype) for a in arrays)
+            for causal in (True, False):
+                note_attn(attn_err(q, k, v, causal), dtype,
+                          f"shape {shape}, causal={causal}")
+    torch.cuda.synchronize()
+    print(f"flash_attention: within tolerance of the plain version on "
+          f"{checked['flash_attention']} cases (8 shapes x f32/bf16 x "
+          f"causal or not; max |diff| {max_err['flash_attention']:.3g})")
+
+    # 8. serve qwen3-1.7b at full width -------------------------------------
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    srng = np.random.default_rng(0)
+    serve_reqs = [Request(rid=i, tokens=srng.integers(
+        1, cfg.vocab, size=int(srng.integers(512, 3073))), max_new=32,
+        weight=float(srng.uniform(0.5, 2.0)), arrival=float(i // 2))
+        for i in range(8)]
+    prompt_lens = [len(r.tokens) for r in serve_reqs]
+
+    # a checked prefill of the first prompt: every K4 launch against the
+    # plain version on the same q, k, v
+    orig_fa = layers.flash_attention
+    n_before = checked["flash_attention"]
+
+    def checked_fa(q, k, v, *, causal=True, scale=None):
+        out = orig_fa(q, k, v, causal=causal, scale=scale)
+        want = attention_ref(q, k, v, causal=causal, scale=scale)
+        note_attn(float((out.float() - want.float()).abs().max()), q.dtype,
+                  f"a full-width prefill layer (S={q.shape[2]})")
+        return out
+
+    layers.flash_attention = checked_fa
+    try:
+        with torch.inference_mode():
+            prefill(cfg, params, torch.as_tensor(
+                serve_reqs[0].tokens, device=dev)[None])
+        torch.cuda.synchronize()
+    finally:
+        layers.flash_attention = orig_fa
+    n_layer_checks = checked["flash_attention"] - n_before
+    if n_layer_checks != cfg.n_layers:
+        _fail(f"checked prefill made {n_layer_checks} K4 calls, expected "
+              f"{cfg.n_layers}")
+    print(f"checked full-width prefill (S={prompt_lens[0]}): all "
+          f"{n_layer_checks} flash_attention launches within tolerance of "
+          "the plain version")
+
+    serve_t = {"prefill_s": [], "decode_s": []}
+
+    def timed(fn, key):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            serve_t[key].append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    eng = ServingEngine(cfg, params, ServeConfig(slots=4, capacity=4096,
+                                                 admission="fifo"))
+    orig_serve = (serve_engine.prefill, serve_engine.decode_step)
+    serve_engine.prefill = timed(orig_serve[0], "prefill_s")
+    serve_engine.decode_step = timed(orig_serve[1], "decode_s")
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = eng.run(serve_reqs)
+        torch.cuda.synchronize()
+        serve_wall = time.perf_counter() - t0
+        serve_launches = read_counts()
+    finally:
+        serve_engine.prefill, serve_engine.decode_step = orig_serve
+    peak_bytes = torch.cuda.max_memory_allocated()
+    n_tokens = sum(len(r.out) for r in serve_reqs)
+    if stats["completed"] != len(serve_reqs) or any(
+            len(r.out) != r.max_new or not all(0 <= t < cfg.vocab
+                                               for t in r.out)
+            for r in serve_reqs):
+        _fail(f"serve: {stats} (every request must complete with "
+              f"{serve_reqs[0].max_new} tokens in the vocabulary)")
+    if serve_launches["flash_attention"] != cfg.n_layers * len(serve_reqs):
+        _fail(f"serve: {serve_launches['flash_attention']} flash_attention "
+              f"launches, expected {cfg.n_layers} per prefill")
+    record["serve"] = {
+        "arch": cfg.name, "params": n_params, "init_s": init_s,
+        "requests": len(serve_reqs), "prompt_lens": prompt_lens,
+        "max_new": 32, "stats": stats, "wall_s": serve_wall,
+        "prefill_s": serve_t["prefill_s"],
+        "decode_ms_per_token": statistics.median(serve_t["decode_s"]) * 1e3,
+        "decode_ms_per_token_mean":
+            sum(serve_t["decode_s"]) / len(serve_t["decode_s"]) * 1e3,
+        "decode_steps": len(serve_t["decode_s"]),
+        "tokens": n_tokens, "tokens_per_s": n_tokens / serve_wall,
+        "max_memory_allocated": peak_bytes, "launches": serve_launches}
+    print(f"serve {cfg.name} (full width, {n_params} parameters, bf16): "
+          f"{stats}, {n_tokens} tokens in {serve_wall:.2f} s "
+          f"({n_tokens / serve_wall:.1f} tokens/s); prefill s per request "
+          f"{[round(x, 4) for x in serve_t['prefill_s']]} for prompts "
+          f"{prompt_lens}; decode ms per token (median) "
+          f"{record['serve']['decode_ms_per_token']:.2f}; peak memory "
+          f"{peak_bytes / 2**30:.2f} GiB; launches {serve_launches}")
+
+    # where a request's device time goes: one prefill of the longest prompt
+    # and 8 decode ticks of its slot under torch.profiler.  Device time is
+    # summed over the kernel events only (an aten op's own device time
+    # repeats its kernels'); the profiler slows the host, so the busy share
+    # of decode is taken against the unprofiled run's median tick below
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(events) -> float:
+        return sum(e.self_device_time_total for e in events
+                   if e.device_type == DeviceType.CUDA)
+
+    longest = serve_reqs[int(np.argmax(prompt_lens))]
+    ptoks = torch.as_tensor(longest.tokens, device=dev)[None]
+    breakdown = {}
+    with torch.inference_mode():
+        for label, steps in (("prefill", 0), ("decode", 8)):
+            _, pc = prefill(cfg, params, ptoks)
+            pc = eng._pad_cache(pc, ptoks.shape[1])
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                if steps == 0:
+                    int(torch.argmax(prefill(cfg, params, ptoks)[0][0]))
+                tok = torch.tensor([[1]], device=dev)
+                for _ in range(steps):
+                    lg, pc = decode_step(cfg, params, pc, tok)
+                    tok = torch.argmax(lg, dim=-1, keepdim=True)
+                    int(tok)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            ka = prof.key_averages()
+            total = device_us(ka)
+            k4 = device_us([e for e in ka if "flash_attention" in e.key])
+            top = sorted(ka, key=lambda e: -device_us([e]))[:6]
+            breakdown[label] = {
+                "wall_ms": wall_us / 1e3, "device_ms": total / 1e3,
+                "busy_share": total / wall_us if total else None,
+                "device_ms_per_tick": total / 1e3 / max(steps, 1),
+                "flash_attention_ms": k4 / 1e3,
+                "top_device_ms": {e.key[:60]: device_us([e]) / 1e3
+                                  for e in top}}
+    breakdown["decode"]["busy_share_unprofiled"] = \
+        breakdown["decode"]["device_ms_per_tick"] \
+        / record["serve"]["decode_ms_per_token"]
+    record["serve_profile"] = {"prompt_len": int(ptoks.shape[1]),
+                               "decode_steps": 8, **breakdown}
+    print("serve profile (one prefill at S="
+          f"{ptoks.shape[1]}; 8 decode ticks of one slot): "
+          + json.dumps(breakdown))
+
+    # 9. the same weights on the CPU ----------------------------------------
+    toks = torch.as_tensor(np.random.default_rng(9).integers(
+        1, cfg.vocab, size=(1, 64)))
+    with torch.inference_mode():
+        lg_card = prefill(cfg, params, toks.to(dev))[0].float().cpu()
+        cpu_params = tree_map(lambda x: x.cpu(), params)
+        t0 = time.perf_counter()
+        lg_cpu = prefill(cfg, cpu_params, toks)[0].float()
+        cpu_prefill_s = time.perf_counter() - t0
+    del cpu_params
+    diff = float((lg_card - lg_cpu).abs().max())
+    scale_l = float(lg_cpu.abs().max())
+    agree = int(lg_card.argmax()) == int(lg_cpu.argmax())
+    record["cpu_compare"] = {"tokens": 64, "max_abs_diff": diff,
+                             "max_abs_logit": scale_l,
+                             "argmax_agrees": agree,
+                             "cpu_prefill_s": cpu_prefill_s}
+    if not (np.isfinite(diff) and diff <= LOGIT_TOL * scale_l):
+        _fail(f"full-width logits, card vs CPU: max |diff| {diff} > "
+              f"{LOGIT_TOL} x {scale_l}")
+    print(f"full-width 64-token prefill, card vs CPU: last-position logits "
+          f"max |diff| {diff:.4g} (largest logit {scale_l:.4g}, tolerance "
+          f"{LOGIT_TOL:.0%} of it); argmax agrees: {agree}; CPU prefill "
+          f"{cpu_prefill_s:.1f} s")
+
+    # 10. timings -----------------------------------------------------------
     kernels_line = []
     _, state = largest["bna_step"]
     B, w = state[0].shape[0], state[0].shape[1]
@@ -635,6 +931,60 @@ def main() -> int:
         "bound_ms": 8 * (Ks + 1 + 4 * E + 2 * Ks) / HBM_BYTES_PER_S * 1e3}
     print(f"merge_fix at K={Ks}, 2m={2 * m_syn}, E={E}: "
           f"{json.dumps(record['merge_fix_1e5'])}")
+    import torch.nn.functional as F
+
+    def attn_bound_ms(B, Hq, Hkv, S, d, nbytes) -> float:
+        flops = 4 * B * Hq * S * S * d / 2           # causal: half the keys
+        moved = nbytes * d * S * B * (2 * Hq + 2 * Hkv)   # q, o, k, v once
+        return max(flops / BF16_FLOPS, moved / HBM_BYTES_PER_S) * 1e3
+
+    def attn_timing(S, reps, plain):
+        Hq, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        g = torch.Generator(device=dev).manual_seed(S)
+        q, k, v = (torch.randn((1, h, S, d), generator=g, device=dev)
+                   .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+        scale = d ** -0.5
+        row = {"shape": [1, Hq, Hkv, S, S, d], "dtype": "bfloat16",
+               "causal": True,
+               "ms": _cuda_ms(lambda: flash_attention(q, k, v, scale=scale),
+                              reps=reps, rounds=3),
+               "plain_ms": _cuda_ms(lambda: plain(q, k, v, scale),
+                                    reps=reps, rounds=3),
+               "library_ms": _cuda_ms(
+                   lambda: F.scaled_dot_product_attention(
+                       q, k, v, is_causal=True, scale=scale,
+                       enable_gqa=True), reps=reps, rounds=3),
+               "bound_ms": attn_bound_ms(1, Hq, Hkv, S, d, 2),
+               "bound_by": "operations"}
+        row["tflops"] = 4 * Hq * S * S * d / 2 / row["ms"] / 1e9
+        return row
+
+    S_main = max(prompt_lens)
+    attn_main = attn_timing(
+        S_main, 10, lambda q, k, v, sc: attention_ref(q, k, v, scale=sc))
+    # attention_ref would hold (16 x 32768^2) float32 scores; the plain
+    # version at 32k is the chunked one the CPU path takes for long
+    # sequences (layers._attn_chunked, the same function)
+    attn_32k = attn_timing(
+        32768, 2, lambda q, k, v, sc: layers._attn_chunked(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), True,
+            sc, cfg.attn_chunk))
+    record["flash_attention_32k"] = attn_32k
+    kernels_line.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:79",
+        "launches": serve_launches["flash_attention"],
+        "max_abs_err": max_err["flash_attention"],
+        "ms": attn_main["ms"], "plain_ms": attn_main["plain_ms"],
+        "bound_ms": attn_main["bound_ms"], "bound_by": "operations",
+        "library_ms": attn_main["library_ms"],
+        "checked_calls": checked["flash_attention"],
+        "shape": attn_main["shape"], "dtype": "bfloat16",
+        "tflops": attn_main["tflops"]})
+    print(f"flash_attention at S={S_main}: {json.dumps(attn_main)}")
+    print(f"flash_attention at S=32768: {json.dumps(attn_32k)}")
     record["kernels"] = kernels_line
 
     smi = subprocess.run(
@@ -661,6 +1011,10 @@ def main() -> int:
                    [r["step_s"], r["repair_s"]],
                    [r["step_s_cpu"], r["repair_s_cpu"]]]
                for s, r in runs.items()}))
+    print("serve (full width): " + json.dumps(
+        {k: record["serve"][k] for k in ("prefill_s", "decode_ms_per_token",
+                                         "tokens_per_s",
+                                         "max_memory_allocated")}))
     print(f"total {record['total_s']:.1f} s")
     print(smi.stdout.strip())
     print(json.dumps({"kernels": kernels_line}))

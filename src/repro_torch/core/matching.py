@@ -10,7 +10,8 @@ the port of ``repro.core.matching``.
    alone.
 2. Run the **filled-matrix decomposition in lock-step** across the bucket.
    The demand stack, row and col loads, D and the matching live on the
-   device for the whole bucket, and every step is one ``bna_step`` call
+   device for the whole bucket (int32 while every effective size is below
+   2^31 - 1, int64 past it, as the reference's numpy step), and every step is one ``bna_step`` call
    (the CUDA kernel on a card, its plain version on the CPU).  Per step
    only the packed ``[t | D' | piece | invalid]`` rows come back to the
    host.  The augmenting-path repair stays on the host, as in the
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from ..kernels import resolve_device
-from ..kernels.bna_step import bna_step, stage_int32
+from ..kernels.bna_step import bna_step, stage_state
 from .bna import (_NO_MATCH, expand_pieces, support_restrict,
                   verify_bna_schedule)
 
@@ -198,7 +199,7 @@ def _bna_core_batch(
                     match_rs[i], int(ks[i]), np.zeros(int(ks[i]), dtype=bool))
     # scalar guard: nnz + 2m + 4 iterations, slack 4m — take the bucket max
     guard = int((d > 0).sum(axis=(1, 2)).max(initial=0)) + 6 * w + 8
-    d_t, row_t, col_t, D_t, match_t = stage_int32(d, row, col, D, match_sr,
+    d_t, row_t, col_t, D_t, match_t = stage_state(d, row, col, D, match_sr,
                                                   device)
     del d, row, col
 
@@ -242,7 +243,7 @@ def _bna_core_batch(
         if changed.size:
             sel = torch.from_numpy(changed).to(device)
             match_t.index_copy_(0, sel, torch.from_numpy(
-                match_sr[changed].astype(np.int32)).to(device))
+                match_sr[changed]).to(device=device, dtype=match_t.dtype))
         stats["repair_s"] += time.perf_counter() - t_repair
 
         live = D > 0

@@ -1,5 +1,5 @@
-"""Hand-written Hopper kernels for the planning path, plus the device probe
-and the build helper they share.
+"""Hand-written Hopper kernels for the planning path and the model stack,
+plus the device probe and the build helper they share.
 
 Each kernel ships, under ``<name>/``:
   csrc/<name>.cu — CUDA C++ for sm_90a with a plain C entry point
@@ -15,6 +15,8 @@ Kernels (what each one replaces is named in its source note):
                   augmenting-path repair, one block per matrix
   merge_fix     — the fused merge_and_fix tail: binning, delta scatter,
                   coflow_merge's scan and the Lemma 6 durations
+  flash_attention — blocked online-softmax GQA attention (prefill), float32
+                  or bfloat16 in, float32 accumulators
 Headers shared between kernels (``*/csrc/*.cuh``) are included by path.
 
 Dispatch is by device, never by a knob: a CPU tensor takes the plain

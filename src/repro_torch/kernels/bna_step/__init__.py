@@ -1,1 +1,1 @@
-from .ops import bna_step, stage_int32  # noqa: F401
+from .ops import bna_step, stage_state  # noqa: F401

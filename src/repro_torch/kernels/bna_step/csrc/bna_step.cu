@@ -1,5 +1,6 @@
 // bna_step: one lock-step iteration of the filled-matrix BNA decomposition
-// (paper Algorithm 1) over a (B, w, w) int32 stack of demand matrices.
+// (paper Algorithm 1) over a (B, w, w) stack of demand matrices, in int32
+// or int64 (one template, two C entries).
 //
 // Replaces the TPU kernel src/repro/kernels/bna_step/bna_step.py
 // (_bna_step_kernel, launched by bna_step_padded).  That kernel gathers the
@@ -25,10 +26,12 @@
 // gathered d entries and their write-back, row, col, match, D, the packed
 // output), not O(B * w^2); at the planning path's shapes (B <= a few dozen,
 // w <= 256) it is launch-bound.  Drained matrices (D = 0, match = -1) come
-// out as fixed points with t = 0.  The sentinel is INT32_MAX, as on the TPU.
+// out as fixed points with t = 0.  The sentinel is the type's largest value
+// (INT32_MAX, as on the TPU, or INT64_MAX, as in the reference's numpy step).
 //
-// All arithmetic is int32 and exact under the wrapper's guard (max D and
-// the element count below 2^31 - 1); offsets into d are 64-bit.
+// The wrapper stages int32 while max D < 2^31 - 1 and int64 past it, so the
+// arithmetic is exact in either instance; every offset is 64-bit, so the
+// stack's element count has no limit of its own.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,31 +39,41 @@
 namespace {
 
 constexpr int kNoMatch = -1;
-constexpr int32_t kBig = 2147483647;
 
-__device__ __forceinline__ int32_t warp_min(int32_t v) {
+// the sentinel: the type's largest value
+template <typename T> struct Big;
+template <> struct Big<int32_t> { static constexpr int32_t value = 2147483647; };
+template <> struct Big<int64_t> {
+  static constexpr int64_t value = 9223372036854775807LL;
+};
+
+template <typename T>
+__device__ __forceinline__ T tmin(T a, T b) { return a < b ? a : b; }
+
+template <typename T>
+__device__ __forceinline__ T warp_min(T v) {
   for (int off = 16; off > 0; off >>= 1)
-    v = min(v, __shfl_down_sync(0xffffffffu, v, off));
+    v = tmin(v, __shfl_down_sync(0xffffffffu, v, off));
   return v;
 }
 
-__global__ void bna_step_kernel(int32_t* __restrict__ d,
-                                int32_t* __restrict__ row,
-                                int32_t* __restrict__ col,
-                                int32_t* __restrict__ D,
-                                const int32_t* __restrict__ match,
-                                int32_t* __restrict__ out, int w) {
-  extern __shared__ int32_t smem[];
-  int32_t* recv = smem;          // [w]: receiver transmits this step
-  int32_t* col_new = smem + w;   // [w]: col after the step
-  __shared__ int32_t warp_part[32];
+template <typename T>
+__global__ void bna_step_kernel(T* __restrict__ d, T* __restrict__ row,
+                                T* __restrict__ col, T* __restrict__ D,
+                                const T* __restrict__ match,
+                                T* __restrict__ out, int w) {
+  constexpr T kBig = Big<T>::value;
+  extern __shared__ __align__(8) unsigned char smem_raw[];
+  T* recv = reinterpret_cast<T*>(smem_raw);  // [w]: receiver transmits
+  T* col_new = recv + w;                     // [w]: col after the step
+  __shared__ T warp_part[32];
 
   const int b = blockIdx.x;
   const int s = threadIdx.x;
   const int64_t base = static_cast<int64_t>(b) * w;
-  const int32_t Dv = D[b];
+  const T Dv = D[b];
 
-  int32_t ms = kNoMatch, dm = 0, row_s = 0, col_s = 0;
+  T ms = kNoMatch, dm = 0, row_s = 0, col_s = 0;
   bool real = false;
   if (s < w) {
     ms = match[base + s];
@@ -74,10 +87,10 @@ __global__ void bna_step_kernel(int32_t* __restrict__ d,
   if (real) recv[ms] = 1;
   __syncthreads();
 
-  int32_t local = kBig;
+  T local = kBig;
   if (s < w) {
     local = real ? dm : Dv - row_s;
-    if (!recv[s]) local = min(local, Dv - col_s);
+    if (!recv[s]) local = tmin(local, Dv - col_s);
   }
   local = warp_min(local);
   const int lane = s & 31, warp = s >> 5;
@@ -85,17 +98,17 @@ __global__ void bna_step_kernel(int32_t* __restrict__ d,
   __syncthreads();
   if (warp == 0) {
     const int nwarps = (blockDim.x + 31) >> 5;
-    int32_t v = lane < nwarps ? warp_part[lane] : kBig;
+    T v = lane < nwarps ? warp_part[lane] : kBig;
     v = warp_min(v);
     if (lane == 0) warp_part[0] = v;
   }
   __syncthreads();
-  const int32_t t = warp_part[0];
-  const int32_t Dn = Dv - t;
+  const T t = warp_part[0];
+  const T Dn = Dv - t;
 
-  int32_t rown = row_s;
+  T rown = row_s;
   if (s < w) {
-    int32_t coln = col_s;
+    T coln = col_s;
     if (real) {
       d[(base + s) * w + ms] = dm - t;
       rown -= t;
@@ -108,9 +121,9 @@ __global__ void bna_step_kernel(int32_t* __restrict__ d,
     col_new[s] = coln;
   }
   __syncthreads();
-  int32_t* o = out + static_cast<int64_t>(b) * (2 + 2 * w);
+  T* o = out + static_cast<int64_t>(b) * (2 + 2 * w);
   if (s < w) {
-    const int32_t dmn = real ? dm - t : dm;
+    const T dmn = real ? dm - t : dm;
     int inv = 0;
     if (ms != kNoMatch && dmn == 0 && Dn > 0)
       inv = (rown >= Dn) || (col_new[ms] >= Dn);
@@ -124,17 +137,29 @@ __global__ void bna_step_kernel(int32_t* __restrict__ d,
   }
 }
 
+template <typename T>
+int launch(void* d, void* row, void* col, void* D, void* match, void* out,
+           int B, int w, void* stream) {
+  if (B <= 0) return 0;
+  const int threads = ((w + 31) / 32) * 32;
+  const size_t shmem = 2 * static_cast<size_t>(w) * sizeof(T);
+  bna_step_kernel<T><<<B, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<T*>(d), static_cast<T*>(row), static_cast<T*>(col),
+      static_cast<T*>(D), static_cast<const T*>(match), static_cast<T*>(out),
+      w);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int bna_step_launch(void* d, void* row, void* col, void* D,
                                void* match, void* out, int B, int w,
                                void* stream) {
-  if (B <= 0) return 0;
-  const int threads = ((w + 31) / 32) * 32;
-  const size_t shmem = 2 * static_cast<size_t>(w) * sizeof(int32_t);
-  bna_step_kernel<<<B, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int32_t*>(d), static_cast<int32_t*>(row),
-      static_cast<int32_t*>(col), static_cast<int32_t*>(D),
-      static_cast<const int32_t*>(match), static_cast<int32_t*>(out), w);
-  return static_cast<int>(cudaGetLastError());
+  return launch<int32_t>(d, row, col, D, match, out, B, w, stream);
+}
+
+extern "C" int bna_step_launch_i64(void* d, void* row, void* col, void* D,
+                                   void* match, void* out, int B, int w,
+                                   void* stream) {
+  return launch<int64_t>(d, row, col, D, match, out, B, w, stream);
 }

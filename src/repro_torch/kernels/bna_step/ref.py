@@ -4,29 +4,31 @@ Algorithm 1 in filled-matrix form across a (B, w, w) demand stack.
 It is the port's copy of ``repro.core.matching.bna_step_inplace`` (the
 reference's single numpy source of the step formulas), written on tensors.
 A CPU tensor runs it; ``chip_smoke.py`` holds the CUDA kernel against it on
-the card.  All-integer arithmetic, so agreement is equality.
+the card.  All-integer arithmetic, so agreement is equality.  It works in
+the state's own type, int32 or int64, with that type's largest value as
+the sentinel (the reference's int32 kernel and int64 numpy step do the
+same).
 """
 from __future__ import annotations
 
 import torch
 
 NO_MATCH = -1
-BIG = 2**31 - 1   # the sentinel of the int32 kernel
 
 
 def bna_step_ref(
-    d: torch.Tensor,      # (B, w, w) int32 remaining demands, mutated
-    row: torch.Tensor,    # (B, w) int32 row loads, mutated
-    col: torch.Tensor,    # (B, w) int32 col loads, mutated
-    D: torch.Tensor,      # (B,) int32 remaining effective sizes, mutated
-    match: torch.Tensor,  # (B, w) int32 match_sr (-1 = unmatched)
+    d: torch.Tensor,      # (B, w, w) remaining demands, mutated
+    row: torch.Tensor,    # (B, w) row loads, mutated
+    col: torch.Tensor,    # (B, w) col loads, mutated
+    D: torch.Tensor,      # (B,) remaining effective sizes, mutated
+    match: torch.Tensor,  # (B, w) match_sr (-1 = unmatched)
 ) -> torch.Tensor:
-    """One batched step, in place on d/row/col/D.  Returns the packed
-    (B, 2 + 2w) int32 rows ``[t | D' | piece | invalid]``: t the step
+    """One batched step, in place on d/row/col/D (all int32, or all
+    int64).  Returns the packed (B, 2 + 2w) rows, in the same type, ``[t | D' | piece | invalid]``: t the step
     length (0 for drained matrices), piece the real matched edges
     transmitted (-1 elsewhere), invalid the matched edges that left the
     filled graph (the scalar repair()'s bad mask, masked to D' > 0)."""
-    B, w = match.shape
+    BIG = torch.iinfo(d.dtype).max
     midx = match.clamp(min=0).long()
     dm = d.gather(2, midx[:, :, None])[:, :, 0]
     real = (match != NO_MATCH) & (dm > 0)
@@ -48,7 +50,7 @@ def bna_step_ref(
     invalid = (match != NO_MATCH) & (dm2 == 0) \
         & ((row >= D[:, None]) | (colm >= D[:, None])) & (D > 0)[:, None]
     return torch.cat([t[:, None], D[:, None], piece,
-                      invalid.to(torch.int32)], dim=1)
+                      invalid.to(d.dtype)], dim=1)
 
 
 def unpack_step(out: torch.Tensor) -> tuple:

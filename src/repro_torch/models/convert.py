@@ -1,0 +1,72 @@
+"""Parameters between the reference's pytree and the port, as plain arrays.
+
+``lm_params_from_numpy`` takes the reference's ``init_lm`` parameters as
+numpy arrays (``jax.tree.map(np.asarray, params)``: nested dicts, the stack
+stacked per period) and returns the port's parameter dict on `device`,
+checked leaf by leaf against the port's own shapes.  ``lm_params_to_numpy``
+goes the other way, for the tests.  Neither imports the reference: the
+arrays are the interface.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .common import ArchConfig
+from .lm import init_lm, tree_map
+
+__all__ = ["lm_params_from_numpy", "lm_params_to_numpy"]
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # numpy keeps bfloat16 as an extension type torch cannot read;
+        # its bits are torch's bfloat16 bits
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _same_keys(want: dict, got: dict, path: str = "") -> None:
+    if not isinstance(got, dict) or set(want) != set(got):
+        have = sorted(got) if isinstance(got, dict) else type(got).__name__
+        raise ValueError(f"parameter tree differs at {path or '<root>'}: "
+                         f"expected keys {sorted(want)}, got {have}")
+    for key, val in want.items():
+        if isinstance(val, dict):
+            _same_keys(val, got[key], f"{path}/{key}")
+
+
+def lm_params_from_numpy(cfg: ArchConfig, tree: dict,
+                         device: "torch.device | str" = "cuda") -> dict:
+    """The reference's LM parameter tree (numpy leaves) -> the port's
+    parameters on `device`, in the config's parameter type."""
+    shapes = init_lm(cfg, None, device="meta")
+    _same_keys(shapes, tree)
+
+    def convert(path, want, a):
+        t = _to_tensor(a, device)
+        if tuple(t.shape) != tuple(want.shape):
+            raise ValueError(f"{path}: shape {tuple(t.shape)}, expected "
+                             f"{tuple(want.shape)}")
+        return t.to(want.dtype)
+
+    def walk(want, got, path=""):
+        if isinstance(want, dict):
+            return {k: walk(want[k], got[k], f"{path}/{k}") for k in want}
+        return convert(path, want, got)
+
+    return walk(shapes, tree)
+
+
+def lm_params_to_numpy(params: dict) -> dict:
+    """The port's parameters -> numpy arrays on the host; bfloat16 leaves
+    widen exactly to float32."""
+    def conv(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+
+    return tree_map(conv, params)

@@ -1,0 +1,239 @@
+"""Transformer building blocks, the port of ``repro.models.layers``: RMSNorm,
+RoPE, GQA attention, decode attention against a cache, SwiGLU MLP.  All
+functional; parameters are plain dicts of tensors, in the reference's
+layout ((d_in, d_out) weight matrices, activations (B, S, H, d)).
+
+``attention`` dispatches by device: a CUDA tensor goes through the
+flash_attention kernel (K4), a CPU tensor through the plain version the
+reference takes off the TPU (``_attn_ref``, or ``_attn_chunked`` for long
+sequences; both compute the same function).  ``cfg.attn_impl`` chooses no
+path.  The reference's ``shard`` annotations are left out (one card; the
+sharding module waits for the distributed slice).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.flash_attention import flash_attention
+from .common import DTYPES, ArchConfig
+
+__all__ = ["rms_norm", "rope", "attention", "decode_attention", "swiglu",
+           "init_attn", "init_mlp", "init_norm", "attn_block", "mlp_block"]
+
+NEG_INF = -1e30
+
+
+def randn(shape: tuple, gen: "torch.Generator | None",
+          device: "torch.device | str", std: float, dtype) -> torch.Tensor:
+    """Normal(0, std^2) draws in float32 from `gen`, cast to `dtype`.  On the
+    ``meta`` device (shapes only) no generator is needed."""
+    x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return (x * std).to(dtype)
+
+
+def init_norm(d: int, dtype, lead: tuple = (), device="cpu") -> dict:
+    return {"scale": torch.ones((*lead, d), dtype=dtype, device=device)}
+
+
+def rms_norm(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * p["scale"].to(x.dtype)
+
+
+def _head_rms(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """qk_norm: RMS over the head dim (qwen3), no learned scale."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x: (..., S, H, d); positions: (..., S)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].float() * freqs                 # (..., S, half)
+    cos = torch.cos(ang)[..., None, :].to(x.dtype)             # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def init_attn(cfg: ArchConfig, gen: "torch.Generator | None",
+              lead: tuple = (), device="cpu") -> dict:
+    """One attention layer's parameters (with a leading `lead` shape, e.g.
+    (n_periods,) for the stacked stack), drawn as the reference draws them:
+    N(0, 1) scaled by d^-0.5 (wq, wk, wv) and (Hq dh)^-0.5 (wo)."""
+    dt = DTYPES[cfg.param_dtype]
+    d, dh = cfg.d_model, cfg.d_head
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    s = d ** -0.5
+    p = {
+        "norm": init_norm(d, dt, lead, device),
+        "wq": randn((*lead, d, hq * dh), gen, device, s, dt),
+        "wk": randn((*lead, d, hkv * dh), gen, device, s, dt),
+        "wv": randn((*lead, d, hkv * dh), gen, device, s, dt),
+        "wo": randn((*lead, hq * dh, d), gen, device, (hq * dh) ** -0.5, dt),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((*lead, hq * dh), dtype=dt, device=device)
+        p["bk"] = torch.zeros((*lead, hkv * dh), dtype=dt, device=device)
+        p["bv"] = torch.zeros((*lead, hkv * dh), dtype=dt, device=device)
+    return p
+
+
+def _qkv(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
+         rope_on: bool = True):
+    B, S, _ = x.shape
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, hq, dh)
+    k = k.reshape(B, S, hkv, dh)
+    v = v.reshape(B, S, hkv, dh)
+    if cfg.qk_norm:
+        q = _head_rms(q, cfg.norm_eps)
+        k = _head_rms(k, cfg.norm_eps)
+    if rope_on:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attn_ref(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    """(B, S, H, d) layout einsum attention (small sequences)."""
+    group = q.shape[2] // k.shape[2]
+    kf = k.float().repeat_interleave(group, dim=2)
+    vf = v.float().repeat_interleave(group, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
+    if causal:
+        Sq, Sk = q.shape[1], k.shape[1]
+        mask = torch.ones((Sq, Sk), dtype=torch.bool,
+                          device=q.device).tril(diagonal=Sk - Sq)
+        s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def _attn_chunked(q, k, v, causal: bool, scale: float,
+                  chunk: int) -> torch.Tensor:
+    """Flash-style online softmax as a loop over key blocks, in plain tensor
+    ops (the memory profile of the kernel; long sequences on the CPU)."""
+    B, Sq, Hq, d = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    C = min(chunk, Sk)
+    pad = (-Sk) % C
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    nk = k.shape[1] // C
+    qf = q.float()
+    offs = Sk - Sq
+    acc = torch.zeros((B, Hq, Sq, d), dtype=torch.float32, device=q.device)
+    mx = torch.full((B, Hq, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    den = torch.zeros((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    qpos = torch.arange(Sq, device=q.device)[:, None] + offs
+    for ik in range(nk):
+        kc = k[:, ik * C:(ik + 1) * C].float().repeat_interleave(group, dim=2)
+        vc = v[:, ik * C:(ik + 1) * C].float().repeat_interleave(group, dim=2)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kc) * scale
+        kpos = ik * C + torch.arange(C, device=q.device)[None, :]
+        valid = kpos < Sk
+        if causal:
+            valid = valid & (qpos >= kpos)
+        s = torch.where(valid[None, None], s, NEG_INF)
+        m_new = torch.maximum(mx, s.amax(dim=-1))
+        pexp = torch.exp(s - m_new[..., None])
+        corr = torch.exp(mx - m_new)
+        den = den * corr + pexp.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", pexp, vc)
+        mx = m_new
+    out = acc / torch.clamp(den, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)               # (B, Sq, Hq, d)
+
+
+def attention(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """(B, S, H, d) in and out.  A CUDA tensor goes through the
+    flash_attention kernel (seen through a transpose: no copy of q, k, v);
+    a CPU tensor through the plain version, as the reference off the TPU."""
+    scale = cfg.d_head ** -0.5
+    if q.device.type == "cuda":
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal, scale=scale)
+        return out.transpose(1, 2)
+    if q.shape[1] * k.shape[1] > 1 << 22:
+        return _attn_chunked(q, k, v, causal, scale, cfg.attn_chunk)
+    return _attn_ref(q, k, v, causal, scale)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, length: int, scale: float,
+                     layout: str = "heads") -> torch.Tensor:
+    """Single-token attention against a (B, S_max, Hkv, d) cache holding
+    `length` valid entries.  q: (B, 1, Hq, d).  Plain tensor code, as the
+    reference computes it outside any kernel; the dots accumulate in
+    float32.  `layout` only changes the reference's sharding, so on one card
+    every layout computes the same thing."""
+    if layout not in ("heads", "dh", "seq"):
+        raise ValueError(f"unknown decode cache layout {layout!r}")
+    B, Smax, Hkv, d = k_cache.shape
+    group = q.shape[2] // Hkv
+    qf = q.reshape(B, Hkv, group, d).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float()) * scale
+    valid = torch.arange(Smax, device=q.device)[None, None, None, :] < length
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, 1, q.shape[2], d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(cfg: ArchConfig, gen: "torch.Generator | None",
+             lead: tuple = (), device="cpu") -> dict:
+    dt = DTYPES[cfg.param_dtype]
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "norm": init_norm(d, dt, lead, device),
+        "w_gate": randn((*lead, d, f), gen, device, d ** -0.5, dt),
+        "w_up": randn((*lead, d, f), gen, device, d ** -0.5, dt),
+        "w_down": randn((*lead, f, d), gen, device, f ** -0.5, dt),
+    }
+
+
+def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# blocks (pre-norm residual)
+# ---------------------------------------------------------------------------
+
+def attn_block(cfg: ArchConfig, p: dict, x: torch.Tensor,
+               positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, p, h, positions)
+    o = attention(cfg, q, k, v, causal=causal)
+    B, S, _, _ = o.shape
+    return x + o.reshape(B, S, cfg.n_heads * cfg.d_head) @ p["wo"]
+
+
+def mlp_block(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    return x + swiglu(p, rms_norm(x, p["norm"], cfg.norm_eps))

@@ -14,10 +14,12 @@ from repro_torch.core import (bna, bna_many, cache_stats, clear_caches,
                               transcript_to_arrays, verify_transcript)
 from repro_torch.kernels.bna_decompose import bna_decompose
 from repro_torch.kernels.bna_decompose.ref import bna_decompose_ref
-from repro_torch.kernels.bna_step import bna_step, stage_int32
+from repro_torch.kernels.bna_step import bna_step, stage_state
 from repro_torch.kernels.bna_step.ref import bna_step_ref
 from repro_torch.kernels.coflow_merge import coflow_merge, interval_alphas
 from repro_torch.kernels.coflow_merge.ref import alphas_ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.merge_fix import merge_fix
 from repro_torch.kernels.merge_fix.ref import merge_fix_ref
 
@@ -49,7 +51,7 @@ def _random_state(rng, B, w):
                                  (3, 13), (5, 1024)])
 def test_bna_step_kernel_equals_plain(B, w):
     dev = _card()
-    a = list(stage_int32(*_random_state(np.random.default_rng(B + w), B, w),
+    a = list(stage_state(*_random_state(np.random.default_rng(B + w), B, w),
                          dev))
     b = [x.clone() for x in a]
     before = bna_step.launches
@@ -60,6 +62,149 @@ def test_bna_step_kernel_equals_plain(B, w):
     assert torch.equal(got, want)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("B,w", [(1, 1), (37, 8), (3, 64), (4, 256)])
+def test_bna_step_int64_kernel_equals_plain(B, w):
+    """States with effective sizes past 2^31 stage int64 and launch the
+    kernel's int64 instance, equal to the plain version."""
+    dev = _card()
+    d, row, col, D, match = _random_state(np.random.default_rng(w), B, w)
+    d = d * (2**33 + 1)
+    d[-1, 0, 0] = 2**33                    # past int32 when B = 1 too
+    row, col = d.sum(axis=2), d.sum(axis=1)
+    D = np.maximum(row.max(axis=1), col.max(axis=1))
+    a = list(stage_state(d, row, col, D, match, dev))
+    assert a[0].dtype == torch.int64
+    b = [x.clone() for x in a]
+    before = bna_step.launches
+    got = bna_step(*a)
+    want = bna_step_ref(*b)
+    torch.cuda.synchronize()
+    assert bna_step.launches == before + 1
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_overflow_bucket_on_card_equals_cpu():
+    """The 1 x 1 demand 2^31 - 1 takes the pipeline's overflow branch on
+    the card (the int64 bna_step instance) and equals the CPU."""
+    from repro_torch.core import pipeline
+
+    _card()
+    d = [np.array([[2**31 - 1]], np.int64)]
+    clear_caches()
+    before = bna_step.launches
+    got = pipeline._plan_decompositions(d, device="cuda")
+    assert bna_step.launches > before
+    assert cache_stats()["plan"]["decompose"]["bucket_fallbacks"] == 1
+    clear_caches()
+    want = pipeline._plan_decompositions(d, device="cpu")
+    assert [(t, p.tolist()) for t, p in got[0][0]] == \
+        [(t, p.tolist()) for t, p in want[0][0]] == [(2**31 - 1, [0])]
+    for x, y in zip(got[1][0], want[1][0]):
+        assert np.array_equal(x, y)
+
+
+# flash_attention: the reference sweep's shapes (B, Hq, Hkv, Sq, Sk, d) and
+# qwen3-1.7b's prefill; float32 to 2e-5 as the reference's test (the sums
+# run in another order), bfloat16 to 4e-2 (a few ulps of the output type)
+_ATTN_SHAPES = [(1, 2, 2, 16, 16, 32), (2, 4, 2, 33, 33, 24),
+                (1, 8, 2, 64, 128, 48), (1, 4, 1, 1, 96, 64),
+                (1, 4, 4, 48, 48, 128), (1, 16, 8, 127, 127, 128),
+                (1, 2, 1, 70, 70, 256)]
+
+
+@pytest.mark.parametrize("shape", _ATTN_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 4e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_equals_plain(shape, dtype, tol, causal):
+    dev = _card()
+    B, Hq, Hkv, Sq, Sk, d = shape
+    rng = np.random.default_rng(Sq * d)
+    q, k, v = (torch.as_tensor(rng.normal(size=s), dtype=dtype, device=dev)
+               for s in ((B, Hq, Sq, d), (B, Hkv, Sk, d), (B, Hkv, Sk, d)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    want = attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert float((got.float() - want.float()).abs().max()) < tol
+
+
+def test_flash_attention_kernel_reads_strided_views():
+    """(B, S, H, d) tensors seen through transpose(1, 2), as
+    layers.attention passes them: no copy, the output in q's layout."""
+    dev = _card()
+    rng = np.random.default_rng(5)
+    B, S, Hq, Hkv, d = 2, 77, 8, 2, 64
+    q, k, v = (torch.as_tensor(rng.normal(size=(B, S, h, d)),
+                               dtype=torch.float32, device=dev)
+               for h in (Hq, Hkv, Hkv))
+    got = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), scale=0.1)
+    want = attention_ref(q.transpose(1, 2).contiguous(),
+                         k.transpose(1, 2).contiguous(),
+                         v.transpose(1, 2).contiguous(), scale=0.1)
+    torch.cuda.synchronize()
+    assert got.transpose(1, 2).is_contiguous()
+    assert float((got - want).abs().max()) < 2e-5
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take():
+    dev = _card()
+    q = torch.zeros((1, 2, 4, 320), device=dev)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="head dim <= 256"):
+        flash_attention(q, q, q)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q[..., :8].half(), q[..., :8].half(),
+                        q[..., :8].half())
+    assert flash_attention.launches == before
+
+
+def test_smoke_prefill_and_serve_on_card_equal_cpu():
+    """qwen3-1.7b's f32 smoke config: the prefill on the card launches K4
+    once per layer, its logits and cache equal the CPU's within 1e-4, and
+    a fifo serve run gives the same tokens on both devices."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm, prefill
+    from repro_torch.models.lm import tree_map
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+
+    dev = _card()
+    assert not torch.backends.cuda.matmul.allow_tf32   # PyTorch's default
+    cfg = get_config("qwen3-1.7b").smoke()
+    cpu = init_lm(cfg, torch.Generator().manual_seed(0))
+    card = tree_map(lambda x: x.to(dev), cpu)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(2, 40)))
+    before = flash_attention.launches
+    lg, cache = prefill(cfg, card, toks.to(dev))
+    assert flash_attention.launches == before + cfg.n_layers
+    lg_c, cache_c = prefill(cfg, cpu, toks)
+    assert float((lg.cpu() - lg_c).abs().max()) < 1e-4
+    for name in cache_c["layers"]:
+        for kv in ("k", "v"):
+            assert float((cache["layers"][name][kv].cpu()
+                          - cache_c["layers"][name][kv]).abs().max()) < 1e-4
+
+    def reqs():
+        rng = np.random.default_rng(1)
+        return [Request(rid=i, tokens=rng.integers(1, cfg.vocab, size=6 + i),
+                        max_new=5, arrival=float(i // 2)) for i in range(5)]
+
+    outs = []
+    for params in (card, cpu):
+        rs = reqs()
+        stats = ServingEngine(cfg, params, ServeConfig(
+            slots=2, capacity=32, admission="fifo")).run(rs)
+        outs.append((stats, [r.out for r in rs]))
+    assert outs[0] == outs[1]
+    assert outs[0][0]["completed"] == 5
 
 
 @pytest.mark.parametrize("K,P", [(1, 2), (31, 2), (33, 300), (4096, 64),

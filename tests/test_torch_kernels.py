@@ -16,12 +16,18 @@ from repro.kernels.coflow_merge.ops import \
 from repro.kernels.coflow_merge.ref import alphas_ref as ref_alphas_ref
 from repro.kernels.coflow_merge.ref import build_delta as ref_build_delta
 from repro_torch.kernels import resolve_device
-from repro_torch.kernels.bna_step import bna_step, stage_int32
+from repro_torch.kernels.bna_step import bna_step, stage_state
 from repro_torch.kernels.bna_step.ref import bna_step_ref, unpack_step
 from repro_torch.kernels.coflow_merge import (coflow_merge,
                                               edge_interval_alphas,
                                               interval_alphas)
 from repro_torch.kernels.coflow_merge.ref import alphas_ref, build_delta
+from repro.kernels.flash_attention import \
+    flash_attention as ref_flash_attention
+from repro.kernels.flash_attention.ref import \
+    attention_ref as ref_attention_ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 
 CPU = torch.device("cpu")
 _NAMES = ("t", "piece", "d", "row", "col", "D", "invalid")
@@ -49,7 +55,7 @@ def _random_bna_state(rng, B, w):
 def _port_step(state, device=CPU):
     """The port's bna_step on `state`, as host int64 arrays in the
     reference's output order."""
-    d, row, col, D, match = stage_int32(*state, device)
+    d, row, col, D, match = stage_state(*state, device)
     packed = bna_step(d, row, col, D, match)
     t, Dn, piece, inv = unpack_step(packed)
     outs = (t, piece, d, row, col, Dn, inv)
@@ -80,7 +86,7 @@ def test_bna_step_drained_matrix_is_a_fixed_point():
 def test_bna_step_cpu_tensor_takes_plain_version():
     state = _random_bna_state(np.random.default_rng(2), 5, 4)
     before = bna_step.launches
-    a = stage_int32(*state, CPU)
+    a = stage_state(*state, CPU)
     b = [x.clone() for x in a]
     assert torch.equal(bna_step(*a), bna_step_ref(*b))
     for x, y in zip(a, b):
@@ -89,30 +95,66 @@ def test_bna_step_cpu_tensor_takes_plain_version():
 
 
 def test_bna_step_int32_guard_effective_size():
-    d = np.zeros((1, 2, 2), np.int64)
+    """The staging keeps int32 while max D < 2^31 - 1 (the reference's
+    guard for its int32 kernel) and takes int64 past it, where the step
+    equals the reference's int64 numpy step."""
+    from repro.core.matching import bna_step_inplace
+
+    d = np.zeros((2, 2, 2), np.int64)
     d[0, 0, 0] = 2**40
-    row = d.sum(axis=2)
-    col = d.sum(axis=1)
-    D = row.max(axis=1)
-    match = np.full((1, 2), -1, np.int64)
-    with pytest.raises(ValueError, match="int32"):
-        stage_int32(d, row, col, D, match, CPU)
+    d[0, 1, 1] = 2**31 + 5
+    d[0, 0, 1] = 3
+    d[1, 1, 0] = 9
+    row, col = d.sum(axis=2), d.sum(axis=1)
+    D = np.maximum(row.max(axis=1), col.max(axis=1))
+    match = np.array([[0, 1], [-1, 0]], np.int64)
+    staged = stage_state(d, row, col, D, match, CPU)
+    assert all(x.dtype == torch.int64 for x in staged)
+    below = stage_state(d[1:], row[1:], col[1:], D[1:], match[1:], CPU)
+    assert all(x.dtype == torch.int32 for x in below)
+    at = D.copy()
+    at[:] = 2**31 - 1
+    assert stage_state(d, row, col, at, match, CPU)[0].dtype == torch.int64
+
+    packed = bna_step(*staged)
+    t, Dn, piece, inv = unpack_step(packed)
+    want = [x.copy() for x in (d, row, col)]
+    wt, wpiece, wD, winv = bna_step_inplace(*want, D, match)
+    assert packed.dtype == torch.int64
+    assert np.array_equal(t.numpy(), wt) and np.array_equal(Dn.numpy(), wD)
+    assert np.array_equal(piece.numpy(), wpiece)
+    assert np.array_equal(inv.numpy().astype(bool), winv)
+    for got, w in zip(staged[:3], want):
+        assert np.array_equal(got.numpy(), w)
 
 
-def test_bna_step_int32_guard_element_count():
-    B, w = 2**11, 2**10          # B * w^2 = 2^31: one past the guard
-    d = np.broadcast_to(np.int64(0), (B, w, w))   # a view, no memory
-    row = np.broadcast_to(np.int64(0), (B, w))
-    D = np.zeros(B, np.int64)
-    with pytest.raises(ValueError, match="element count"):
-        stage_int32(d, row, row, D, row, CPU)
+@pytest.mark.parametrize("B,w", [(1, 1), (5, 4), (17, 13)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bna_step_int64_plain_equals_reference_numpy_step(B, w, seed):
+    """States with demands past 2^31 stage int64; one step equals the
+    reference's int64 numpy step on the same state."""
+    from repro.core.matching import bna_step_inplace
+
+    d, row, col, D, match = _random_bna_state(np.random.default_rng(seed),
+                                              B, w)
+    d = d * (2**33 + 1)
+    row, col = d.sum(axis=2), d.sum(axis=1)
+    D = np.maximum(row.max(axis=1), col.max(axis=1))
+    got = _port_step((d, row, col, D, match))
+    want = [x.copy() for x in (d, row, col)]
+    wt, wpiece, wD, winv = bna_step_inplace(*want, D, match)
+    for name, g, o in zip(_NAMES, got, (wt, wpiece, *want, wD, winv)):
+        assert np.array_equal(g, np.asarray(o, np.int64)), name
 
 
 def test_bna_step_rejects_bad_inputs():
-    d, row, col, D, match = stage_int32(
+    d, row, col, D, match = stage_state(
         *_random_bna_state(np.random.default_rng(0), 2, 4), CPU)
     with pytest.raises(TypeError, match="int32"):
         bna_step(d.long(), row, col, D, match)
+    with pytest.raises(TypeError, match="int32 or int64"):
+        bna_step(d.short(), row.short(), col.short(), D.short(),
+                 match.short())
     with pytest.raises(ValueError, match="match"):
         bna_step(d, row, col, D, match[:, :3].contiguous())
     strided = match.t().contiguous().t()          # (2, 4), not contiguous
@@ -197,6 +239,60 @@ def test_coflow_merge_cpu_tensor_takes_plain_version():
     assert coflow_merge.launches == before
     with pytest.raises(ValueError, match="int32"):
         coflow_merge(delta.long())
+
+
+# --------------------------------------------------------------------------
+# flash_attention (K4) plain version
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [
+    (1, 2, 2, 16, 16, 32),    # MHA square
+    (2, 4, 2, 33, 33, 24),    # GQA, ragged seq
+    (1, 8, 2, 64, 128, 48),   # cross-length (prefill-with-prefix)
+    (1, 4, 1, 1, 96, 64),     # decode shape (q_len = 1)
+    (1, 4, 4, 48, 48, 128),   # head dim 128
+])
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 4e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_equals_reference(shape, dtype, tol, causal):
+    """The reference sweep (tests/test_kernels.py::test_flash_attention_sweep):
+    the port's plain version against the reference's Pallas kernel in
+    interpret mode and its oracle, on the same inputs; compared in float32
+    (bfloat16 inputs: both round their float32 result to bfloat16, so they
+    may differ by an ulp of the output)."""
+    B, Hq, Hkv, Sq, Sk, d = shape
+    rng = np.random.default_rng(Sq * d + causal)
+    arrays = [rng.normal(size=s).astype(np.float32) for s in
+              ((B, Hq, Sq, d), (B, Hkv, Sk, d), (B, Hkv, Sk, d))]
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in arrays)
+    tq, tk, tv = (torch.as_tensor(a).to(tdt) for a in arrays)
+    before = flash_attention.launches
+    got = flash_attention(tq, tk, tv, causal=causal)
+    assert flash_attention.launches == before, "a CPU call counts no launch"
+    assert got.dtype == tdt and got.shape == tq.shape
+    got = got.float().numpy()
+    pallas = ref_flash_attention(jq, jk, jv, causal=causal, block_q=16,
+                                 block_k=16, interpret=True)
+    oracle = ref_attention_ref(jq, jk, jv, causal=causal)
+    for want in (pallas, oracle):
+        assert np.abs(got - np.asarray(want, np.float32)).max() < tol
+    assert torch.equal(attention_ref(tq, tk, tv, causal=causal),
+                       flash_attention(tq, tk, tv, causal=causal))
+
+
+def test_flash_attention_checks_shapes_as_reference():
+    q = torch.zeros((1, 4, 8, 16))
+    k = torch.zeros((1, 2, 8, 16))
+    with pytest.raises(ValueError, match="shapes disagree"):
+        flash_attention(q, k, k[:, :, :4])
+    with pytest.raises(ValueError, match="shapes disagree"):
+        flash_attention(q, k[..., :8], k[..., :8])
+    with pytest.raises(ValueError, match="GQA"):
+        flash_attention(q, torch.zeros((1, 3, 8, 16)),
+                        torch.zeros((1, 3, 8, 16)))
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention(q, k.bfloat16(), k)
 
 
 def test_resolve_device_without_a_card(monkeypatch):

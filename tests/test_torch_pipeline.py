@@ -243,19 +243,57 @@ def test_instance_load_vectors_int32_guard_returns_none():
     assert pipeline.instance_load_vectors(inst, device="cpu") is None
 
 
-def test_overflow_bucket_takes_the_batched_path(monkeypatch):
+def _ref_overflow_plan(demands):
+    """The reference's overflow branch: its jit pipeline sends the bucket
+    to the numpy batched decomposition (int64)."""
+    ref_pipeline.clear_pipeline_caches()
+    with ref_backend.use_plan_backend("jit"), \
+            ref_backend.use_bna_backend("numpy"):
+        return ref_pipeline._plan_decompositions(demands)
+
+
+@pytest.mark.parametrize("demand", [
+    [[2**31 - 1]],                                  # the smallest input
+    [[2**31 - 1, 5], [3, 2**31 + 7]],               # loads past 2^31
+    [[2**40, 0, 1], [0, 2**33, 2**33], [1, 2**33, 0]],
+])
+def test_overflow_bucket_takes_the_batched_path(monkeypatch, demand):
     """A bucket whose loads reach 2^31 - 1 leaves the bna_decompose path
-    for matching._bna_core_batch on the same device and is counted.  The
-    batched path stages int32 too and raises there (ROADMAP Queue 3: the
-    reference's numpy path decomposes such demands in int64)."""
+    for matching._bna_core_batch on the same device and is counted in
+    bucket_fallbacks, as in the reference.  The batched path stages such a
+    bucket in int64 and decomposes it exactly as the reference's int64
+    numpy step: the same pieces and edge intervals."""
+    d = [np.array(demand, np.int64)]
+    want_p, want_e = _ref_overflow_plan(d)
     clear_caches()
     monkeypatch.setattr(pipeline, "_warned_overflow", False)
     with pytest.warns(RuntimeWarning, match="exceed int32"):
-        with pytest.raises(ValueError, match="int32"):
-            pipeline._plan_decompositions(
-                [np.array([[2**31 - 1]], np.int64)], device="cpu")
+        got_p, got_e = pipeline._plan_decompositions(d, device="cpu")
     stats = cache_stats()["plan"]["decompose"]
     assert stats["bucket_fallbacks"] == 1 and stats["buckets"] == 0
+    assert _pieces_equal(got_p[0], want_p[0])
+    assert len(got_e[0]) == len(want_e[0]) == 4
+    for g, w in zip(got_e[0], want_e[0]):
+        assert np.array_equal(np.asarray(g), np.asarray(w))
+
+
+def _pieces_equal(got, want) -> bool:
+    return len(got) == len(want) and all(
+        int(t1) == int(t2) and np.array_equal(p1, p2)
+        for (t1, p1), (t2, p2) in zip(got, want))
+
+
+@pytest.mark.parametrize("demand", [[[2**31 - 1]],
+                                    [[2**31 - 1, 5], [3, 2**31 + 7]]])
+def test_overflow_demand_on_the_python_path(demand):
+    """bna_many (the python plan path) stages the overflowing matrix in
+    int64 and equals the reference's scalar bna."""
+    from repro.core.bna import bna as ref_bna
+    from repro_torch.core import bna_many
+
+    d = np.array(demand, np.int64)
+    (got,) = bna_many([d], device="cpu")
+    assert _pieces_equal(got, ref_bna(d))
 
 
 # --------------------------------------------------------------------------

@@ -187,6 +187,9 @@ def test_port_imports_neither_jax_nor_repro():
         "        plan(inst, s, device='cpu', plan_backend=pb, seed=0)\n"
         "    plan(inst, 'gdm_rt', device='cpu', plan_backend=pb, seed=0,\n"
         "         require_tree=False)\n"
+        "import repro_torch.models, repro_torch.serve, repro_torch.configs\n"
+        "from repro_torch.launch import serve\n"
+        "serve.main(['--requests', '3', '--max-new', '3', '--device', 'cpu'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith('jax.') or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"
@@ -196,6 +199,7 @@ def test_port_imports_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "LEAKED []" in out.stdout, out.stdout
+    assert '"completed": 3' in out.stdout, out.stdout
 
 
 @pytest.mark.parametrize("bound", ["no_caches", "bna_cache_1"])
