@@ -5,7 +5,7 @@
 
 Phases; any failure exits non-zero and prints no result line:
 
-1. Build the five kernels from the sources in the checkout (one ``nvcc``
+1. Build the six kernels from the sources in the checkout (one ``nvcc``
    per source, started together) and print ``-Xptxas -v``'s registers and
    shared memory per kernel.
 2. Hold ``bna_step`` against its plain PyTorch version on the card, for
@@ -21,13 +21,14 @@ Phases; any failure exits non-zero and prints no result line:
    ``bna_step`` launch held against the plain version on a clone of the
    same state and every ``coflow_merge`` call against the plain version on
    the same deltas; then ``coflow_merge`` on a synthetic K ~ 1e5.
-4. Pipeline plan path, checked: gdm with every ``bna_decompose`` bucket
-   (the workload's real buckets, w up to 256) and every ``merge_fix``
-   merge held against the plain versions on the same inputs; then
+4. Pipeline plan path, checked: gdm at scale 0.25 with every
+   ``bna_decompose`` bucket (the workload's real buckets, w up to 256) and
+   every ``merge_fix`` merge held against the plain versions on the same
+   inputs; then
    ``merge_fix`` on random edge sets and a synthetic K ~ 1.2e5.
-5. The main path: ``paper_workload(m=150, mu_bar=5, seed=0, scale=0.25)``
-   (67 coflows) planned with gdm and om_alg, and with gdm_rt on the
-   ``rooted=True`` workload at scale 0.1 (27 coflows), each with the
+5. The main path: ``paper_workload(m=150, mu_bar=5, seed=0, scale=0.1)``
+   planned with gdm and om_alg, and with gdm_rt on the ``rooted=True``
+   workload at scale 0.1 (27 coflows), each with the
    launch counters set to 0 just before and read just after:
    a. through the python path on the card (``bna_step``, host repair,
       ``coflow_merge``), equal bit for bit to the same plan on the CPU;
@@ -60,15 +61,46 @@ Phases; any failure exits non-zero and prints no result line:
    the largest logit (bf16 keeps 8 bits: its unit roundoff is 2^-9, and the
    two devices round at other places in each of 28 layers), and whether
    the argmax agrees.
-10. Time each kernel at the largest shapes the main path gave it (CUDA
+10. ``ssd_scan`` (K5) against its plain version (``ssd_ref``, the
+   sequential recurrence) on the card, float32 and bfloat16, at the
+   reference sweep's shapes, mamba2-2.7b's (B=2, H=80, G=1, N=128, P=64,
+   L=128, S in {1, 127, 128, 4096}) and a G=8 shape (jamba's).  Tolerances,
+   relative to the largest |y|: 1e-4 in float32 (the reference's test),
+   8e-3 in bfloat16 (both round a float32 result to bfloat16: two ulps at
+   the top of the range).
+11. mamba2-2.7b ``lm_forward`` at its published full width (64 layers,
+   d_model 2560, 80 SSD heads, d_state 128, vocab 50280, bf16; 2.83 B
+   parameters from seed 0) at B=2, S=4096: a checked pass holds each of
+   its 64 K5 launches against ``ssd_ref`` on the same inputs; then, with
+   the counts set to 0, an unchecked pass must launch K5 exactly 64 times.
+   Prints its wall seconds, peak memory and a ``torch.profiler`` split of
+   its device time (K5, GEMMs, the rest) with the busy share.
+12. Teacher forcing at full width: prefill 64 tokens (the chunked form) and
+   decode 16 (the recurrence); their logits against ``lm_forward``'s
+   (through K5) at the same positions, within 0.1% of the largest logit
+   with float32 copies of the weights and within 8% in bf16 (the three
+   forms of the scan differ by 6.2-6.4% after 64 layers of bf16 rounding,
+   as much with K5 swapped for its plain version; a decode that drops its
+   state reads 43%: ``scripts/mamba2_bf16_drift.py``, PERF.md).
+13. The same weights on the CPU: one 64-token ``lm_forward`` on the card
+   and on the CPU, last-position logits within 0.1% of the largest logit
+   in float32 and within 5% in bf16.
+14. Serve mamba2-2.7b at full width with ``ServingEngine(ServeConfig(
+   slots=4, capacity=4096, admission="fifo"))``: the 8 requests of phase 8
+   plus one whose prompt is exactly 80 tokens (= H, which the reference's
+   ``_pad_cache`` cannot serve); all must complete.  Prints prefill seconds
+   per request, decode ms per token, tokens/s, peak memory and a profile
+   of one prefill and 8 decode ticks.
+15. Time each kernel at the largest shapes the main path gave it (CUDA
    events for the asynchronous ones; host clock around the call for
    ``bna_decompose``, whose wrapper reads the step counts back), beside
    its plain version and its bound (the larger of bytes over the card's
    3.35 TB/s and operations over its peak rate); K4 also at S=32768 (the
    ``prefill_32k`` sequence length) and beside
-   ``scaled_dot_product_attention``.  Print the ``kernels`` line, the plan
-   and serve timings and counts, and the card's name and power limit.  The
-   last line is the result line.
+   ``scaled_dot_product_attention``; K5 at mamba2's B=2, S=4096 (no
+   PyTorch call computes the SSD scan, so its library time is null).
+   Print the ``kernels`` line, the plan and serve timings and counts, and
+   the card's name and power limit.  The last line is the result line.
 
 float32 matrix products run in full float32 (``allow_tf32`` is set False,
 PyTorch's default, for matmul and cuDNN).
@@ -87,16 +119,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
 BF16_FLOPS = 989e12                 # H100 SXM dense bf16 tensor-core peak
-# gdm_rt at 0.25 spends minutes in the host fix-up BNA (timeline._decompose
-# on 150 x 150 merged matrices) on each of its runs, so the time limit cuts
-# it to 0.1; gdm and om_alg keep 0.25
-SCALES = {"gdm": 0.25, "gdm_rt": 0.1, "om_alg": 0.25}
+F32_FLOPS = 67e12                   # H100 SXM float32 outside the tensor cores
+# the python path's host repair takes 30-60 s a plan at 0.25 (card and
+# CPU), and gdm_rt's host fix-up BNA minutes, so the time limit cuts all
+# three to 0.1 (the pipeline plans the full trace, scale 1.0, in phase 6)
+SCALES = {"gdm": 0.1, "gdm_rt": 0.1, "om_alg": 0.1}
 FULL_SCALE = ("gdm", "om_alg")      # planned at scale 1.0 on the pipeline
 KERNELS = ("bna_step", "coflow_merge", "bna_decompose", "merge_fix",
-           "flash_attention")
+           "flash_attention", "ssd_scan")
 SERVE_ARCH = "qwen3-1.7b"
+SSM_ARCH = "mamba2-2.7b"
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 4e-2}
+SSD_TOL = {"float32": 1e-4, "bfloat16": 8e-3}   # relative to max |y|
+CHECK_SCALE = 0.25                  # phase 4's checked pipeline plan
 LOGIT_TOL = 0.05                    # of the largest logit, bf16 card vs CPU
+LOGIT_TOL_F32 = 1e-3                # of the largest logit, float32 weights
+TF_TOL_BF16 = 0.08                  # of the largest logit, bf16 teacher forcing
 
 
 def _fail(msg: str) -> None:
@@ -166,13 +204,15 @@ def main() -> int:
     from repro_torch.kernels.merge_fix.ref import merge_fix_ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     wrappers = {"bna_step": bna_step, "coflow_merge": coflow_merge,
                 "bna_decompose": bna_decompose, "merge_fix": merge_fix,
-                "flash_attention": flash_attention}
+                "flash_attention": flash_attention, "ssd_scan": ssd_scan}
     record: dict = {"device": torch.cuda.get_device_name(0)}
     t_start = time.perf_counter()
 
@@ -424,7 +464,8 @@ def main() -> int:
     try:
         clear_caches()
         t0 = time.perf_counter()
-        plan(inst, "gdm", device="cuda", plan_backend="pipeline", seed=0)
+        plan(paper_workload(m=150, mu_bar=5, seed=0, scale=CHECK_SCALE),
+             "gdm", device="cuda", plan_backend="pipeline", seed=0)
         torch.cuda.synchronize()
     finally:
         pipeline.bna_decompose, backend.merge_fix_step = \
@@ -432,7 +473,7 @@ def main() -> int:
     if not (checked["bna_decompose"] > n_dec_random
             and checked["merge_fix"]):
         _fail(f"checked pipeline run reached no kernel call: {checked}")
-    print(f"checked pipeline run (gdm): "
+    print(f"checked pipeline run (gdm, scale {CHECK_SCALE}): "
           f"{checked['bna_decompose'] - n_dec_random} bna_decompose buckets "
           f"(w up to {largest['bna_decompose'][1][0].shape[1]}) and "
           f"{checked['merge_fix']} merge_fix merges equal to the plain "
@@ -705,69 +746,12 @@ def main() -> int:
           f"{n_layer_checks} flash_attention launches within tolerance of "
           "the plain version")
 
-    serve_t = {"prefill_s": [], "decode_s": []}
-
-    def timed(fn, key):
-        def wrapped(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            serve_t[key].append(time.perf_counter() - t0)
-            return out
-        return wrapped
-
-    eng = ServingEngine(cfg, params, ServeConfig(slots=4, capacity=4096,
-                                                 admission="fifo"))
-    orig_serve = (serve_engine.prefill, serve_engine.decode_step)
-    serve_engine.prefill = timed(orig_serve[0], "prefill_s")
-    serve_engine.decode_step = timed(orig_serve[1], "decode_s")
-    torch.cuda.reset_peak_memory_stats()
-    try:
-        zero_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        stats = eng.run(serve_reqs)
-        torch.cuda.synchronize()
-        serve_wall = time.perf_counter() - t0
-        serve_launches = read_counts()
-    finally:
-        serve_engine.prefill, serve_engine.decode_step = orig_serve
-    peak_bytes = torch.cuda.max_memory_allocated()
-    n_tokens = sum(len(r.out) for r in serve_reqs)
-    if stats["completed"] != len(serve_reqs) or any(
-            len(r.out) != r.max_new or not all(0 <= t < cfg.vocab
-                                               for t in r.out)
-            for r in serve_reqs):
-        _fail(f"serve: {stats} (every request must complete with "
-              f"{serve_reqs[0].max_new} tokens in the vocabulary)")
-    if serve_launches["flash_attention"] != cfg.n_layers * len(serve_reqs):
-        _fail(f"serve: {serve_launches['flash_attention']} flash_attention "
-              f"launches, expected {cfg.n_layers} per prefill")
-    record["serve"] = {
-        "arch": cfg.name, "params": n_params, "init_s": init_s,
-        "requests": len(serve_reqs), "prompt_lens": prompt_lens,
-        "max_new": 32, "stats": stats, "wall_s": serve_wall,
-        "prefill_s": serve_t["prefill_s"],
-        "decode_ms_per_token": statistics.median(serve_t["decode_s"]) * 1e3,
-        "decode_ms_per_token_mean":
-            sum(serve_t["decode_s"]) / len(serve_t["decode_s"]) * 1e3,
-        "decode_steps": len(serve_t["decode_s"]),
-        "tokens": n_tokens, "tokens_per_s": n_tokens / serve_wall,
-        "max_memory_allocated": peak_bytes, "launches": serve_launches}
-    print(f"serve {cfg.name} (full width, {n_params} parameters, bf16): "
-          f"{stats}, {n_tokens} tokens in {serve_wall:.2f} s "
-          f"({n_tokens / serve_wall:.1f} tokens/s); prefill s per request "
-          f"{[round(x, 4) for x in serve_t['prefill_s']]} for prompts "
-          f"{prompt_lens}; decode ms per token (median) "
-          f"{record['serve']['decode_ms_per_token']:.2f}; peak memory "
-          f"{peak_bytes / 2**30:.2f} GiB; launches {serve_launches}")
-
-    # where a request's device time goes: one prefill of the longest prompt
-    # and 8 decode ticks of its slot under torch.profiler.  Device time is
-    # summed over the kernel events only (an aten op's own device time
-    # repeats its kernels'); the profiler slows the host, so the busy share
-    # of decode is taken against the unprofiled run's median tick below
+    # where a request's device time goes (serve_profile): one prefill of
+    # the longest prompt and 8 decode ticks of its slot under
+    # torch.profiler.  Device time is summed over the kernel events only (an
+    # aten op's own device time repeats its kernels'); the profiler slows
+    # the host, so the busy share of decode is also taken against the
+    # unprofiled run's median tick
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -775,45 +759,122 @@ def main() -> int:
         return sum(e.self_device_time_total for e in events
                    if e.device_type == DeviceType.CUDA)
 
-    longest = serve_reqs[int(np.argmax(prompt_lens))]
-    ptoks = torch.as_tensor(longest.tokens, device=dev)[None]
-    breakdown = {}
-    with torch.inference_mode():
-        for label, steps in (("prefill", 0), ("decode", 8)):
-            _, pc = prefill(cfg, params, ptoks)
-            pc = eng._pad_cache(pc, ptoks.shape[1])
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                if steps == 0:
-                    int(torch.argmax(prefill(cfg, params, ptoks)[0][0]))
-                tok = torch.tensor([[1]], device=dev)
-                for _ in range(steps):
-                    lg, pc = decode_step(cfg, params, pc, tok)
-                    tok = torch.argmax(lg, dim=-1, keepdim=True)
-                    int(tok)
+    def serve_run(cfg_, params_, reqs):
+        """Serve `reqs` with 4 slots of 4096 tokens (fifo), every prefill
+        and decode_step timed (synced), the counts set to 0 just before.
+        Fails unless every request completes with its tokens in the
+        vocabulary.  Returns (engine, record)."""
+        serve_t = {"prefill_s": [], "decode_s": []}
+
+        def timed(fn, key):
+            def wrapped(*args, **kwargs):
                 torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
-            ka = prof.key_averages()
-            total = device_us(ka)
-            k4 = device_us([e for e in ka if "flash_attention" in e.key])
-            top = sorted(ka, key=lambda e: -device_us([e]))[:6]
-            breakdown[label] = {
-                "wall_ms": wall_us / 1e3, "device_ms": total / 1e3,
-                "busy_share": total / wall_us if total else None,
-                "device_ms_per_tick": total / 1e3 / max(steps, 1),
-                "flash_attention_ms": k4 / 1e3,
-                "top_device_ms": {e.key[:60]: device_us([e]) / 1e3
-                                  for e in top}}
-    breakdown["decode"]["busy_share_unprofiled"] = \
-        breakdown["decode"]["device_ms_per_tick"] \
-        / record["serve"]["decode_ms_per_token"]
-    record["serve_profile"] = {"prompt_len": int(ptoks.shape[1]),
-                               "decode_steps": 8, **breakdown}
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                serve_t[key].append(time.perf_counter() - t0)
+                return out
+            return wrapped
+
+        eng_ = ServingEngine(cfg_, params_, ServeConfig(
+            slots=4, capacity=4096, admission="fifo"))
+        orig = (serve_engine.prefill, serve_engine.decode_step)
+        serve_engine.prefill = timed(orig[0], "prefill_s")
+        serve_engine.decode_step = timed(orig[1], "decode_s")
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = eng_.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+        finally:
+            serve_engine.prefill, serve_engine.decode_step = orig
+        n_tokens = sum(len(r.out) for r in reqs)
+        if stats["completed"] != len(reqs) or any(
+                len(r.out) != r.max_new or not all(0 <= t < cfg_.vocab
+                                                   for t in r.out)
+                for r in reqs):
+            _fail(f"serve {cfg_.name}: {stats} (every request must "
+                  "complete with its max_new tokens in the vocabulary)")
+        decode_s = serve_t["decode_s"]
+        return eng_, {
+            "arch": cfg_.name, "requests": len(reqs),
+            "prompt_lens": [len(r.tokens) for r in reqs],
+            "max_new": reqs[0].max_new, "stats": stats, "wall_s": wall,
+            "prefill_s": serve_t["prefill_s"],
+            "decode_ms_per_token": statistics.median(decode_s) * 1e3,
+            "decode_ms_per_token_mean": sum(decode_s) / len(decode_s) * 1e3,
+            "decode_steps": len(decode_s), "tokens": n_tokens,
+            "tokens_per_s": n_tokens / wall,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": launches}
+
+    def serve_profile(cfg_, params_, eng_, reqs, run, kernel_keys) -> dict:
+        """Device time of one prefill of the longest prompt of `reqs` and of
+        8 decode ticks of its slot; `kernel_keys` names the kernels to sum
+        (name -> substrings of their event keys)."""
+        longest = max(reqs, key=lambda r: len(r.tokens))
+        ptoks = torch.as_tensor(longest.tokens, device=dev)[None]
+        breakdown = {}
+        with torch.inference_mode():
+            for label, steps in (("prefill", 0), ("decode", 8)):
+                _, pc = prefill(cfg_, params_, ptoks)
+                pc = eng_._pad_cache(pc, ptoks.shape[1])
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    if steps == 0:
+                        int(torch.argmax(prefill(cfg_, params_, ptoks)[0][0]))
+                    tok = torch.tensor([[1]], device=dev)
+                    for _ in range(steps):
+                        lg, pc = decode_step(cfg_, params_, pc, tok)
+                        tok = torch.argmax(lg, dim=-1, keepdim=True)
+                        int(tok)
+                    torch.cuda.synchronize()
+                    wall_us = (time.perf_counter() - t0) * 1e6
+                ka = prof.key_averages()
+                total = device_us(ka)
+                top = sorted(ka, key=lambda e: -device_us([e]))[:6]
+                breakdown[label] = {
+                    "wall_ms": wall_us / 1e3, "device_ms": total / 1e3,
+                    "busy_share": total / wall_us if total else None,
+                    "device_ms_per_tick": total / 1e3 / max(steps, 1),
+                    **{f"{name}_ms": device_us([
+                        e for e in ka if any(k in e.key.lower()
+                                             for k in keys)]) / 1e3
+                       for name, keys in kernel_keys.items()},
+                    "top_device_ms": {e.key[:60]: device_us([e]) / 1e3
+                                      for e in top}}
+        breakdown["decode"]["busy_share_unprofiled"] = \
+            breakdown["decode"]["device_ms_per_tick"] \
+            / run["decode_ms_per_token"]
+        return {"prompt_len": int(ptoks.shape[1]), "decode_steps": 8,
+                **breakdown}
+
+    eng, run = serve_run(cfg, params, serve_reqs)
+    record["serve"] = {**run, "params": n_params, "init_s": init_s}
+    serve_launches = run["launches"]
+    if serve_launches["flash_attention"] != cfg.n_layers * len(serve_reqs):
+        _fail(f"serve: {serve_launches['flash_attention']} flash_attention "
+              f"launches, expected {cfg.n_layers} per prefill")
+    print(f"serve {cfg.name} (full width, {n_params} parameters, bf16): "
+          f"{run['stats']}, {run['tokens']} tokens in {run['wall_s']:.2f} s "
+          f"({run['tokens_per_s']:.1f} tokens/s); prefill s per request "
+          f"{[round(x, 4) for x in run['prefill_s']]} for prompts "
+          f"{prompt_lens}; decode ms per token (median) "
+          f"{run['decode_ms_per_token']:.2f}; peak memory "
+          f"{run['max_memory_allocated'] / 2**30:.2f} GiB; launches "
+          f"{serve_launches}")
+    record["serve_profile"] = serve_profile(
+        cfg, params, eng, serve_reqs, run,
+        {"flash_attention": ("flash_attention",)})
     print("serve profile (one prefill at S="
-          f"{ptoks.shape[1]}; 8 decode ticks of one slot): "
-          + json.dumps(breakdown))
+          f"{record['serve_profile']['prompt_len']}; 8 decode ticks of one "
+          "slot): " + json.dumps(record["serve_profile"]))
 
     # 9. the same weights on the CPU ----------------------------------------
     toks = torch.as_tensor(np.random.default_rng(9).integers(
@@ -840,7 +901,258 @@ def main() -> int:
           f"{LOGIT_TOL:.0%} of it); argmax agrees: {agree}; CPU prefill "
           f"{cpu_prefill_s:.1f} s")
 
-    # 10. timings -----------------------------------------------------------
+    # 10. ssd_scan (K5) against its plain version ---------------------------
+    from repro_torch.models import lm_forward, ssm
+
+    ssd_rel_max = 0.0
+
+    def note_ssd(got, want, what: str) -> None:
+        nonlocal ssd_rel_max
+        name = str(got.dtype).split(".")[-1]
+        if got.dtype != want.dtype or got.shape != want.shape:
+            _fail(f"ssd_scan on {what}: {got.dtype} {tuple(got.shape)}, "
+                  f"expected {want.dtype} {tuple(want.shape)}")
+        diff = float((got.float() - want.float()).abs().max())
+        rel = diff / (float(want.float().abs().max()) + 1e-9)
+        max_err["ssd_scan"] = max(max_err["ssd_scan"], diff)
+        ssd_rel_max = max(ssd_rel_max, rel)
+        checked["ssd_scan"] += 1
+        if not rel < SSD_TOL[name]:
+            _fail(f"ssd_scan != plain version on {what} ({name}, max "
+                  f"|diff| / max |y| = {rel} >= {SSD_TOL[name]})")
+
+    def ssd_inputs(shape, dtype, seed):
+        """As the reference's sweep draws them: a in (0.55, 1), b and c
+        scaled by 0.3."""
+        B, S, H, G, N, P = shape
+        r = np.random.default_rng(seed)
+        return (torch.as_tensor(r.normal(size=(B, S, H, P)), dtype=dtype,
+                                device=dev),
+                torch.as_tensor(r.uniform(0.55, 1.0, size=(B, S, H)),
+                                dtype=torch.float32, device=dev),
+                torch.as_tensor(r.normal(size=(B, S, G, N)) * 0.3,
+                                dtype=dtype, device=dev),
+                torch.as_tensor(r.normal(size=(B, S, G, N)) * 0.3,
+                                dtype=dtype, device=dev))
+
+    ssd_shapes = [((1, 16, 2, 1, 8, 16), 8), ((2, 33, 4, 2, 16, 32), 16),
+                  ((1, 64, 2, 2, 32, 64), 32), ((1, 40, 8, 1, 16, 8), 64),
+                  ((1, 300, 16, 8, 128, 64), 128)] + \
+        [((2, S, 80, 1, 128, 64), 128) for S in (1, 127, 128, 4096)]
+    for shape, chunk in ssd_shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, a, b, c = ssd_inputs(shape, dtype, sum(shape))
+            note_ssd(ssd_scan(x, a, b, c, chunk=chunk), ssd_ref(x, a, b, c),
+                     f"shape {shape}, chunk {chunk}")
+    torch.cuda.synchronize()
+    print(f"ssd_scan: within tolerance of the plain version on "
+          f"{checked['ssd_scan']} cases ({len(ssd_shapes)} shapes x "
+          f"f32/bf16; max |diff| {max_err['ssd_scan']:.3g}, max |diff| / "
+          f"max |y| {ssd_rel_max:.3g})")
+
+    # 11. mamba2-2.7b lm_forward at full width ------------------------------
+    scfg = get_config(SSM_ARCH)
+    del params, eng                             # qwen3's weights
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sparams = init_lm(scfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    s_init_s = time.perf_counter() - t0
+    n_sparams = sum(x.numel() for x in tree_leaves(sparams))
+    fwd_B, fwd_S = 2, 4096
+    ftoks = torch.as_tensor(np.random.default_rng(3).integers(
+        1, scfg.vocab, size=(fwd_B, fwd_S)), device=dev)
+    orig_ssd = ssm.ssd_scan
+    n_before = checked["ssd_scan"]
+
+    def checked_ssd(x, a, b, c, *, chunk=128):
+        out = orig_ssd(x, a, b, c, chunk=chunk)
+        note_ssd(out, ssd_ref(x, a, b, c),
+                 f"a full-width lm_forward layer (B={x.shape[0]}, "
+                 f"S={x.shape[1]})")
+        return out
+
+    ssm.ssd_scan = checked_ssd
+    try:
+        with torch.inference_mode():
+            lg, _ = lm_forward(scfg, sparams, ftoks)
+            torch.cuda.synchronize()
+            if lg.shape != (fwd_B, fwd_S, scfg.padded_vocab) or \
+                    not bool(torch.isfinite(lg).all()):
+                _fail(f"mamba2 lm_forward: logits {tuple(lg.shape)}, "
+                      "not all finite")
+            del lg
+    finally:
+        ssm.ssd_scan = orig_ssd
+    n_layer_checks = checked["ssd_scan"] - n_before
+    if n_layer_checks != scfg.n_layers:
+        _fail(f"checked mamba2 forward made {n_layer_checks} K5 calls, "
+              f"expected {scfg.n_layers}")
+    print(f"checked full-width mamba2 lm_forward (B={fwd_B}, S={fwd_S}): "
+          f"all {n_layer_checks} ssd_scan launches within tolerance of the "
+          "plain version")
+
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, _ = lm_forward(scfg, sparams, ftoks)
+        torch.cuda.synchronize()
+        fwd_wall = time.perf_counter() - t0
+        fwd_launches = read_counts()
+        if not bool(torch.isfinite(lg).all()):
+            _fail("mamba2 lm_forward: logits not all finite")
+        del lg
+    fwd_peak = torch.cuda.max_memory_allocated()
+    if fwd_launches["ssd_scan"] != scfg.n_layers:
+        _fail(f"mamba2 lm_forward: {fwd_launches['ssd_scan']} ssd_scan "
+              f"launches, expected {scfg.n_layers}")
+    gemm_keys = ("gemm", "nvjet", "cutlass", "xmma")
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            lm_forward(scfg, sparams, ftoks)
+            torch.cuda.synchronize()
+            prof_wall_us = (time.perf_counter() - t0) * 1e6
+    ka = prof.key_averages()
+    total = device_us(ka)
+    k5 = device_us([e for e in ka if "ssd_scan" in e.key])
+    gemm = device_us([e for e in ka if any(g in e.key.lower()
+                                           for g in gemm_keys)])
+    top = sorted(ka, key=lambda e: -device_us([e]))[:6]
+    record["mamba2_forward"] = {
+        "arch": scfg.name, "params": n_sparams, "init_s": s_init_s,
+        "batch": fwd_B, "seq": fwd_S, "wall_s": fwd_wall,
+        "max_memory_allocated": fwd_peak, "launches": fwd_launches,
+        "checked_k5_calls": n_layer_checks,
+        "profile": {"wall_ms": prof_wall_us / 1e3, "device_ms": total / 1e3,
+                    "busy_share": total / prof_wall_us if total else None,
+                    "ssd_scan_ms": k5 / 1e3, "gemm_ms": gemm / 1e3,
+                    "rest_ms": (total - k5 - gemm) / 1e3,
+                    "top_device_ms": {e.key[:60]: device_us([e]) / 1e3
+                                      for e in top}}}
+    print(f"mamba2 lm_forward ({scfg.name}, full width, {n_sparams} "
+          f"parameters, bf16, B={fwd_B}, S={fwd_S}): {fwd_wall:.3f} s, "
+          f"peak memory {fwd_peak / 2**30:.2f} GiB, launches {fwd_launches}; "
+          f"profile {json.dumps(record['mamba2_forward']['profile'])}")
+
+    # 12. teacher forcing at full width -------------------------------------
+    # the three forms of the scan (K5 in lm_forward, the chunked prefill,
+    # the decode recurrence) compute one function: float32 copies of the
+    # weights hold them to 0.1%; in bf16, 64 layers of rounding move the
+    # logits by 6.2-6.4% whichever form runs, K5 or its plain version
+    sparams32 = tree_map(lambda x: x.float(), sparams)
+    P_tf, D_tf = 64, 16
+    ttoks = torch.as_tensor(np.random.default_rng(12).integers(
+        1, scfg.vocab, size=(1, P_tf + D_tf)), device=dev)   # 80 tokens
+    V = scfg.vocab
+
+    def teacher_forcing(p) -> dict:
+        with torch.inference_mode():
+            full = lm_forward(scfg, p, ttoks)[0][0, :, :V].float()
+            lg, tcache = prefill(scfg, p, ttoks[:, :P_tf])
+            steps = [lg[0].float()]
+            for t in range(P_tf, P_tf + D_tf):
+                lg, tcache = decode_step(scfg, p, tcache, ttoks[:, t:t + 1])
+                steps.append(lg[0].float())
+        steps = torch.stack(steps)               # positions 63 .. 79
+        want = full[P_tf - 1:P_tf + D_tf]
+        return {"max_abs_diff": float((steps - want).abs().max()),
+                "max_abs_logit": float(want.abs().max()),
+                "argmax_agree": int((steps.argmax(-1)
+                                     == want.argmax(-1)).sum()),
+                "positions": len(steps)}
+
+    tf32, tf16 = teacher_forcing(sparams32), teacher_forcing(sparams)
+    record["mamba2_teacher_forcing"] = {
+        "prefill": P_tf, "decode": D_tf, "float32": tf32, "bfloat16": tf16}
+    for label, row, tol in (("float32", tf32, LOGIT_TOL_F32),
+                            ("bf16", tf16, TF_TOL_BF16)):
+        if not (np.isfinite(row["max_abs_diff"]) and row["max_abs_diff"]
+                <= tol * row["max_abs_logit"]):
+            _fail(f"mamba2 teacher forcing ({label}): max |diff| "
+                  f"{row['max_abs_diff']} > {tol} x {row['max_abs_logit']}")
+    print(f"mamba2 teacher forcing at full width (prefill {P_tf}, decode "
+          f"{D_tf}) against lm_forward's logits: float32 max |diff| "
+          f"{tf32['max_abs_diff']:.4g} (largest logit "
+          f"{tf32['max_abs_logit']:.4g}, tolerance {LOGIT_TOL_F32:.1%} of "
+          f"it), argmax agrees at {tf32['argmax_agree']} of "
+          f"{tf32['positions']}; bf16 max |diff| {tf16['max_abs_diff']:.4g} "
+          f"(largest logit {tf16['max_abs_logit']:.4g}, tolerance "
+          f"{TF_TOL_BF16:.0%} of it), argmax agrees at "
+          f"{tf16['argmax_agree']} of {tf16['positions']}")
+
+    # 13. the same weights on the CPU ---------------------------------------
+    ctoks = torch.as_tensor(np.random.default_rng(13).integers(
+        1, scfg.vocab, size=(1, 64)))
+    cpu_cmp = {}
+    for label, p_card in (("float32", sparams32), ("bfloat16", sparams)):
+        with torch.inference_mode():
+            lg_card = lm_forward(scfg, p_card, ctoks.to(dev))[0][0, -1, :V] \
+                .float().cpu()
+            cpu_params = tree_map(lambda x: x.cpu(), p_card)
+            t0 = time.perf_counter()
+            lg_cpu = lm_forward(scfg, cpu_params, ctoks)[0][0, -1, :V] \
+                .float()
+            s_cpu_s = time.perf_counter() - t0
+        del cpu_params
+        cpu_cmp[label] = {
+            "max_abs_diff": float((lg_card - lg_cpu).abs().max()),
+            "max_abs_logit": float(lg_cpu.abs().max()),
+            "argmax_agrees": int(lg_card.argmax()) == int(lg_cpu.argmax()),
+            "cpu_forward_s": s_cpu_s}
+    del sparams32
+    torch.cuda.empty_cache()
+    c32, c16 = cpu_cmp["float32"], cpu_cmp["bfloat16"]
+    record["mamba2_cpu_compare"] = {"tokens": 64, **cpu_cmp}
+    for label, row, tol in (("float32", c32, LOGIT_TOL_F32),
+                            ("bf16", c16, LOGIT_TOL)):
+        if not (np.isfinite(row["max_abs_diff"]) and row["max_abs_diff"]
+                <= tol * row["max_abs_logit"]):
+            _fail(f"mamba2 full-width logits ({label}), card vs CPU: max "
+                  f"|diff| {row['max_abs_diff']} > {tol} x "
+                  f"{row['max_abs_logit']}")
+    print(f"mamba2 full-width 64-token lm_forward, card vs CPU: float32 "
+          f"last-position logits max |diff| {c32['max_abs_diff']:.4g} "
+          f"(largest logit {c32['max_abs_logit']:.4g}, tolerance "
+          f"{LOGIT_TOL_F32:.1%} of it), argmax agrees: "
+          f"{c32['argmax_agrees']}; bf16 max |diff| "
+          f"{c16['max_abs_diff']:.4g} (largest logit "
+          f"{c16['max_abs_logit']:.4g}, tolerance {LOGIT_TOL:.0%} of it), "
+          f"argmax agrees: {c16['argmax_agrees']}; CPU forward "
+          f"{c32['cpu_forward_s']:.1f} s (f32), {c16['cpu_forward_s']:.1f} s "
+          "(bf16)")
+
+    # 14. serve mamba2-2.7b at full width -----------------------------------
+    H_ssd = scfg.ssm.expand * scfg.d_model // scfg.ssm.d_head
+    mrng = np.random.default_rng(0)
+    m_reqs = [Request(rid=i, tokens=mrng.integers(
+        1, scfg.vocab, size=int(mrng.integers(512, 3073))), max_new=32,
+        weight=float(mrng.uniform(0.5, 2.0)), arrival=float(i // 2))
+        for i in range(8)]
+    m_reqs.append(Request(rid=8, tokens=mrng.integers(1, scfg.vocab,
+                                                      size=H_ssd),
+                          max_new=32, arrival=4.0))
+    meng, mrun = serve_run(scfg, sparams, m_reqs)
+    record["mamba2_serve"] = mrun
+    print(f"serve {scfg.name} (full width, bf16): {mrun['stats']}, "
+          f"{mrun['tokens']} tokens in {mrun['wall_s']:.2f} s "
+          f"({mrun['tokens_per_s']:.1f} tokens/s); prefill s per request "
+          f"{[round(x, 4) for x in mrun['prefill_s']]} for prompts "
+          f"{mrun['prompt_lens']} (the {H_ssd}-token one served); decode ms "
+          f"per token (median) {mrun['decode_ms_per_token']:.2f}; peak "
+          f"memory {mrun['max_memory_allocated'] / 2**30:.2f} GiB; launches "
+          f"{mrun['launches']}")
+    record["mamba2_serve_profile"] = serve_profile(
+        scfg, sparams, meng, m_reqs, mrun, {"gemm": gemm_keys})
+    print("mamba2 serve profile (one prefill at S="
+          f"{record['mamba2_serve_profile']['prompt_len']}; 8 decode ticks "
+          "of one slot): " + json.dumps(record["mamba2_serve_profile"]))
+
+    # 15. timings -----------------------------------------------------------
     kernels_line = []
     _, state = largest["bna_step"]
     B, w = state[0].shape[0], state[0].shape[1]
@@ -985,6 +1297,43 @@ def main() -> int:
         "tflops": attn_main["tflops"]})
     print(f"flash_attention at S={S_main}: {json.dumps(attn_main)}")
     print(f"flash_attention at S=32768: {json.dumps(attn_32k)}")
+
+    # K5 at lm_forward's shapes: B=2, S=4096, H=80, G=1, N=128, P=64, bf16
+    s_ssm = scfg.ssm
+    H5, G5, N5, P5 = H_ssd, s_ssm.n_groups, s_ssm.d_state, s_ssm.d_head
+    L5 = min(s_ssm.chunk, fwd_S)
+    x5, a5, b5, c5 = ssd_inputs((fwd_B, fwd_S, H5, G5, N5, P5),
+                                torch.bfloat16, 5)
+    # x and y once (bf16), loga (f32), b and c (bf16)
+    k5_bytes = 2 * 2 * fwd_B * fwd_S * H5 * P5 + 4 * fwd_B * fwd_S * H5 \
+        + 2 * 2 * fwd_B * fwd_S * G5 * N5
+    # per (batch, head, chunk): C B^T and its product with X over the
+    # L(L+1)/2 causal (i >= j) pairs, C h and the state update B^T X
+    k5_flops = fwd_B * H5 * (fwd_S // L5) * 2 * (
+        L5 * (L5 + 1) // 2 * (N5 + P5) + 2 * L5 * N5 * P5)
+    k5_ms = _cuda_ms(lambda: ssd_scan(x5, a5, b5, c5, chunk=L5), reps=10,
+                     rounds=3)
+    k5_plain_ms = _cuda_ms(lambda: ssd_ref(x5, a5, b5, c5), reps=1,
+                           rounds=2)
+    k5_bound = {"bytes": k5_bytes / HBM_BYTES_PER_S * 1e3,
+                "operations": k5_flops / BF16_FLOPS * 1e3}
+    k5_by = max(k5_bound, key=k5_bound.get)
+    kernels_line.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:84",
+        "launches": fwd_launches["ssd_scan"],
+        "max_abs_err": max_err["ssd_scan"], "ms": k5_ms,
+        "plain_ms": k5_plain_ms, "bound_ms": k5_bound[k5_by],
+        "bound_by": k5_by, "library_ms": None,
+        "checked_calls": checked["ssd_scan"],
+        "max_rel_err": ssd_rel_max,
+        "shape": [fwd_B, fwd_S, H5, G5, N5, P5, L5], "dtype": "bfloat16",
+        "bound_bytes_ms": k5_bound["bytes"],
+        "bound_ops_ms": k5_bound["operations"],
+        "bound_f32_cuda_core_ms": k5_flops / F32_FLOPS * 1e3,
+        "gflops": k5_flops / k5_ms / 1e6})
+    print(f"ssd_scan at B={fwd_B}, S={fwd_S}: {json.dumps(kernels_line[-1])}")
     record["kernels"] = kernels_line
 
     smi = subprocess.run(
@@ -1015,6 +1364,14 @@ def main() -> int:
         {k: record["serve"][k] for k in ("prefill_s", "decode_ms_per_token",
                                          "tokens_per_s",
                                          "max_memory_allocated")}))
+    print("mamba2 (full width): " + json.dumps(
+        {"forward_s": record["mamba2_forward"]["wall_s"],
+         "forward_peak": record["mamba2_forward"]["max_memory_allocated"],
+         "forward_ssd_scan_launches":
+             record["mamba2_forward"]["launches"]["ssd_scan"],
+         **{k: record["mamba2_serve"][k] for k in (
+             "prefill_s", "decode_ms_per_token", "tokens_per_s",
+             "max_memory_allocated")}}))
     print(f"total {record['total_s']:.1f} s")
     print(smi.stdout.strip())
     print(json.dumps({"kernels": kernels_line}))

@@ -17,6 +17,9 @@ Kernels (what each one replaces is named in its source note):
                   coflow_merge's scan and the Lemma 6 durations
   flash_attention — blocked online-softmax GQA attention (prefill), float32
                   or bfloat16 in, float32 accumulators
+  ssd_scan      — the Mamba2 SSD chunked scan (lm_forward's mamba layers),
+                  one block per (batch, head) carrying the state over the
+                  chunks, float32 or bfloat16 in, float32 arithmetic
 Headers shared between kernels (``*/csrc/*.cuh``) are included by path.
 
 Dispatch is by device, never by a knob: a CPU tensor takes the plain

@@ -5,8 +5,10 @@ batched requests through the continuous-batching engine.
       --requests 8 --device cpu
 
 ``--device`` defaults to ``cuda`` (a card; there the prefill attention runs
-the flash_attention kernel).  ``--admission`` takes only ``fifo`` until the
-scheduling session is ported (ROADMAP Queue 1 item 6).
+the flash_attention kernel).  ``--arch`` takes the dense and mamba configs
+(``--arch mamba2-2.7b``); a MoE config raises until models/moe is ported.
+``--admission`` takes only ``fifo`` until the scheduling session is ported
+(ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 

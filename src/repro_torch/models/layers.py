@@ -32,7 +32,7 @@ def randn(shape: tuple, gen: "torch.Generator | None",
     return (x * std).to(dtype)
 
 
-def init_norm(d: int, dtype, lead: tuple = (), device="cpu") -> dict:
+def init_norm(d: int, dtype, lead: tuple = (), *, device) -> dict:
     return {"scale": torch.ones((*lead, d), dtype=dtype, device=device)}
 
 
@@ -68,7 +68,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_attn(cfg: ArchConfig, gen: "torch.Generator | None",
-              lead: tuple = (), device="cpu") -> dict:
+              lead: tuple = (), *, device) -> dict:
     """One attention layer's parameters (with a leading `lead` shape, e.g.
     (n_periods,) for the stacked stack), drawn as the reference draws them:
     N(0, 1) scaled by d^-0.5 (wq, wk, wv) and (Hq dh)^-0.5 (wo)."""
@@ -77,7 +77,7 @@ def init_attn(cfg: ArchConfig, gen: "torch.Generator | None",
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     s = d ** -0.5
     p = {
-        "norm": init_norm(d, dt, lead, device),
+        "norm": init_norm(d, dt, lead, device=device),
         "wq": randn((*lead, d, hq * dh), gen, device, s, dt),
         "wk": randn((*lead, d, hkv * dh), gen, device, s, dt),
         "wv": randn((*lead, d, hkv * dh), gen, device, s, dt),
@@ -206,11 +206,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_mlp(cfg: ArchConfig, gen: "torch.Generator | None",
-             lead: tuple = (), device="cpu") -> dict:
+             lead: tuple = (), *, device) -> dict:
     dt = DTYPES[cfg.param_dtype]
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "norm": init_norm(d, dt, lead, device),
+        "norm": init_norm(d, dt, lead, device=device),
         "w_gate": randn((*lead, d, f), gen, device, d ** -0.5, dt),
         "w_up": randn((*lead, d, f), gen, device, d ** -0.5, dt),
         "w_down": randn((*lead, f, d), gen, device, f ** -0.5, dt),

@@ -1,5 +1,6 @@
 """Decoder-only LM over the layer-pattern abstraction, the port of
-``repro.models.lm`` for dense stacks.
+``repro.models.lm`` for attention and mamba (SSD) layers with dense or no
+MLPs.
 
 Parameters are a plain dict of tensors in the reference's layout: every
 leaf of ``params["stack"]`` carries a leading ``n_periods`` axis (the
@@ -9,13 +10,16 @@ over views of that axis.
 Entry points:
   lm_forward                — the training forward (logits); the teacher-
                               forcing oracle of decode
-  prefill                   — build the KV cache for a prompt
+  prefill                   — build the KV / SSM caches for a prompt
   decode_step               — one token against the cache (serve_step)
 
-A period whose layer kind is ``"mamba"`` or whose MLP is ``"moe"`` raises
-``NotImplementedError``: those layers (and the ssd_scan kernel that the
-mamba layer's forward reaches) come with later slices of the port.
-``lm_loss`` (the training loss) waits for the training slice.
+On a card every attention of ``lm_forward`` and ``prefill`` goes through
+the flash_attention kernel (K4) and every mamba layer of ``lm_forward``
+through the ssd_scan kernel (K5); prefill's mamba layers run the plain
+chunked form and decode the recurrence, as the reference's do.  A period
+whose MLP is ``"moe"`` raises ``NotImplementedError``: MoE layers come with
+a later slice of the port.  ``lm_loss`` (the training loss) waits for the
+training slice.
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ import torch
 from .common import DTYPES, ArchConfig
 from .layers import (_qkv, attention, decode_attention, init_attn, init_mlp,
                      init_norm, mlp_block, randn, rms_norm)
+from .ssm import (init_mamba, init_mamba_state, mamba_block,
+                  mamba_decode_step)
 
 __all__ = ["init_lm", "lm_forward", "prefill", "decode_step",
            "init_decode_cache", "hidden_states", "embed_tokens",
@@ -45,13 +51,9 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def _check_dense(cfg: ArchConfig) -> None:
+def _check_no_moe(cfg: ArchConfig) -> None:
     for spec in cfg.period:
-        if spec.kind == "mamba":
-            raise NotImplementedError(
-                f"{cfg.name}: mamba layers are not ported yet (ROADMAP "
-                "Queue 1 item 8: models/ssm with the ssd_scan kernel K5)")
-        if spec.kind != "attn":
+        if spec.kind not in ("attn", "mamba"):
             raise ValueError(spec.kind)
         if spec.mlp == "moe":
             raise NotImplementedError(
@@ -70,16 +72,20 @@ def init_lm(cfg: ArchConfig, gen: "torch.Generator | None",
     shapes and scales, not the same bits (``jax.random`` and torch's
     generators differ).  ``device="meta"`` with no generator builds the
     shapes only."""
-    _check_dense(cfg)
+    _check_no_moe(cfg)
     if device is None:
         device = gen.device
     dt = DTYPES[cfg.param_dtype]
     lead = (cfg.n_periods,)
     stack: dict[str, Any] = {}
     for i, spec in enumerate(cfg.period):
-        stack[f"l{i}"] = {"attn": init_attn(cfg, gen, lead, device)}
+        if spec.kind == "attn":
+            lp = {"attn": init_attn(cfg, gen, lead, device=device)}
+        else:
+            lp = {"mamba": init_mamba(cfg, gen, lead, device=device)}
         if spec.mlp == "dense":
-            stack[f"l{i}"]["mlp"] = init_mlp(cfg, gen, lead, device)
+            lp["mlp"] = init_mlp(cfg, gen, lead, device=device)
+        stack[f"l{i}"] = lp
     params = {
         "embed": randn((cfg.padded_vocab, cfg.d_model), gen, device, 0.02, dt),
         "stack": stack,
@@ -113,11 +119,21 @@ def _attn_layer(cfg: ArchConfig, p: dict, x: torch.Tensor,
 def _apply_period(cfg: ArchConfig, pp: dict, x: torch.Tensor,
                   positions: torch.Tensor, causal: bool = True,
                   cache: dict | None = None) -> torch.Tensor:
+    """One period.  With a `cache` dict (prefill) each layer's cache goes
+    into it: k and v for attention, the SSD state and conv window for
+    mamba (whose block then takes the chunked form, not the kernel)."""
     for i, spec in enumerate(cfg.period):
         lp = pp[f"l{i}"]
-        x, k, v = _attn_layer(cfg, lp["attn"], x, positions, causal=causal)
-        if cache is not None:
-            cache[f"l{i}"] = {"k": k, "v": v}
+        if spec.kind == "attn":
+            x, k, v = _attn_layer(cfg, lp["attn"], x, positions,
+                                  causal=causal)
+            if cache is not None:
+                cache[f"l{i}"] = {"k": k, "v": v}
+        elif cache is not None:
+            x, cache[f"l{i}"] = mamba_block(cfg, lp["mamba"], x,
+                                            return_state=True)
+        else:
+            x = mamba_block(cfg, lp["mamba"], x)
         if spec.mlp == "dense":
             x = mlp_block(cfg, lp["mlp"], x)
     return x
@@ -125,9 +141,9 @@ def _apply_period(cfg: ArchConfig, pp: dict, x: torch.Tensor,
 
 def hidden_states(cfg: ArchConfig, params: dict, x: torch.Tensor,
                   positions: torch.Tensor, causal: bool = True):
-    """Run the stack on embedded inputs x: (B, S, d) -> (h, aux).  A dense
-    stack has no auxiliary loss, so aux is 0."""
-    _check_dense(cfg)
+    """Run the stack on embedded inputs x: (B, S, d) -> (h, aux).  Without
+    MoE layers there is no auxiliary loss, so aux is 0."""
+    _check_no_moe(cfg)
     for n in range(cfg.n_periods):
         x = _apply_period(cfg, _period(params, n), x, positions, causal)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -165,10 +181,12 @@ def lm_forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
 def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
             inputs_embeds: torch.Tensor | None = None):
     """Returns (last-position logits (B, V), cache).  The cache is
-    ``{"layers": {"l<i>": {"k", "v"}}, "length"}`` with (n_periods, B, S,
-    Hkv, dh) leaves, stacked per period as in the reference; ``length`` is a
-    Python int."""
-    _check_dense(cfg)
+    ``{"layers": {"l<i>": ...}, "length"}``, stacked per period as in the
+    reference: an attention layer's ``{"k", "v"}`` are (n_periods, B, S,
+    Hkv, dh), a mamba layer's ``{"h", "conv"}`` (n_periods, B, H, N, P)
+    float32 and (n_periods, B, d_conv - 1, C); ``length`` is a Python
+    int."""
+    _check_no_moe(cfg)
     B, S = tokens.shape[:2]
     positions = _positions(B, S, tokens.device)
     h = inputs_embeds if inputs_embeds is not None \
@@ -179,8 +197,8 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
         h = _apply_period(cfg, _period(params, n), h, positions, True,
                           cache_p)
         per.append(cache_p)
-    layers = {name: {kv: torch.stack([c[name][kv] for c in per])
-                     for kv in ("k", "v")} for name in per[0]}
+    layers = {name: {key: torch.stack([c[name][key] for c in per])
+                     for key in leaves} for name, leaves in per[0].items()}
     h = rms_norm(h[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = (h @ unembed_matrix(cfg, params))[:, 0, :cfg.vocab]
     return logits, {"layers": layers, "length": S}
@@ -188,13 +206,22 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
 
 def init_decode_cache(cfg: ArchConfig, batch: int, capacity: int,
                       device: "torch.device | str" = "cuda") -> dict:
-    """Empty cache at a given KV capacity."""
-    _check_dense(cfg)
+    """Empty cache at a given KV capacity (a mamba layer's state has no
+    capacity)."""
+    _check_no_moe(cfg)
     dt = DTYPES[cfg.compute_dtype]
     shape = (cfg.n_periods, batch, capacity, cfg.n_kv_heads, cfg.d_head)
-    layers = {f"l{i}": {"k": torch.zeros(shape, dtype=dt, device=device),
-                        "v": torch.zeros(shape, dtype=dt, device=device)}
-              for i in range(len(cfg.period))}
+    layers = {}
+    for i, spec in enumerate(cfg.period):
+        if spec.kind == "attn":
+            layers[f"l{i}"] = {
+                "k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+        else:
+            st = init_mamba_state(cfg, batch, dt, device=device)
+            layers[f"l{i}"] = {key: t[None].repeat(cfg.n_periods,
+                                                   *[1] * t.dim())
+                               for key, t in st.items()}
     return {"layers": layers, "length": 0}
 
 
@@ -203,10 +230,11 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
     """token: (B, 1) -> (logits (B, V), cache).  One serve_step.
 
     Unlike the reference, which builds a new cache with
-    ``dynamic_update_slice``, this writes the new k and v into the cache's
-    tensors in place (index assignment at ``length``) and returns the same
-    tensors under a new length: the caller's cache is updated too."""
-    _check_dense(cfg)
+    ``dynamic_update_slice``, this writes the new k and v (index assignment
+    at ``length``) and a mamba layer's new state and conv window into the
+    cache's tensors in place and returns the same tensors under a new
+    length: the caller's cache is updated too."""
+    _check_no_moe(cfg)
     B = token.shape[0]
     length = int(cache["length"])
     positions = _positions(B, 1, token.device, start=length)
@@ -215,16 +243,23 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
     for n in range(cfg.n_periods):
         pp = _period(params, n)
         for i, spec in enumerate(cfg.period):
-            ap = pp[f"l{i}"]["attn"]
-            kc = cache["layers"][f"l{i}"]["k"][n]
-            vc = cache["layers"][f"l{i}"]["v"][n]
-            hn = rms_norm(h, ap["norm"], cfg.norm_eps)
-            q, k, v = _qkv(cfg, ap, hn, positions)
-            kc[:, length] = k[:, 0].to(kc.dtype)
-            vc[:, length] = v[:, 0].to(vc.dtype)
-            o = decode_attention(q, kc, vc, length + 1, scale,
-                                 layout=cfg.decode_cache_layout)
-            h = h + o.reshape(B, 1, cfg.n_heads * cfg.d_head) @ ap["wo"]
+            lc = cache["layers"][f"l{i}"]
+            if spec.kind == "attn":
+                ap = pp[f"l{i}"]["attn"]
+                kc, vc = lc["k"][n], lc["v"][n]
+                hn = rms_norm(h, ap["norm"], cfg.norm_eps)
+                q, k, v = _qkv(cfg, ap, hn, positions)
+                kc[:, length] = k[:, 0].to(kc.dtype)
+                vc[:, length] = v[:, 0].to(vc.dtype)
+                o = decode_attention(q, kc, vc, length + 1, scale,
+                                     layout=cfg.decode_cache_layout)
+                h = h + o.reshape(B, 1, cfg.n_heads * cfg.d_head) @ ap["wo"]
+            else:
+                st, h = mamba_decode_step(
+                    cfg, pp[f"l{i}"]["mamba"],
+                    {"h": lc["h"][n], "conv": lc["conv"][n]}, h)
+                lc["h"][n].copy_(st["h"])
+                lc["conv"][n].copy_(st["conv"])
             if spec.mlp == "dense":
                 h = mlp_block(cfg, pp[f"l{i}"]["mlp"], h)
     h = rms_norm(h[:, -1:], params["final_norm"], cfg.norm_eps)

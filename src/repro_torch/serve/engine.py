@@ -4,7 +4,9 @@ Continuous batching over a fixed slot budget: prefill admits requests into
 free slots, decode advances every active slot one token per step, each
 token the greedy argmax, as the reference's ``ServingEngine.run``.  The
 model runs where its parameters lie: on a card, every prefill's attention
-goes through the flash_attention kernel.
+goes through the flash_attention kernel.  After prefill, each attention
+layer's k and v are padded to the slot's capacity; a mamba layer's state
+(h, conv) has no sequence axis and is kept as it is.
 
 Admission order: this slice serves ``admission="fifo"`` (by arrival, then
 rid).  The reference's ``"coflow"`` admission and its ``backpressure``
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from ..models.common import ArchConfig
-from ..models.lm import decode_step, prefill, tree_map
+from ..models.lm import decode_step, prefill
 
 __all__ = ["Request", "ServeConfig", "ServingEngine"]
 
@@ -120,14 +122,19 @@ class ServingEngine:
         }
 
     def _pad_cache(self, cache: dict, cur: int) -> dict:
+        """Pad the attention leaves, named ``"k"`` and ``"v"`` ((nP, B, S,
+        Hkv, dh)), to the capacity along S.  Leaves are chosen by name, not
+        by shape: the reference pads every 5-d leaf whose axis 2 equals the
+        prompt length, which also catches a mamba state h (nP, B, H, N, P)
+        when the prompt has exactly H tokens."""
         cap = self.sc.capacity
 
         def pad(x):
-            if x.dim() == 5 and x.shape[2] == cur:  # (nP, B, S, Hkv, dh)
-                out = x.new_zeros((x.shape[0], x.shape[1], cap, *x.shape[3:]))
-                out[:, :, :cur] = x
-                return out
-            return x
+            out = x.new_zeros((x.shape[0], x.shape[1], cap, *x.shape[3:]))
+            out[:, :, :cur] = x
+            return out
 
-        return {"layers": tree_map(pad, cache["layers"]),
+        return {"layers": {name: {key: pad(t) if key in ("k", "v") else t
+                                  for key, t in leaves.items()}
+                           for name, leaves in cache["layers"].items()},
                 "length": cache["length"]}

@@ -22,6 +22,8 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.merge_fix import merge_fix
 from repro_torch.kernels.merge_fix.ref import merge_fix_ref
+from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import ssd_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -378,3 +380,145 @@ def test_refused_launch_raises():
         bna_decompose(torch.zeros((1, 2048, 2048), dtype=torch.int32,
                                   device=dev),
                       torch.ones(1, dtype=torch.int32, device=dev), 8)
+
+
+# ssd_scan (K5): (B, S, H, G, N, P) and chunk.  The reference sweep's shapes,
+# mamba2-2.7b's (H=80, G=1, N=128, P=64, L=128), jamba's G=8 and the largest
+# tile the kernel takes (L = N = P = 128).  Tolerances relative to the
+# largest |y|: 1e-4 in float32 (the reference's test), 8e-3 in bfloat16
+# (both round a float32 result to bfloat16: two ulps at the top of the range)
+_SSD_SHAPES = [((1, 16, 2, 1, 8, 16), 8), ((2, 33, 4, 2, 16, 32), 16),
+               ((1, 64, 2, 2, 32, 64), 32), ((1, 40, 8, 1, 16, 8), 64),
+               ((2, 1, 80, 1, 128, 64), 128), ((2, 127, 80, 1, 128, 64), 128),
+               ((2, 128, 80, 1, 128, 64), 128),
+               ((1, 4096, 80, 1, 128, 64), 128),
+               ((1, 300, 16, 8, 128, 64), 128),
+               ((1, 200, 2, 1, 128, 128), 128)]
+
+
+def _ssd_inputs(shape, dtype, dev, seed=0):
+    B, S, H, G, N, P = shape
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.normal(size=(B, S, H, P)), dtype=dtype,
+                        device=dev)
+    a = torch.as_tensor(rng.uniform(0.55, 1.0, size=(B, S, H)),
+                        dtype=torch.float32, device=dev)
+    b = torch.as_tensor(rng.normal(size=(B, S, G, N)) * 0.3, dtype=dtype,
+                        device=dev)
+    c = torch.as_tensor(rng.normal(size=(B, S, G, N)) * 0.3, dtype=dtype,
+                        device=dev)
+    return x, a, b, c
+
+
+def _ssd_rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / (want.float().abs().max() + 1e-9))
+
+
+@pytest.mark.parametrize("shape,chunk", _SSD_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 8e-3)])
+def test_ssd_scan_kernel_equals_plain(shape, chunk, dtype, tol):
+    dev = _card()
+    x, a, b, c = _ssd_inputs(shape, dtype, dev, seed=sum(shape))
+    before = ssd_scan.launches
+    got = ssd_scan(x, a, b, c, chunk=chunk)
+    want = ssd_ref(x, a, b, c)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert bool(torch.isfinite(got).all())
+    assert _ssd_rel(got, want) < tol
+
+
+def test_ssd_scan_kernel_reads_strided_views():
+    """b and c split out of one (B, S, C) projection, as models.ssm passes
+    them, and x seen through a permute: no copy needed."""
+    dev = _card()
+    B, S, H, G, N, P = 2, 96, 8, 2, 16, 32
+    rng = np.random.default_rng(11)
+    xbc = torch.as_tensor(rng.normal(size=(B, S, 2 * G * N + 7)) * 0.3,
+                          dtype=torch.float32, device=dev)
+    b = xbc[..., :G * N].reshape(B, S, G, N)
+    c = xbc[..., G * N:2 * G * N].reshape(B, S, G, N)
+    x = torch.as_tensor(rng.normal(size=(B, H, S, P)), dtype=torch.float32,
+                        device=dev).permute(0, 2, 1, 3)
+    a = torch.as_tensor(rng.uniform(0.55, 1.0, size=(B, S, H)),
+                        dtype=torch.float32, device=dev)
+    assert not (b.is_contiguous() or x.is_contiguous())
+    got = ssd_scan(x, a, b, c, chunk=32)
+    want = ssd_ref(x.contiguous(), a, b.contiguous(), c.contiguous())
+    torch.cuda.synchronize()
+    assert _ssd_rel(got, want) < 1e-4
+
+
+def test_ssd_scan_kernel_refuses_what_it_does_not_take():
+    dev = _card()
+    before = ssd_scan.launches
+    x, a, b, c = _ssd_inputs((1, 300, 2, 1, 16, 16), torch.float32, dev)
+    with pytest.raises(ValueError, match="1..128"):
+        ssd_scan(x, a, b, c, chunk=256)
+    x, a, b, c = _ssd_inputs((1, 16, 2, 1, 160, 16), torch.float32, dev)
+    with pytest.raises(ValueError, match="1..128"):
+        ssd_scan(x, a, b, c, chunk=16)
+    x, a, b, c = _ssd_inputs((1, 16, 2, 1, 16, 192), torch.float32, dev)
+    with pytest.raises(ValueError, match="1..128"):
+        ssd_scan(x, a, b, c, chunk=16)
+    x, a, b, c = _ssd_inputs((1, 16, 2, 1, 16, 16), torch.float16, dev)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssd_scan(x, a, b, c, chunk=16)
+    x, a, b, c = _ssd_inputs((1, 16, 2, 1, 16, 16), torch.float32, dev)
+    with pytest.raises(TypeError, match="b is"):
+        ssd_scan(x, a, b.bfloat16(), c, chunk=16)
+    c_strided = c.repeat_interleave(2, dim=3)[..., ::2]
+    assert c_strided.shape == c.shape and c_strided.stride(3) == 2
+    with pytest.raises(ValueError, match="last dim must be contiguous"):
+        ssd_scan(x, a, b, c_strided, chunk=16)
+    assert ssd_scan.launches == before
+
+
+def test_smoke_mamba2_forward_and_serve_on_card_equal_cpu():
+    """mamba2-2.7b's f32 smoke config: lm_forward on the card launches K5
+    once per layer and equals the CPU within 1e-4; prefill (the chunked
+    form) and a fifo serve run with a 16-token (= H) prompt give the same
+    logits and tokens on both devices."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm, lm_forward, prefill
+    from repro_torch.models.lm import tree_map
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+
+    dev = _card()
+    cfg = get_config("mamba2-2.7b").smoke()
+    cpu = init_lm(cfg, torch.Generator().manual_seed(0))
+    card = tree_map(lambda x: x.to(dev), cpu)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(2, 40)))
+    before = ssd_scan.launches
+    lg, _ = lm_forward(cfg, card, toks.to(dev))
+    assert ssd_scan.launches == before + cfg.n_layers
+    lg_c, _ = lm_forward(cfg, cpu, toks)
+    assert float((lg.cpu() - lg_c).abs().max()) < 1e-4
+    before = ssd_scan.launches
+    plg, cache = prefill(cfg, card, toks.to(dev))
+    assert ssd_scan.launches == before        # prefill: the chunked form
+    plg_c, cache_c = prefill(cfg, cpu, toks)
+    assert float((plg.cpu() - plg_c).abs().max()) < 1e-4
+    for name in cache_c["layers"]:
+        for key in ("h", "conv"):
+            assert float((cache["layers"][name][key].cpu()
+                          - cache_c["layers"][name][key]).abs().max()) < 1e-4
+
+    def reqs():
+        rng = np.random.default_rng(1)
+        return [Request(rid=i, tokens=rng.integers(1, cfg.vocab, size=size),
+                        max_new=5, arrival=float(i // 2))
+                for i, size in enumerate((6, 16, 9, 16, 3))]
+
+    outs = []
+    for params in (card, cpu):
+        rs = reqs()
+        stats = ServingEngine(cfg, params, ServeConfig(
+            slots=2, capacity=32, admission="fifo")).run(rs)
+        outs.append((stats, [r.out for r in rs]))
+    assert outs[0] == outs[1]
+    assert outs[0][0]["completed"] == 5

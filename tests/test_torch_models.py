@@ -26,6 +26,8 @@ from repro_torch.models import layers
 from repro_torch.models.lm import tree_leaves, tree_map
 
 DENSE = ["qwen3_1_7b", "tinyllama_1_1b", "qwen2_5_32b"]
+# the stacks the port runs: dense attention and mamba2 (attention-free SSD)
+MODELS = DENSE + ["mamba2_2_7b"]
 KEY = jax.random.PRNGKey(0)
 
 
@@ -90,7 +92,7 @@ def test_dtypes_map_to_torch():
     assert layers.DTYPES["bfloat16"] is torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", DENSE + ["qwen3_4b"])
+@pytest.mark.parametrize("arch", MODELS + ["qwen3_4b"])
 def test_param_count_equals_reference(arch):
     assert configs.get_config(arch).param_count() == \
         ref_configs.get_config(arch).param_count()
@@ -103,8 +105,8 @@ def test_qwen3_full_width_size():
     assert 2 * cfg.n_layers * cfg.n_kv_heads * cfg.d_head * 2 == 114_688
 
 
-@pytest.mark.parametrize("arch", ["mamba2_2_7b", "jamba_1_5_large",
-                                  "qwen3_moe_235b", "granite_moe_3b"])
+@pytest.mark.parametrize("arch", ["jamba_1_5_large", "qwen3_moe_235b",
+                                  "granite_moe_3b"])
 def test_non_dense_stacks_raise(arch):
     cfg = configs.get_config(arch).smoke()
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
@@ -115,7 +117,7 @@ def test_non_dense_stacks_raise(arch):
 # parameters
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", MODELS)
 def test_init_lm_matches_reference_shapes_and_scales(arch):
     rcfg = ref_configs.get_config(arch).smoke()
     pcfg = configs.get_config(arch).smoke()
@@ -126,7 +128,7 @@ def test_init_lm_matches_reference_shapes_and_scales(arch):
     assert [p for p, _ in flat_w] == [p for p, _ in flat_g]
     for (path, w), (_, g) in zip(flat_w, flat_g):
         assert g.shape == w.shape and g.dtype == w.dtype, path
-        if w.std() == 0:                    # norms (ones) and biases (zeros)
+        if w.std() == 0:                    # norms, biases, a_log, dt_bias
             assert np.array_equal(g, w), path
         else:                               # same scale, other bits
             assert abs(g.std() / w.std() - 1) < 0.1, path
@@ -143,6 +145,27 @@ def test_params_roundtrip_and_checks():
         lm_params_from_numpy(pcfg, bad, device="cpu")
     with pytest.raises(ValueError, match="keys"):
         lm_params_from_numpy(pcfg, {"embed": rp["embed"]}, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_params_roundtrip_keeps_float32_leaves(dtype):
+    """mamba2's leaves cross both ways; a_log, dt_bias and d_skip stay
+    float32 under a bfloat16 parameter type, as in the reference."""
+    rcfg = ref_configs.get_config("mamba2_2_7b").smoke().replace(
+        param_dtype=dtype)
+    pcfg = configs.get_config("mamba2_2_7b").smoke().replace(
+        param_dtype=dtype)
+    rp = jax.tree.map(np.asarray, ref_lm.init_lm(rcfg, KEY))
+    pp = lm_params_from_numpy(pcfg, rp, device="cpu")
+    m = pp["stack"]["l0"]["mamba"]
+    assert m["in_proj"].dtype == layers.DTYPES[dtype]
+    for key in ("a_log", "dt_bias", "d_skip"):
+        assert m[key].dtype == torch.float32, key
+        assert rp["stack"]["l0"]["mamba"][key].dtype == np.float32, key
+    back = lm_params_to_numpy(pp)
+    for a, b in zip(jax.tree.leaves(rp), jax.tree.leaves(back)):
+        assert b.dtype == np.float32
+        assert np.array_equal(a.astype(np.float32), b)
 
 
 def test_params_from_numpy_reads_bfloat16():
@@ -244,7 +267,7 @@ def _tokens(cfg, B, S, seed=1):
     return np.random.default_rng(seed).integers(0, cfg.vocab, size=(B, S))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", MODELS)
 def test_lm_forward_equals_reference(arch):
     rcfg, pcfg, rp, pp = _both(arch)
     toks = _tokens(pcfg, 2, 12)
@@ -255,7 +278,19 @@ def test_lm_forward_equals_reference(arch):
     assert float(aux) == float(raux) == 0.0
 
 
-@pytest.mark.parametrize("arch", DENSE)
+def _assert_caches_close(cache, rcache):
+    """Every leaf of the port's cache (k and v, or a mamba layer's h and
+    conv) within 1e-4 of the reference's."""
+    assert sorted(cache["layers"]) == sorted(rcache["layers"])
+    for name, leaves in rcache["layers"].items():
+        assert sorted(cache["layers"][name]) == sorted(leaves), name
+        for key, want in leaves.items():
+            got = cache["layers"][name][key]
+            assert got.shape == want.shape, (name, key)
+            assert np.abs(got.numpy() - _np(want)).max() < 1e-4, (name, key)
+
+
+@pytest.mark.parametrize("arch", MODELS)
 def test_prefill_and_decode_equal_reference(arch):
     rcfg, pcfg, rp, pp = _both(arch)
     B, S, P = 2, 16, 10
@@ -265,36 +300,40 @@ def test_prefill_and_decode_equal_reference(arch):
     assert lg.shape == (B, pcfg.vocab)
     assert np.abs(lg.numpy() - _np(rlg)).max() < 1e-4
     assert cache["length"] == int(rcache["length"]) == P
-    for name, kv in rcache["layers"].items():
-        for which in ("k", "v"):
-            assert cache["layers"][name][which].shape == kv[which].shape
-            assert np.abs(cache["layers"][name][which].numpy()
-                          - _np(kv[which])).max() < 1e-4
+    _assert_caches_close(cache, rcache)
 
-    def pad(x):
+    # k and v padded to S along the sequence; a mamba state kept as it is
+    def rpad(key, x):
+        if key not in ("k", "v"):
+            return x
         return jnp.pad(x, ((0, 0), (0, 0), (0, S - P), (0, 0), (0, 0)))
 
-    rcache = {"layers": jax.tree.map(pad, rcache["layers"]),
+    def pad(key, t):
+        if key not in ("k", "v"):
+            return t
+        return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, S - P))
+
+    rcache = {"layers": {n: {w: rpad(w, x) for w, x in kv.items()}
+                         for n, kv in rcache["layers"].items()},
               "length": rcache["length"]}
-    cache = {"layers": {n: {w: torch.nn.functional.pad(
-        t, (0, 0, 0, 0, 0, S - P)) for w, t in kv.items()}
-        for n, kv in cache["layers"].items()}, "length": cache["length"]}
+    cache = {"layers": {n: {w: pad(w, t) for w, t in kv.items()}
+                        for n, kv in cache["layers"].items()},
+             "length": cache["length"]}
     for t in range(P, S):
         lg, cache = decode_step(pcfg, pp, cache, _t(toks[:, t:t + 1]))
         rlg, rcache = ref_lm.decode_step(rcfg, rp, rcache,
                                          jnp.asarray(toks[:, t:t + 1]))
         assert np.abs(lg.numpy() - _np(rlg)).max() < 1e-4, t
         assert cache["length"] == int(rcache["length"]) == t + 1
-    for name, kv in rcache["layers"].items():
-        for which in ("k", "v"):
-            assert np.abs(cache["layers"][name][which].numpy()
-                          - _np(kv[which])).max() < 1e-4
+    _assert_caches_close(cache, rcache)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", MODELS)
 def test_decode_matches_teacher_forcing(arch):
     """The port's own consistency: prefill then decode reproduce
-    lm_forward's logits at every position (2e-3, the reference's test)."""
+    lm_forward's logits at every position (2e-3, the reference's test).
+    For mamba2 this ties the chunked form (prefill) and the recurrence
+    (decode) to lm_forward's scan."""
     cfg = configs.get_config(arch).smoke()
     params = init_lm(cfg, torch.Generator().manual_seed(0))
     B, S, P = 2, 24, 20
@@ -302,9 +341,12 @@ def test_decode_matches_teacher_forcing(arch):
     full, _ = lm_forward(cfg, params, toks)
     lg, cache = prefill(cfg, params, toks[:, :P])
     empty = init_decode_cache(cfg, B, S, device="cpu")
-    for name, kv in cache["layers"].items():
-        for which in ("k", "v"):
-            empty["layers"][name][which][:, :, :P] = kv[which]
+    for name, leaves in cache["layers"].items():
+        for key, t in leaves.items():
+            if key in ("k", "v"):
+                empty["layers"][name][key][:, :, :P] = t
+            else:
+                empty["layers"][name][key].copy_(t)
     cache = {"layers": empty["layers"], "length": cache["length"]}
     errs = [float((lg - full[:, P - 1, :cfg.vocab]).abs().max())]
     for t in range(P, S):
@@ -324,10 +366,26 @@ def test_decode_step_updates_the_cache_in_place():
 
 
 def test_init_decode_cache_shapes_equal_reference():
-    for arch in DENSE:
+    for arch in MODELS:
         pcfg = configs.get_config(arch).smoke()
         rcfg = ref_configs.get_config(arch).smoke()
         got = init_decode_cache(pcfg, 3, 7, device="cpu")
         want = ref_lm.init_decode_cache(rcfg, 3, 7)
         assert [tuple(t.shape) for t in tree_leaves(got["layers"])] == \
             [tuple(x.shape) for x in jax.tree.leaves(want["layers"])]
+        assert [t.dtype for t in tree_leaves(got["layers"])] == \
+            [getattr(torch, str(x.dtype))
+             for x in jax.tree.leaves(want["layers"])]
+
+
+def test_mamba_decode_step_updates_the_state_in_place():
+    cfg = configs.get_config("mamba2_2_7b").smoke()
+    params = init_lm(cfg, torch.Generator().manual_seed(0))
+    cache = init_decode_cache(cfg, 1, 8, device="cpu")
+    h0, conv0 = cache["layers"]["l0"]["h"], cache["layers"]["l0"]["conv"]
+    assert h0.dtype == torch.float32 and h0.abs().sum() == 0
+    _, new = decode_step(cfg, params, cache, torch.tensor([[3]]))
+    assert new["layers"]["l0"]["h"] is h0 and new["length"] == 1
+    assert new["layers"]["l0"]["conv"] is conv0
+    assert h0.abs().sum() > 0 and conv0[:, :, -1].abs().sum() > 0
+    assert conv0[:, :, :-1].abs().sum() == 0

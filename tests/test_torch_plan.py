@@ -190,6 +190,13 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.models, repro_torch.serve, repro_torch.configs\n"
         "from repro_torch.launch import serve\n"
         "serve.main(['--requests', '3', '--max-new', '3', '--device', 'cpu'])\n"
+        "import torch\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models import init_lm, lm_forward\n"
+        "cfg = get_config('mamba2-2.7b').smoke()\n"
+        "p = init_lm(cfg, torch.Generator().manual_seed(0))\n"
+        "lg, _ = lm_forward(cfg, p, torch.ones((1, 20), dtype=torch.long))\n"
+        "assert bool(torch.isfinite(lg).all()), 'mamba2 forward'\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith('jax.') or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"

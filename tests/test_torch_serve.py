@@ -18,10 +18,11 @@ from repro.serve import ServeConfig as RefServeConfig
 from repro.serve import ServingEngine as RefServingEngine
 import repro_torch.configs as configs
 from repro_torch.launch import serve as launch
-from repro_torch.models import init_lm, lm_params_from_numpy
+from repro_torch.models import init_lm, lm_forward, lm_params_from_numpy
 from repro_torch.serve import Request, ServeConfig, ServingEngine
 
 DENSE = ["qwen3_1_7b", "tinyllama_1_1b", "qwen2_5_32b"]
+MODELS = DENSE + ["mamba2_2_7b"]
 
 
 def _requests(cls, cfg, seed=0):
@@ -35,7 +36,7 @@ def _requests(cls, cfg, seed=0):
             for i in range(7)]
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", MODELS)
 def test_fifo_serve_equals_reference(arch):
     rcfg = ref_configs.get_config(arch).smoke()
     pcfg = configs.get_config(arch).smoke()
@@ -111,6 +112,49 @@ def test_pad_cache_pads_to_capacity():
     assert out["length"] == 6
 
 
+def test_pad_cache_keeps_a_mamba_state_whose_heads_equal_the_prompt():
+    """A mamba layer's h (nP, B, H, N, P) has H on axis 2; a prompt of H
+    tokens must not pad it (the reference's shape test does)."""
+    cfg = configs.get_config("mamba2_2_7b").smoke()
+    params = init_lm(cfg, torch.Generator().manual_seed(0))
+    eng = ServingEngine(cfg, params, ServeConfig(capacity=64,
+                                                 admission="fifo"))
+    h = torch.ones((2, 1, 16, 16, 8))
+    conv = torch.ones((2, 1, 3, 160))
+    out = eng._pad_cache({"layers": {"l0": {"h": h, "conv": conv}},
+                          "length": 16}, 16)
+    assert out["layers"]["l0"]["h"] is h
+    assert out["layers"]["l0"]["conv"] is conv
+
+
+def test_prompt_of_exactly_h_tokens_serves_as_teacher_forcing():
+    """mamba2 smoke has H = 16 SSD heads.  A 16-token prompt serves on the
+    port, and its token stream is greedy decoding from lm_forward's
+    teacher-forced logits.  The reference engine fails on the same request:
+    its _pad_cache pads h along its heads."""
+    arch = "mamba2_2_7b"
+    rcfg = ref_configs.get_config(arch).smoke()
+    pcfg = configs.get_config(arch).smoke()
+    H = pcfg.ssm.expand * pcfg.d_model // pcfg.ssm.d_head
+    assert H == 16
+    rp = ref_lm.init_lm(rcfg, jax.random.PRNGKey(0))
+    pp = lm_params_from_numpy(pcfg, jax.tree.map(np.asarray, rp),
+                              device="cpu")
+    prompt = np.random.default_rng(4).integers(1, pcfg.vocab, size=H)
+    r = Request(rid=0, tokens=prompt, max_new=8)
+    stats = ServingEngine(pcfg, pp, ServeConfig(
+        slots=2, capacity=32, admission="fifo")).run([r])
+    assert stats["completed"] == 1 and len(r.out) == 8
+    seq = torch.as_tensor(np.concatenate([prompt, r.out[:-1]]))[None]
+    logits, _ = lm_forward(pcfg, pp, seq)
+    greedy = logits[0, H - 1:, :pcfg.vocab].argmax(dim=-1).tolist()
+    assert greedy == r.out
+    with pytest.raises((TypeError, ValueError)):
+        RefServingEngine(rcfg, rp, RefServeConfig(
+            slots=2, capacity=32, admission="fifo")).run(
+                [RefRequest(rid=0, tokens=prompt, max_new=8)])
+
+
 def test_launcher_equals_reference_launcher(monkeypatch, capsys):
     """The same CLI on the CPU: fifo statistics equal the reference
     launcher's (they depend on the requests, not on the weights)."""
@@ -122,6 +166,20 @@ def test_launcher_equals_reference_launcher(monkeypatch, capsys):
     want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert got.pop("device") == "cpu"
     assert got == want and got["completed"] == 5
+
+
+def test_launcher_serves_mamba2_as_reference_launcher(monkeypatch, capsys):
+    """--arch mamba2-2.7b on the CPU: the reference launcher printed
+    {"steps": 23, "completed": 8, "weighted_finish": 173.7017402627161}."""
+    launch.main(["--arch", "mamba2-2.7b", "--device", "cpu"])
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    monkeypatch.setattr("sys.argv", ["serve", "--arch", "mamba2-2.7b",
+                                     "--admission", "fifo"])
+    ref_launch.main()
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got.pop("device") == "cpu"
+    assert got == want
+    assert (got["steps"], got["completed"]) == (23, 8)
 
 
 def test_launcher_refuses_coflow_and_missing_card(monkeypatch):
