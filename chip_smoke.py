@@ -6,8 +6,7 @@
 Phases; any failure exits non-zero and prints no result line:
 
 1. Build the six kernels from the sources in the checkout (one ``nvcc``
-   per source, started together) and print ``-Xptxas -v``'s registers and
-   shared memory per kernel.
+   per source, started together).
 2. Hold ``bna_step`` against its plain PyTorch version on the card, for
    exact equality, on random states (B in {1, 37, 256}, w in {1, 8, 64,
    256}, drained matrices included), its int64 instance on random states
@@ -43,7 +42,8 @@ Phases; any failure exits non-zero and prints no result line:
 6. gdm and om_alg at ``scale=1.0`` (the paper's 267 coflows) through the
    pipeline on the card: feasible, 0 host repairs, 0 overflow buckets.
 7. ``flash_attention`` (K4) against its plain version on the card, float32
-   and bfloat16, causal and not, at the reference sweep's shapes and
+   (FMA path) and bfloat16 (tensor-core path, ``mma.sync``), causal and
+   not, at the reference sweep's shapes (d = 24, 32, 48, 64, 128) and
    qwen3-1.7b's prefill shapes (B=1, Hq=16, Hkv=8, d=128, S in {1, 127,
    2048}).  Tolerances: 2e-5 in float32 (the reference's test; the sums
    run in another order), 4e-2 in bfloat16 (both round a float32 result to
@@ -61,8 +61,10 @@ Phases; any failure exits non-zero and prints no result line:
    the largest logit (bf16 keeps 8 bits: its unit roundoff is 2^-9, and the
    two devices round at other places in each of 28 layers), and whether
    the argmax agrees.
-10. ``ssd_scan`` (K5) against its plain version (``ssd_ref``, the
-   sequential recurrence) on the card, float32 and bfloat16, at the
+10. ``ssd_scan`` (K5: chunk-parallel, three CUDA launches a call)
+   against its plain version (``ssd_ref``, the sequential recurrence) on
+   the card, float32 (FMA path) and bfloat16 (tensor cores: C B^T in bf16,
+   the products with a computed float32 operand in TF32), at the
    reference sweep's shapes, mamba2-2.7b's (B=2, H=80, G=1, N=128, P=64,
    L=128, S in {1, 127, 128, 4096}) and a G=8 shape (jamba's).  Tolerances,
    relative to the largest |y|: 1e-4 in float32 (the reference's test),
@@ -71,8 +73,10 @@ Phases; any failure exits non-zero and prints no result line:
 11. mamba2-2.7b ``lm_forward`` at its published full width (64 layers,
    d_model 2560, 80 SSD heads, d_state 128, vocab 50280, bf16; 2.83 B
    parameters from seed 0) at B=2, S=4096: a checked pass holds each of
-   its 64 K5 launches against ``ssd_ref`` on the same inputs; then, with
-   the counts set to 0, an unchecked pass must launch K5 exactly 64 times.
+   its 64 K5 calls against ``ssd_ref`` on the same inputs; then, with
+   the counts set to 0, an unchecked pass must call K5 exactly 64 times
+   (``ssd_scan.launches`` counts calls).  A profiled pass counts the
+   launches of K5's three kernels and must find each launched once a call.
    Prints its wall seconds, peak memory and a ``torch.profiler`` split of
    its device time (K5, GEMMs, the rest) with the busy share.
 12. Teacher forcing at full width: prefill 64 tokens (the chunked form) and
@@ -98,9 +102,17 @@ Phases; any failure exits non-zero and prints no result line:
    3.35 TB/s and operations over its peak rate); K4 also at S=32768 (the
    ``prefill_32k`` sequence length) and beside
    ``scaled_dot_product_attention``; K5 at mamba2's B=2, S=4096 (no
-   PyTorch call computes the SSD scan, so its library time is null).
-   Print the ``kernels`` line, the plan and serve timings and counts, and
-   the card's name and power limit.  The last line is the result line.
+   PyTorch call computes the SSD scan, so its library time is null).  K4's
+   and K5's rows add their design, TFLOP/s, and the registers, local
+   memory (spills) and dynamic shared memory of each kernel as the loaded
+   library reports them; K4 its ratio to ``library_ms``; K5 the CUDA
+   launches per call counted in phase 11, its float32 scratch bytes and
+   the design's floor
+   (the algorithm's bytes plus the chunk states written, read, written and
+   read, over 3.35 TB/s), beside ``bound_ms``, which stays the
+   algorithm's.  Print the ``kernels`` line, the plan and serve timings
+   and counts, and the card's name and power limit.  The last line is the
+   result line.
 
 float32 matrix products run in full float32 (``allow_tf32`` is set False,
 PyTorch's default, for matmul and cuDNN).
@@ -109,6 +121,7 @@ The full record also goes to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -129,6 +142,7 @@ KERNELS = ("bna_step", "coflow_merge", "bna_decompose", "merge_fix",
            "flash_attention", "ssd_scan")
 SERVE_ARCH = "qwen3-1.7b"
 SSM_ARCH = "mamba2-2.7b"
+K5_NAMES = ("ssd_state_", "ssd_pass", "ssd_out_")   # K5's three kernels
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 4e-2}
 SSD_TOL = {"float32": 1e-4, "bfloat16": 8e-3}   # relative to max |y|
 CHECK_SCALE = 0.25                  # phase 4's checked pipeline plan
@@ -179,6 +193,19 @@ def _wall_ms(fn, rounds: int = 3) -> float:
     return statistics.median(times)
 
 
+def _attributes(fn, *args) -> dict:
+    """A kernel's compiled attributes, through its library's
+    ``*_attributes`` entry: registers and local memory (spills) a thread,
+    and the dynamic shared memory its launch requests."""
+    regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    err = fn(*args, ctypes.byref(regs), ctypes.byref(local),
+             ctypes.byref(smem))
+    if err != 0:
+        _fail(f"{fn.__name__}{args}: CUDA error {err}")
+    return {"registers": regs.value, "local_bytes": local.value,
+            "smem_bytes": smem.value}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -204,6 +231,8 @@ def main() -> int:
     from repro_torch.kernels.merge_fix.ref import merge_fix_ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssd_scan import CUDA_LAUNCHES as \
+        SSD_CUDA_LAUNCHES
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
 
@@ -225,14 +254,9 @@ def main() -> int:
 
     # 1. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    reports = kernels.build_kernels(list(KERNELS))
+    kernels.build_kernels(list(KERNELS))
     record["build_s"] = time.perf_counter() - t0
     print(f"build: {record['build_s']:.2f} s, sm_90a, into {kernels.BUILD_DIR}")
-    for name, log in reports.items():
-        for line in log.splitlines():
-            if "registers" in line or "Compiling entry" in line \
-                    or "spill" in line:
-                print(f"  ptxas[{name}]: {line.strip()}")
 
     # largest |kernel - plain| over every comparison made in this run, the
     # kernels' outputs and the states they update in place included
@@ -1010,6 +1034,7 @@ def main() -> int:
               f"launches, expected {scfg.n_layers}")
     gemm_keys = ("gemm", "nvjet", "cutlass", "xmma")
     with torch.inference_mode():
+        zero_counts()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1017,9 +1042,21 @@ def main() -> int:
             lm_forward(scfg, sparams, ftoks)
             torch.cuda.synchronize()
             prof_wall_us = (time.perf_counter() - t0) * 1e6
+        prof_calls = ssd_scan.launches
     ka = prof.key_averages()
     total = device_us(ka)
-    k5 = device_us([e for e in ka if "ssd_scan" in e.key])
+    k5 = device_us([e for e in ka if any(n in e.key for n in K5_NAMES)])
+    # K5's CUDA launches in the profiled pass, by kernel: each of the three
+    # must run once a call
+    k5_cuda = {n: sum(e.count for e in ka if n in e.key
+                      and e.device_type == DeviceType.CUDA)
+               for n in K5_NAMES}
+    k5_per_call = sum(k5_cuda.values()) / prof_calls if prof_calls else 0
+    if any(c != prof_calls for c in k5_cuda.values()) \
+            or k5_per_call != SSD_CUDA_LAUNCHES:
+        _fail(f"mamba2 lm_forward (profiled): {prof_calls} ssd_scan calls "
+              f"launched {k5_cuda}, expected each kernel once a call "
+              f"({SSD_CUDA_LAUNCHES} a call)")
     gemm = device_us([e for e in ka if any(g in e.key.lower()
                                            for g in gemm_keys)])
     top = sorted(ka, key=lambda e: -device_us([e]))[:6]
@@ -1028,6 +1065,8 @@ def main() -> int:
         "batch": fwd_B, "seq": fwd_S, "wall_s": fwd_wall,
         "max_memory_allocated": fwd_peak, "launches": fwd_launches,
         "checked_k5_calls": n_layer_checks,
+        "k5_cuda_launches": {"calls": prof_calls, "by_kernel": k5_cuda,
+                             "per_call": k5_per_call},
         "profile": {"wall_ms": prof_wall_us / 1e3, "device_ms": total / 1e3,
                     "busy_share": total / prof_wall_us if total else None,
                     "ssd_scan_ms": k5 / 1e3, "gemm_ms": gemm / 1e3,
@@ -1294,7 +1333,13 @@ def main() -> int:
         "library_ms": attn_main["library_ms"],
         "checked_calls": checked["flash_attention"],
         "shape": attn_main["shape"], "dtype": "bfloat16",
-        "tflops": attn_main["tflops"]})
+        "tflops": attn_main["tflops"],
+        "vs_library": attn_main["ms"] / attn_main["library_ms"],
+        "design": "tensor cores: mma.sync m16n8k16 bf16 with ldmatrix, "
+                  "a 2-stage cp.async ring of 32-key K/V tiles, 128-row q "
+                  "tiles of 4 warps",
+        **_attributes(kernels.load_kernel("flash_attention")
+                      .flash_attention_attributes, 1, cfg.d_head)})
     print(f"flash_attention at S={S_main}: {json.dumps(attn_main)}")
     print(f"flash_attention at S=32768: {json.dumps(attn_32k)}")
 
@@ -1318,6 +1363,17 @@ def main() -> int:
     k5_bound = {"bytes": k5_bytes / HBM_BYTES_PER_S * 1e3,
                 "operations": k5_flops / BF16_FLOPS * 1e3}
     k5_by = max(k5_bound, key=k5_bound.get)
+    # the design's float32 scratch: chunk states (B, nC, H, N, P) and each
+    # chunk's log decay (B, nC, H); the states are written (kernel 1), read
+    # and written (kernel 2) and read (kernel 3)
+    nC5 = fwd_S // L5
+    k5_scratch = 4 * fwd_B * nC5 * H5 * (N5 * P5 + 1)
+    k5_floor_ms = (k5_bytes + 4 * 4 * fwd_B * nC5 * H5 * N5 * P5) \
+        / HBM_BYTES_PER_S * 1e3
+    ssd_attrs = kernels.load_kernel("ssd_scan").ssd_scan_attributes
+    k5_kernels = {label: _attributes(ssd_attrs, 1, which, L5, N5, P5)
+                  for label, which in (("chunk_states", 1), ("state_pass", 2),
+                                       ("chunk_outputs", 3))}
     kernels_line.append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
@@ -1332,7 +1388,14 @@ def main() -> int:
         "bound_bytes_ms": k5_bound["bytes"],
         "bound_ops_ms": k5_bound["operations"],
         "bound_f32_cuda_core_ms": k5_flops / F32_FLOPS * 1e3,
-        "gflops": k5_flops / k5_ms / 1e6})
+        "tflops": k5_flops / k5_ms / 1e9,
+        "design": "chunk-parallel, 3 launches (chunk states, state pass, "
+                  "chunk outputs); tensor cores: mma.sync, C B^T bf16 "
+                  "m16n8k16, the products with a computed float32 operand "
+                  "TF32 m16n8k8",
+        "cuda_launches_per_call": k5_per_call,
+        "scratch_bytes": k5_scratch, "design_floor_ms": k5_floor_ms,
+        "kernels": k5_kernels})
     print(f"ssd_scan at B={fwd_B}, S={fwd_S}: {json.dumps(kernels_line[-1])}")
     record["kernels"] = kernels_line
 

@@ -15,12 +15,18 @@ Kernels (what each one replaces is named in its source note):
                   augmenting-path repair, one block per matrix
   merge_fix     — the fused merge_and_fix tail: binning, delta scatter,
                   coflow_merge's scan and the Lemma 6 durations
-  flash_attention — blocked online-softmax GQA attention (prefill), float32
-                  or bfloat16 in, float32 accumulators
+  flash_attention — blocked online-softmax GQA attention (prefill):
+                  bfloat16 on the tensor cores (mma.sync, a cp.async ring
+                  of K/V tiles), float32 as float32 FMAs; float32
+                  accumulators
   ssd_scan      — the Mamba2 SSD chunked scan (lm_forward's mamba layers),
-                  one block per (batch, head) carrying the state over the
-                  chunks, float32 or bfloat16 in, float32 arithmetic
-Headers shared between kernels (``*/csrc/*.cuh``) are included by path.
+                  chunk-parallel in three launches (chunk states, the state
+                  pass over the chunks, chunk outputs): bfloat16 on the
+                  tensor cores (bf16 and TF32 mma.sync), float32 as float32
+                  FMAs
+Headers shared between kernels (``*/csrc/*.cuh``) are included by path:
+``flash_attention/csrc/tensor_core.cuh`` holds the mma.sync, ldmatrix and
+cp.async primitives of K4 and K5.
 
 Dispatch is by device, never by a knob: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises.  Nothing here falls

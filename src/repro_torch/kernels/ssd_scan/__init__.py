@@ -1,1 +1,1 @@
-from .ops import ssd_scan  # noqa: F401
+from .ops import CUDA_LAUNCHES, ssd_scan  # noqa: F401

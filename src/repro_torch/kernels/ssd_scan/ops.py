@@ -5,19 +5,24 @@ device and the launch counter.
 computes, the Mamba2 SSD scan over x (B, S, H, P), the decay a (B, S, H)
 and the state-group inputs b, c (B, S, G, N).  A CPU tensor takes the plain
 version (``ref.ssd_ref``, the sequential recurrence); a CUDA tensor
-launches the kernel in ``csrc/ssd_scan.cu`` or raises.  Before the launch
+launches the kernels in ``csrc/ssd_scan.cu`` or raises.  Before the launch
 it does what the reference's wrapper does: L = min(chunk, S), x, b and c
 padded with zeros and a with 1 to a multiple of L (padded steps leave the
 state unchanged), loga = log(max(a, 1e-37)) in float32, the output sliced
 back to S.  The reference falls back to its oracle past 2^31 - 1 elements
-because Pallas indexes in int32; this kernel indexes with 64-bit offsets,
-so that guard has no counterpart here.
+because Pallas indexes in int32; these kernels index with 64-bit
+offsets, so that guard has no counterpart here.
 
-The kernel reads x, b and c through their (batch, seq, head or group)
+The kernels read x, b and c through their (batch, seq, head or group)
 strides, so the views that ``models.ssm`` splits out of one projection
-need no copy; only the last dim must be contiguous.  It takes L, N and P
-up to 128 and float32 or bfloat16 inputs (x, b and c of one type).
-``ssd_scan.launches`` counts the kernel launches.
+need no copy; only the last dim must be contiguous.  They take L, N and P
+up to 128 and float32 or bfloat16 inputs (x, b and c of one type).  One
+call runs the chunk-parallel scan as ``CUDA_LAUNCHES`` (3) kernels on the
+current stream: chunk states, the state pass over the chunks, chunk
+outputs.  The wrapper allocates their float32 scratch with ``torch.empty``:
+the chunk states (B, S / L, H, N, P), 168 MB at mamba2-2.7b's B=2, S=4096,
+and each chunk's summed log decay (B, S / L, H).
+``ssd_scan.launches`` counts the wrapper's calls that launched the kernels.
 """
 from __future__ import annotations
 
@@ -29,9 +34,10 @@ import torch.nn.functional as F
 from .. import load_kernel
 from .ref import ssd_ref
 
-__all__ = ["ssd_scan", "MAX_TILE"]
+__all__ = ["ssd_scan", "MAX_TILE", "CUDA_LAUNCHES"]
 
-MAX_TILE = 128              # the kernel's largest chunk L, d_state N, d_head P
+MAX_TILE = 128              # the kernels' largest chunk L, d_state N, d_head P
+CUDA_LAUNCHES = 3           # kernels a call launches
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -93,17 +99,22 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     Sp = S + pad
     loga = torch.log(torch.clamp(a.float(), min=1e-37)).contiguous()
     y = torch.empty((B, Sp, H, P), dtype=x.dtype, device=x.device)
+    nC = Sp // L
+    states = torch.empty((B, nC, H, N, P), dtype=torch.float32,
+                         device=x.device)
+    decay = torch.empty((B, nC, H), dtype=torch.float32, device=x.device)
     lib = load_kernel("ssd_scan")
     fn = lib.ssd_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                    + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     strides = [t.stride(i) for t in (x, b, c) for i in range(3)]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), loga.data_ptr(), b.data_ptr(), c.data_ptr(),
-                 y.data_ptr(), int(x.dtype == torch.bfloat16), B, Sp, H, G,
-                 P, N, L, *strides, stream)
+                 y.data_ptr(), states.data_ptr(), decay.data_ptr(),
+                 int(x.dtype == torch.bfloat16), B, Sp, H, G, P, N, L,
+                 *strides, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     ssd_scan.launches += 1

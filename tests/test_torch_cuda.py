@@ -109,13 +109,19 @@ def test_overflow_bucket_on_card_equals_cpu():
         assert np.array_equal(x, y)
 
 
-# flash_attention: the reference sweep's shapes (B, Hq, Hkv, Sq, Sk, d) and
-# qwen3-1.7b's prefill; float32 to 2e-5 as the reference's test (the sums
-# run in another order), bfloat16 to 4e-2 (a few ulps of the output type)
+# flash_attention: the reference sweep's shapes (B, Hq, Hkv, Sq, Sk, d),
+# qwen3-1.7b's prefill and the edges of the tensor-core path: head dims 16,
+# 24, 48 and 256 (tiles padded to 16, 32, 64, 256), Sq < Sk under the causal
+# mask, S = 1, and S off the 128-row q tile (64 rows at d = 256) and the
+# 32-key tile.  float32 to 2e-5 as the reference's test (the sums run in
+# another order), bfloat16 to 4e-2 (a few ulps of the output type)
 _ATTN_SHAPES = [(1, 2, 2, 16, 16, 32), (2, 4, 2, 33, 33, 24),
                 (1, 8, 2, 64, 128, 48), (1, 4, 1, 1, 96, 64),
                 (1, 4, 4, 48, 48, 128), (1, 16, 8, 127, 127, 128),
-                (1, 2, 1, 70, 70, 256)]
+                (1, 2, 1, 70, 70, 256), (2, 2, 1, 40, 40, 16),
+                (1, 4, 2, 100, 300, 24), (1, 2, 2, 200, 200, 48),
+                (1, 16, 8, 129, 129, 128), (1, 8, 4, 257, 1000, 128),
+                (1, 4, 2, 1, 1, 64), (1, 2, 1, 130, 131, 256)]
 
 
 @pytest.mark.parametrize("shape", _ATTN_SHAPES)
@@ -154,6 +160,47 @@ def test_flash_attention_kernel_reads_strided_views():
     torch.cuda.synchronize()
     assert got.transpose(1, 2).is_contiguous()
     assert float((got - want).abs().max()) < 2e-5
+
+
+@pytest.mark.parametrize("misalign", [0, 1])
+def test_flash_attention_bf16_kernel_reads_strided_views(misalign):
+    """The bf16 (tensor-core) path on transpose(1, 2) views: 16-byte
+    aligned rows go by cp.async; a view one element into its storage is
+    copied element by element.  Both within 4e-2 of the plain version."""
+    dev = _card()
+    rng = np.random.default_rng(6)
+    B, S, Hq, Hkv, d = 2, 150, 8, 2, 64
+
+    def view(h):
+        flat = torch.as_tensor(rng.normal(size=B * S * h * d + misalign),
+                               dtype=torch.bfloat16, device=dev)
+        return flat[misalign:].view(B, S, h, d).transpose(1, 2)
+
+    q, k, v = view(Hq), view(Hkv), view(Hkv)
+    assert (q.data_ptr() % 16 == 0) == (misalign == 0)
+    got = flash_attention(q, k, v)
+    want = attention_ref(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) < 4e-2
+
+
+def test_flash_attention_both_paths_on_one_input():
+    """The float32 (FMA) and bfloat16 (tensor-core) paths on the same
+    values at qwen3-1.7b's head shape: each within its own tolerance of the
+    plain version in its type."""
+    dev = _card()
+    rng = np.random.default_rng(8)
+    arrays = [rng.normal(size=s) for s in ((1, 16, 300, 128),
+                                           (1, 8, 300, 128),
+                                           (1, 8, 300, 128))]
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 4e-2)):
+        q, k, v = (torch.as_tensor(a, dtype=dtype, device=dev)
+                   for a in arrays)
+        got = flash_attention(q, k, v)
+        want = attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        assert float((got.float() - want.float()).abs().max()) < tol
 
 
 def test_flash_attention_kernel_refuses_what_it_does_not_take():
@@ -383,17 +430,23 @@ def test_refused_launch_raises():
 
 
 # ssd_scan (K5): (B, S, H, G, N, P) and chunk.  The reference sweep's shapes,
-# mamba2-2.7b's (H=80, G=1, N=128, P=64, L=128), jamba's G=8 and the largest
-# tile the kernel takes (L = N = P = 128).  Tolerances relative to the
-# largest |y|: 1e-4 in float32 (the reference's test), 8e-3 in bfloat16
-# (both round a float32 result to bfloat16: two ulps at the top of the range)
+# mamba2-2.7b's (H=80, G=1, N=128, P=64, L=128), jamba's G=8, the largest
+# tile the kernels take (L = N = P = 128, over several chunks), S = 1, S off
+# the chunk, and N, P off the tensor-core tiles (N = 24 and P = 40 padded to
+# 32 and 40; N = 20, P = 12, which the bf16 path stages element by
+# element).  Tolerances relative to the largest |y|: 1e-4 in float32 (the
+# reference's test), 8e-3 in bfloat16 (both round a float32 result to
+# bfloat16: two ulps at the top of the range)
 _SSD_SHAPES = [((1, 16, 2, 1, 8, 16), 8), ((2, 33, 4, 2, 16, 32), 16),
                ((1, 64, 2, 2, 32, 64), 32), ((1, 40, 8, 1, 16, 8), 64),
                ((2, 1, 80, 1, 128, 64), 128), ((2, 127, 80, 1, 128, 64), 128),
                ((2, 128, 80, 1, 128, 64), 128),
                ((1, 4096, 80, 1, 128, 64), 128),
                ((1, 300, 16, 8, 128, 64), 128),
-               ((1, 200, 2, 1, 128, 128), 128)]
+               ((1, 200, 2, 1, 128, 128), 128),
+               ((1, 1, 4, 1, 16, 16), 128), ((1, 77, 4, 2, 24, 40), 32),
+               ((1, 96, 2, 1, 20, 12), 32), ((2, 520, 4, 1, 128, 128), 128),
+               ((1, 130, 8, 8, 64, 32), 64)]
 
 
 def _ssd_inputs(shape, dtype, dev, seed=0):
@@ -450,6 +503,44 @@ def test_ssd_scan_kernel_reads_strided_views():
     want = ssd_ref(x.contiguous(), a, b.contiguous(), c.contiguous())
     torch.cuda.synchronize()
     assert _ssd_rel(got, want) < 1e-4
+
+
+def test_ssd_scan_bf16_kernel_reads_strided_views():
+    """The bf16 (tensor-core) path on views split out of one projection,
+    as models.ssm passes them (rows 16-byte aligned: cp.async), and on the
+    same views one element into their storage (element by element)."""
+    dev = _card()
+    B, S, H, G, N, P = 2, 300, 8, 2, 64, 32
+    rng = np.random.default_rng(12)
+    for misalign in (0, 1):
+        flat = torch.as_tensor(
+            rng.normal(size=B * S * (H * P + 2 * G * N) + misalign) * 0.3,
+            dtype=torch.bfloat16, device=dev)
+        xbc = flat[misalign:].view(B, S, H * P + 2 * G * N)
+        x, b, c = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
+        x = x.reshape(B, S, H, P)
+        b = b.reshape(B, S, G, N)
+        c = c.reshape(B, S, G, N)
+        a = torch.as_tensor(rng.uniform(0.55, 1.0, size=(B, S, H)),
+                            dtype=torch.float32, device=dev)
+        got = ssd_scan(x, a, b, c, chunk=128)
+        want = ssd_ref(x.contiguous(), a, b.contiguous(), c.contiguous())
+        torch.cuda.synchronize()
+        assert _ssd_rel(got, want) < 8e-3, misalign
+
+
+def test_ssd_scan_both_paths_on_one_input():
+    """The float32 (FMA) and bfloat16 (tensor-core) paths on the same
+    values at mamba2-2.7b's head shape over four chunks: each within its own
+    tolerance of the plain version in its type."""
+    dev = _card()
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 8e-3)):
+        x, a, b, c = _ssd_inputs((1, 512, 4, 1, 128, 64), dtype, dev, seed=9)
+        got = ssd_scan(x, a, b, c, chunk=128)
+        want = ssd_ref(x, a, b, c)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        assert _ssd_rel(got, want) < tol
 
 
 def test_ssd_scan_kernel_refuses_what_it_does_not_take():

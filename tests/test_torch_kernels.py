@@ -281,6 +281,65 @@ def test_flash_attention_plain_equals_reference(shape, dtype, tol, causal):
                        flash_attention(tq, tk, tv, causal=causal))
 
 
+def _blocked_attention_bf16(q, k, v, causal, scale, block_q=128,
+                            block_k=32):
+    """The bfloat16 path of kernels/flash_attention in plain torch: q tiles
+    of block_q rows against k tiles of block_k keys, S = Q K^T from bf16
+    operands with float32 sums, the online softmax in base 2 on float32
+    scores (keys masked with -1e30, whole causal tiles past the q tile
+    skipped), P rounded to bfloat16 before P V, float32 accumulators, the
+    output divided by the denominator and rounded to bfloat16."""
+    B, Hq, Sq, d = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(Hq // Hkv, dim=1)
+    vf = v.float().repeat_interleave(Hq // Hkv, dim=1)
+    qf = q.float()
+    c = scale * 1.4426950408889634
+    out = torch.empty((B, Hq, Sq, d))
+    for q0 in range(0, Sq, block_q):
+        q1 = min(Sq, q0 + block_q)
+        qi = torch.arange(q0, q1)
+        m = torch.full((B, Hq, q1 - q0), -1e30)
+        den = torch.zeros((B, Hq, q1 - q0))
+        acc = torch.zeros((B, Hq, q1 - q0, d))
+        k_end = min(Sk, max(0, q1 - 1 + Sk - Sq + 1)) if causal else Sk
+        for k0 in range(0, k_end, block_k):
+            kj = torch.arange(k0, min(Sk, k0 + block_k))
+            s = qf[:, :, q0:q1] @ kf[:, :, kj].transpose(-1, -2)
+            ok = qi[:, None] + (Sk - Sq) >= kj[None, :] if causal else \
+                torch.ones((q1 - q0, len(kj)), dtype=torch.bool)
+            s = torch.where(ok, s * c, -1e30)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            den = den * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] \
+                + p.bfloat16().float() @ vf[:, :, kj]
+            m = m_new
+        out[:, :, q0:q1] = acc / torch.where(den == 0, 1.0, den)[..., None]
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("Sq,Sk", [(384, 512), (512, 512), (200, 333)])
+def test_blocked_attention_with_bf16_p_within_attn_tol(Sq, Sk):
+    """qwen3-1.7b's head shape (Hq=16, Hkv=8, d=128), causal: the kernel's
+    blocked online softmax with P rounded to bf16 stays within the card
+    check's 4e-2 of attention_ref on the same bf16 inputs."""
+    rng = np.random.default_rng(Sq + Sk)
+    q, k, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32)
+               .bfloat16() for s in ((1, 16, Sq, 128), (1, 8, Sk, 128),
+                                     (1, 8, Sk, 128)))
+    scale = 128 ** -0.5
+    got = _blocked_attention_bf16(q, k, v, True, scale)
+    want = attention_ref(q, k, v, causal=True, scale=scale)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert float((got.float() - want.float()).abs().max()) < 4e-2
+    # P in bf16 is a real rounding: the float32-P version reads differently
+    exact = attention_ref(q.float(), k.float(), v.float(), causal=True,
+                          scale=scale)
+    assert float((got.float() - exact).abs().max()) > 0
+
+
 def test_flash_attention_checks_shapes_as_reference():
     q = torch.zeros((1, 4, 8, 16))
     k = torch.zeros((1, 2, 8, 16))

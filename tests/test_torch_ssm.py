@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import repro.configs as ref_configs
 from repro.kernels.ssd_scan import ssd_scan as ref_ssd_scan
@@ -153,6 +154,109 @@ def test_ssd_chunked_equals_reference(shape, chunk):
     # and the chunked form computes the scan's function
     assert _rel(y.numpy(), ssd_ref(_t(x), _t(a), _t(b), _t(c)).numpy()) \
         < 1e-4
+
+
+# --------------------------------------------------------------------------
+# kernels/ssd_scan's chunk-parallel decomposition, in plain torch
+# --------------------------------------------------------------------------
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds (to nearest,
+    ties away from zero): half a unit of the 13 dropped mantissa bits added
+    to the magnitude, then the 13 bits cleared, on an int32 view."""
+    i = t.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _ssd_three_pass(x, a, b, c, chunk, *, rounded=False):
+    """The three kernels of kernels/ssd_scan in plain torch: (1) each
+    chunk's state s_c = sum_j exp(cum_L - cum_j) b_j x_j^T, (2) the pass
+    h_c = exp(cum_L of c - 1) h_(c-1) + s_(c-1) over the chunks, h_0 = 0,
+    (3) each chunk's output, the masked intra-chunk term plus exp(cum_i)
+    (c_i . h_c).  Padded as the wrapper pads.  With ``rounded`` the
+    products round their operands as the bfloat16 path's tensor cores do:
+    TF32 for the float32 operands a kernel computes (w_j b_j, h, the masked
+    scores), x, b and c as they are (bf16 is exact in TF32), float32
+    sums."""
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    rep = H // G
+    L = min(chunk, S)
+    pad = (-S) % L
+    loga = torch.log(torch.clamp(a.float(), min=1e-37))
+    xf, bf, cf = x.float(), b.float(), c.float()
+    if pad:
+        xf, bf, cf = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xf, bf, cf))
+        loga = F.pad(loga, (0, 0, 0, pad))
+    nC = (S + pad) // L
+    rnd = _tf32 if rounded else (lambda t: t)
+    xc = xf.reshape(B, nC, L, H, P)
+    bc = bf.repeat_interleave(rep, dim=2).reshape(B, nC, L, H, N)
+    cc = cf.repeat_interleave(rep, dim=2).reshape(B, nC, L, H, N)
+    cum = loga.reshape(B, nC, L, H).cumsum(dim=2)              # (B, nC, L, H)
+    # 1. chunk states
+    w = torch.exp(cum[:, :, -1:] - cum)
+    states = torch.einsum("bcjhn,bcjhp->bchnp", rnd(w[..., None] * bc), xc)
+    # 2. the pass over the chunks: the state entering each chunk
+    h = torch.zeros_like(states)
+    run = torch.zeros_like(states[:, 0])
+    for ci in range(nC):
+        h[:, ci] = run
+        run = torch.exp(cum[:, ci, -1])[..., None, None] * run + states[:, ci]
+    # 3. chunk outputs
+    y = torch.einsum("bcihn,bchnp->bcihp", cc, rnd(h)) \
+        * torch.exp(cum)[..., None]
+    cum_h = cum.permute(0, 1, 3, 2)                              # (.., H, L)
+    causal = torch.ones((L, L), dtype=torch.bool).tril()
+    diff = torch.where(causal, cum_h[..., :, None] - cum_h[..., None, :], 0.0)
+    scores = torch.einsum("bcihn,bcjhn->bchij", cc, bc) \
+        * torch.where(causal, torch.exp(diff), 0.0)
+    y = y + torch.einsum("bchij,bcjhp->bcihp", rnd(scores), xc)
+    return y.reshape(B, nC * L, H, P)[:, :S].to(x.dtype)
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    v = torch.tensor([1 + 2**-11, 1 + 2**-12, -(1 + 2**-11), 1 + 3 * 2**-12,
+                      3.0, 0.0], dtype=torch.float32)
+    want = torch.tensor([1 + 2**-10, 1.0, -(1 + 2**-10), 1 + 2**-10, 3.0,
+                         0.0], dtype=torch.float32)
+    assert torch.equal(_tf32(v), want)
+    r = torch.as_tensor(np.random.default_rng(0).normal(size=1000),
+                        dtype=torch.float32)
+    assert float(((_tf32(r) - r).abs() / r.abs()).max()) <= 2**-11
+
+
+@pytest.mark.parametrize("shape,chunk", SWEEP)
+def test_three_pass_decomposition_equals_reference(shape, chunk):
+    """The kernels' decomposition, unrounded, computes the scan: within
+    1e-4 of max |y| of ssd_ref and of the reference's ssd_scan (Pallas,
+    interpret mode), S off the chunk included."""
+    x, a, b, c = _scan_inputs(shape, seed=sum(shape) + 2)
+    got = _ssd_three_pass(_t(x), _t(a), _t(b), _t(c), chunk)
+    want_kernel = ref_ssd_scan(*(jnp.asarray(v) for v in (x, a, b, c)),
+                               chunk=chunk)
+    assert got.shape == x.shape
+    assert _rel(got.numpy(), want_kernel) < 1e-4
+    assert _rel(got.numpy(), ssd_ref(_t(x), _t(a), _t(b), _t(c)).numpy()) \
+        < 1e-4
+
+
+@pytest.mark.parametrize("H,S,seed", [(2, 512, 0), (4, 512, 1), (3, 450, 2)])
+def test_three_pass_rounded_as_the_tensor_cores_within_ssd_tol(H, S, seed):
+    """mamba2-2.7b's head shape (L = N = 128, P = 64, G = 1) in bfloat16:
+    the decomposition with TF32 operands where the bf16 path rounds, and
+    its output rounded to bf16, stays within the card check's 8e-3 of max
+    |y| of ssd_ref on the same bf16 inputs (also rounded to bf16)."""
+    x, a, b, c = _scan_inputs((1, S, H, 1, 128, 64), seed=seed)
+    tx, tb, tc = (_t(v).bfloat16() for v in (x, b, c))
+    want = ssd_ref(tx, _t(a), tb, tc)
+    got = _ssd_three_pass(tx, _t(a), tb, tc, 128, rounded=True)
+    assert got.dtype == torch.bfloat16
+    rel = _rel(got.float().numpy(), want.float().numpy())
+    assert rel < 8e-3
+    # the rounding is there: the unrounded decomposition reads differently
+    exact = _ssd_three_pass(tx, _t(a), tb, tc, 128)
+    assert not torch.equal(exact, got)
 
 
 # --------------------------------------------------------------------------
