@@ -9,22 +9,26 @@ Phases; any failure exits non-zero and prints no result line:
    per source, started together).
 2. Hold ``bna_step`` against its plain PyTorch version on the card, for
    exact equality, on random states (B in {1, 37, 256}, w in {1, 8, 64,
-   256}, drained matrices included), its int64 instance on random states
+   256}, drained matrices included, and B=2 at w=2048, more senders than a
+   block has threads), its int64 instance on random states
    with effective sizes past 2^31, and the demand ``[[2^31 - 1]]`` through
    the pipeline's int32-overflow branch (the int64 instance, equal to the
    CPU and to the reference's ``[(2147483647, [0])]``); and
    ``bna_decompose`` on random buckets (w in {1, 2, 8, 64, 256}: all-zero
    lanes, sparse support, lanes of one step, stacks stored short so the
-   wrapper relaunches).
+   wrapper relaunches) and sparse buckets at w = 1024 (one lane a block)
+   and w = 2048 (a lane's state in a device scratch).
 3. Python plan path, checked: gdm at the main path's size with every
    ``bna_step`` launch held against the plain version on a clone of the
    same state and every ``coflow_merge`` call against the plain version on
-   the same deltas; then ``coflow_merge`` on a synthetic K ~ 1e5.
+   the same deltas; then ``coflow_merge`` on a synthetic K ~ 1e5, at
+   2m = 300 and at 2m = 2000 (four tiles of the scan's port axis).
 4. Pipeline plan path, checked: gdm at scale 0.25 with every
    ``bna_decompose`` bucket (the workload's real buckets, w up to 256) and
    every ``merge_fix`` merge held against the plain versions on the same
    inputs; then
-   ``merge_fix`` on random edge sets and a synthetic K ~ 1.2e5.
+   ``merge_fix`` on random edge sets (m up to 1000) and a synthetic
+   K ~ 1.2e5.  Each checked bucket's plain run also counts its searches.
 5. The main path: ``paper_workload(m=150, mu_bar=5, seed=0, scale=0.1)``
    planned with gdm and om_alg, and with gdm_rt on the ``rooted=True``
    workload at scale 0.1 (27 coflows), each with the
@@ -41,6 +45,12 @@ Phases; any failure exits non-zero and prints no result line:
    BNA.
 6. gdm and om_alg at ``scale=1.0`` (the paper's 267 coflows) through the
    pipeline on the card: feasible, 0 host repairs, 0 overflow buckets.
+   The lane of gdm's widest bucket with the longest chain (8575 steps)
+   runs alone through ``bna_decompose`` and is held, alone and as its row
+   of the bucket's result, against the plain version on the CPU.  Then a
+   switch of m = 1000 ports (``paper_workload(m=1000, mu_bar=2, seed=0,
+   scale=0.01)``) is planned with gdm through both paths on the card, each
+   equal to the same path's plan on the CPU.
 7. ``flash_attention`` (K4) against its plain version on the card, float32
    (FMA path) and bfloat16 (tensor-core path, ``mma.sync``), causal and
    not, at the reference sweep's shapes (d = 24, 32, 48, 64, 128) and
@@ -99,8 +109,15 @@ Phases; any failure exits non-zero and prints no result line:
    events for the asynchronous ones; host clock around the call for
    ``bna_decompose``, whose wrapper reads the step counts back), beside
    its plain version and its bound (the larger of bytes over the card's
-   3.35 TB/s and operations over its peak rate); K4 also at S=32768 (the
-   ``prefill_32k`` sequence length) and beside
+   3.35 TB/s and operations over its peak rate).  ``bna_decompose``'s row
+   adds the longest lane's steps, searches and search iterations (from
+   the plain version's counters on the same bucket), the kernel's whole
+   time over each (``whole_ns_per_iteration``, ``whole_ns_per_step``;
+   not a split of it), its design floor (the longest lane's dependent
+   shared-memory round trips at 30 cycles each, over the SM clock that
+   ``nvidia-smi`` reads while it runs), and its lanes and shared memory
+   per block; K4 also at S=32768 (the ``prefill_32k`` sequence length)
+   and beside
    ``scaled_dot_product_attention``; K5 at mamba2's B=2, S=4096 (no
    PyTorch call computes the SSD scan, so its library time is null).  K4's
    and K5's rows add their design, TFLOP/s, and the registers, local
@@ -222,7 +239,10 @@ def main() -> int:
                                   transcript_to_arrays, verify_schedule,
                                   verify_transcript)
     from repro_torch.kernels.bna_decompose import bna_decompose
-    from repro_torch.kernels.bna_decompose.ref import bna_decompose_ref
+    from repro_torch.kernels.bna_decompose.ops import \
+        layout as bna_decompose_layout
+    from repro_torch.kernels.bna_decompose.ref import (bna_decompose_ref,
+                                                       tight_bucket)
     from repro_torch.kernels.bna_step import bna_step, stage_state
     from repro_torch.kernels.bna_step.ref import bna_step_ref
     from repro_torch.kernels.coflow_merge import coflow_merge
@@ -295,30 +315,31 @@ def main() -> int:
         return abs_err([(got, want), *zip(state_dev, ref_in)])
 
     rng = np.random.default_rng(0)
-    for B in (1, 37, 256):
-        for w in (1, 8, 64, 256):
-            state = stage_state(*random_state(rng, B, w), dev)
-            note("bna_step", step_err(list(state)),
-                 f"a random state (B={B}, w={w})")
+    shapes = [(B, w) for B in (1, 37, 256) for w in (1, 8, 64, 256)]
+    for B, w in shapes + [(2, 2048)]:
+        state = stage_state(*random_state(rng, B, w), dev)
+        note("bna_step", step_err(list(state)),
+             f"a random state (B={B}, w={w})")
     n_step_i32 = checked["bna_step"]
-    for B in (1, 37):
-        for w in (1, 8, 64, 256):
-            d, row, col, D, match = random_state(rng, B, w)
-            d = d * (2**33 + 1)
-            d[-1, 0, 0] = 2**33
-            row, col = d.sum(axis=2), d.sum(axis=1)
-            D = np.maximum(row.max(axis=1), col.max(axis=1))
-            state = stage_state(d, row, col, D, match, dev)
-            if state[0].dtype != torch.int64:
-                _fail("a state past 2^31 was not staged int64")
-            note("bna_step", step_err(list(state)),
-                 f"a random int64 state (B={B}, w={w})")
+    for B, w in [(B, w) for B in (1, 37) for w in (1, 8, 64, 256)] \
+            + [(2, 2048)]:
+        d, row, col, D, match = random_state(rng, B, w)
+        d = d * (2**33 + 1)
+        d[-1, 0, 0] = 2**33
+        row, col = d.sum(axis=2), d.sum(axis=1)
+        D = np.maximum(row.max(axis=1), col.max(axis=1))
+        state = stage_state(d, row, col, D, match, dev)
+        if state[0].dtype != torch.int64:
+            _fail("a state past 2^31 was not staged int64")
+        note("bna_step", step_err(list(state)),
+             f"a random int64 state (B={B}, w={w})")
+    del state
     n_step_random = checked["bna_step"]
     torch.cuda.synchronize()
     print(f"bna_step: equal to the plain version on {n_step_i32} random "
-          f"int32 states (B in 1/37/256, w in 1/8/64/256) and "
-          f"{n_step_random - n_step_i32} int64 states (effective sizes "
-          "past 2^31)")
+          f"int32 states (B in 1/37/256, w in 1/8/64/256, and B=2 at "
+          f"w=2048) and {n_step_random - n_step_i32} int64 states "
+          "(effective sizes past 2^31; w up to 2048)")
 
     overflow = [np.array([[2**31 - 1]], np.int64)]
     clear_caches()
@@ -376,11 +397,19 @@ def main() -> int:
         d, ks, T_cap = random_bucket(rng, w, density)
         note("bna_decompose", decompose_err(d, ks, T_cap, t_store),
              f"a random bucket (w={w})")
+    # one lane a block in shared memory (w = 1024), and the layout past
+    # 1024 senders (w = 2048), both relaunched from a 2-step store
+    for w, lanes in ((1024, [(1024, 3), (700, 2), (0, 0)]),
+                     (2048, [(1100, 3), (2048, 1), (1500, 2), (0, 0)])):
+        d, ks, T_cap = tight_bucket(rng, w, lanes)
+        note("bna_decompose", decompose_err(d, ks, T_cap, 2),
+             f"a sparse bucket (w={w})")
     n_dec_random = checked["bna_decompose"]
     torch.cuda.synchronize()
     print(f"bna_decompose: equal to the plain version on {n_dec_random} "
           "random buckets (w in 1/2/8/64/256; zero, one-step and sparse "
-          "lanes; short stores relaunched)")
+          "lanes; short stores relaunched) and sparse buckets at w = 1024 "
+          "and 2048")
 
     # 3. python path, both kernels checked at every call ---------------------
     largest = {name: None for name in KERNELS}
@@ -445,9 +474,17 @@ def main() -> int:
                       int(events.size) - 1, m_syn)
     note("coflow_merge", abs_err([(coflow_merge(big), alphas_ref(big))]),
          f"a synthetic edge set (K={big.shape[0]})")
+    # a switch of m = 1000 ports: four tiles of the scan's port axis
+    s_w, r_w = grng.integers(0, 1000, E), grng.integers(0, 1000, E)
+    wide = build_delta(si, ei, torch.as_tensor(s_w, device=dev),
+                       torch.as_tensor(r_w, device=dev),
+                       int(events.size) - 1, 1000)
+    note("coflow_merge", abs_err([(coflow_merge(wide), alphas_ref(wide))]),
+         f"a synthetic edge set (K={wide.shape[0]}, 2m=2000)")
+    del wide   # about 1 GB on the card: free it before later peak readings
     torch.cuda.synchronize()
-    print(f"coflow_merge: equal to the plain version on a synthetic edge "
-          f"set, K={big.shape[0]}, 2m={big.shape[1]}")
+    print(f"coflow_merge: equal to the plain version on synthetic edge "
+          f"sets, K={big.shape[0]}, 2m={big.shape[1]} and 2m=2000")
 
     # 4. pipeline path, both kernels checked at every call -------------------
     orig_decompose = pipeline.bna_decompose
@@ -456,7 +493,8 @@ def main() -> int:
     def checked_decompose(d, ks, T_cap, t_store=None):
         got = orig_decompose(d, ks, T_cap, t_store=t_store)
         t1 = time.perf_counter()
-        want = bna_decompose_ref(d, ks, T_cap)
+        counts: dict = {}
+        want = bna_decompose_ref(d, ks, T_cap, counts=counts)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t1
         err = abs_err(zip(got, want)) if got[1].shape == want[1].shape \
@@ -467,7 +505,7 @@ def main() -> int:
         if largest["bna_decompose"] is None or \
                 size > largest["bna_decompose"][0]:
             largest["bna_decompose"] = (size, (d, ks, T_cap, t_store),
-                                        plain_s * 1e3, got[3])
+                                        plain_s * 1e3, got[3], counts)
         return got
 
     def checked_merge_fix(events, t0, t1, s, r, m, *, device):
@@ -504,7 +542,8 @@ def main() -> int:
           f"versions ({time.perf_counter() - t0:.1f} s)")
 
     n_mf_path = checked["merge_fix"]
-    for seed, (E_r, m_r) in enumerate(((1, 2), (400, 7), (20_000, 150))):
+    for seed, (E_r, m_r) in enumerate(((1, 2), (400, 7), (20_000, 150),
+                                       (3, 1000), (20_000, 1000))):
         rr = np.random.default_rng(10 + seed)
         t0r = rr.integers(0, 10**6, E_r)
         t1r = t0r + rr.integers(1, 5000, E_r)
@@ -522,7 +561,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"merge_fix: equal to the plain version on "
           f"{checked['merge_fix'] - n_mf_path} random and synthetic edge "
-          f"sets (K up to {events.size - 1}, 2m={2 * m_syn})")
+          f"sets (K up to {events.size - 1}, 2m up to 2000)")
 
     # 5. the main path: python path (card vs CPU), then the pipeline ---------
     def plans_equal(got, want) -> bool:
@@ -640,9 +679,25 @@ def main() -> int:
 
     # 6. the paper's full trace size through the pipeline --------------------
     full_runs = {}
+    widest: dict = {}
+
+    def keep_widest(fn):
+        def wrapped(d, ks, T_cap, t_store=None):
+            out = fn(d, ks, T_cap, t_store=t_store)
+            if d.shape[1] >= widest.get("w", 0):
+                widest.update(w=d.shape[1], args=(d, ks, T_cap), out=out)
+            return out
+        return wrapped
+
     for sched in FULL_SCALE:
         inst = paper_workload(m=150, mu_bar=5, seed=0, scale=1.0)
-        _, prun = pipeline_plan(inst, sched)
+        key = (pipeline, "bna_decompose")
+        if sched == "gdm":
+            saved_stages[key] = keep_widest(saved_stages[key])
+        try:
+            _, prun = pipeline_plan(inst, sched)
+        finally:
+            saved_stages[key] = orig_decompose
         full_runs[sched] = {"scale": 1.0,
                             "coflows": sum(j.mu for j in inst.jobs), **prun}
         print(f"plan {sched} (pipeline): scale=1.0, "
@@ -652,6 +707,59 @@ def main() -> int:
               f"{prun['bucket_fallbacks']}, stage s "
               f"{json.dumps(prun['stage_s'])}; feasible")
     record["full_scale_plans"] = full_runs
+
+    # the scale-1.0 lane with the longest chain, alone and inside its
+    # bucket, against the plain version on the CPU
+    (d, ks, T_cap), (ts_b, pc_b, _, ns_b) = widest["args"], widest["out"]
+    lane = int(ns_b.argmax())
+    one = (d[lane:lane + 1], ks[lane:lane + 1])
+    got1 = bna_decompose(*one, T_cap)
+    lane_counts: dict = {}
+    t0 = time.perf_counter()
+    want1 = bna_decompose_ref(one[0].cpu(), one[1].cpu(), T_cap,
+                              counts=lane_counts)
+    plain_lane_s = time.perf_counter() - t0
+    n1 = int(want1[3][0])
+    in_bucket = [ts_b[lane:lane + 1, :n1], pc_b[lane:lane + 1, :n1]]
+    note("bna_decompose", abs_err(
+        [(x.cpu(), y) for x, y in zip(got1, want1)]
+        + [(x.cpu(), y) for x, y in zip(in_bucket, want1[:2])])
+        if got1[1].shape == want1[1].shape else 1 << 30,
+        f"the longest scale-1.0 lane (k={int(ks[lane])})")
+    record["full_scale_longest_lane"] = {
+        "bucket": list(d.shape), "lane": lane, "k": int(ks[lane]),
+        "nnz": int((d[lane] > 0).sum()), "steps": n1,
+        **{name: v[0] for name, v in lane_counts.items()},
+        "plain_s_cpu": plain_lane_s}
+    print("longest scale-1.0 lane equal to the plain version, alone and in "
+          "its bucket: " + json.dumps(record["full_scale_longest_lane"]))
+    # the bucket's stacks hold gigabytes: free them before later phases
+    # read peak memory
+    widest.clear()
+    del d, ks, ts_b, pc_b, ns_b, one, got1, want1, in_bucket
+
+    # 6b. a switch of m = 1000 ports, past the 908 whose scan tile once
+    # overflowed a block's shared memory: both paths on the card == CPU
+    inst_w = paper_workload(m=1000, mu_bar=2, seed=0, scale=0.01)
+    wide_runs = {}
+    for plan_backend in ("pipeline", "python"):
+        got, wall, launches, _ = timed_plan(inst_w, "gdm", plan_backend)
+        path = ("bna_decompose", "merge_fix") if plan_backend == "pipeline" \
+            else ("bna_step", "coflow_merge")
+        if min(launches[k] for k in path) == 0:
+            _fail(f"m=1000 {plan_backend}: a kernel of the path was not "
+                  f"launched ({launches})")
+        clear_caches()
+        want = plan(inst_w, "gdm", device="cpu", plan_backend=plan_backend,
+                    seed=0)
+        if not plans_equal(got, want):
+            _fail(f"m=1000 {plan_backend}: the card's plan differs from the "
+                  f"CPU plan (twct {got.twct()} vs {want.twct()})")
+        wide_runs[plan_backend] = {"plan_s_cuda": wall, "twct": got.twct(),
+                                   "launches": launches}
+    record["wide_switch_plans"] = wide_runs
+    print("plan gdm at m=1000 (scale 0.01) on the card, equal to the CPU "
+          "through both paths: " + json.dumps(wide_runs))
 
     # with the caches off the engine cannot prefetch, and the walk's
     # per-coflow misses must still decompose through the kernel
@@ -1239,13 +1347,37 @@ def main() -> int:
     print(f"coflow_merge at K={Kb}, 2m={Pb}: "
           f"{json.dumps(record['coflow_merge_1e5'])}")
 
-    _, (d, ks, T_cap, t_store), dec_plain_ms, nsteps = \
+    _, (d, ks, T_cap, t_store), dec_plain_ms, nsteps, dec_counts = \
         largest["bna_decompose"]
     Bd, wd = d.shape[0], d.shape[1]
     steps = int(nsteps.sum())
     # the stack read once; each lane's steps written once (t and its row
     # of w matched receivers), D_final and the step counts
     k_dec_bytes = 4 * (Bd * wd * wd + Bd) + 4 * (steps * (wd + 1) + 2 * Bd)
+    # the SM clock while the kernel runs, sampled by nvidia-smi
+    smi_clock = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-lms", "50"], stdout=subprocess.PIPE, text=True)
+    try:
+        dec_ms = _wall_ms(lambda: bna_decompose(d, ks, T_cap,
+                                                t_store=t_store), rounds=5)
+    finally:
+        smi_clock.terminate()
+        clock_out, _ = smi_clock.communicate(timeout=60)
+    sm_mhz = max((float(x) for x in clock_out.split() if x.strip()),
+                 default=float("nan"))
+    # the longest lane's chain: a search iteration visits a receiver or
+    # pops a sender, two dependent shared-memory round trips either way
+    # (the support word and row-slack mask, then mrs[r] or the stack); a
+    # step about four (the owners' values, dmv through the inverse
+    # matching, the invalid test's col[msr[s]], the repair tail's reads);
+    # a search about three more (the slice's ballot, the flip's walk)
+    ll = int(nsteps.argmax())
+    ll_iter = dec_counts["visits"][ll] + dec_counts["pops"][ll]
+    ll_steps, ll_searches = int(nsteps[ll]), dec_counts["searches"][ll]
+    round_trips = 2 * ll_iter + 4 * ll_steps + 3 * ll_searches
+    cycles_per_rt = 30
+    lay = bna_decompose_layout(Bd, wd)
     kernels_line.append({
         "name": "bna_decompose", "route": "cuda",
         "source": "src/repro_torch/kernels/bna_decompose/csrc/"
@@ -1253,12 +1385,29 @@ def main() -> int:
         "replaces": "src/repro/core/pipeline.py:114",
         "launches": pipe_runs["gdm"]["launches"]["bna_decompose"],
         "max_abs_err": max_err["bna_decompose"],
-        "ms": _wall_ms(lambda: bna_decompose(d, ks, T_cap, t_store=t_store)),
-        "plain_ms": dec_plain_ms,
+        "ms": dec_ms, "plain_ms": dec_plain_ms,
         "bound_ms": k_dec_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None, "equal": max_err["bna_decompose"] == 0,
         "checked_calls": checked["bna_decompose"], "shape": [Bd, wd, wd],
-        "lane_steps": {"sum": steps, "max": int(nsteps.max())}})
+        "lane_steps": {"sum": steps, "max": int(nsteps.max())},
+        "longest_lane": {"lane": ll, "k": int(ks[ll]), "steps": ll_steps,
+                         "searches": ll_searches,
+                         "visits": dec_counts["visits"][ll],
+                         "pops": dec_counts["pops"][ll],
+                         "iterations": ll_iter},
+        # the whole kernel time over each count, not a split of it
+        "whole_ns_per_iteration": dec_ms * 1e6 / ll_iter,
+        "whole_ns_per_step": dec_ms * 1e6 / ll_steps,
+        "design_floor_ms": round_trips * cycles_per_rt / (sm_mhz * 1e3),
+        "design_floor_round_trips": round_trips,
+        "cycles_per_round_trip": cycles_per_rt, "sm_clock_mhz": sm_mhz,
+        "design": "one warp per lane, 4 lanes a block, no block barrier; "
+                  "per-lane bit sets in registers, first receiver by "
+                  "__clz and redux.sync min, a lane's state in shared "
+                  "memory",
+        **lay})
+    print(f"bna_decompose at B={Bd}, w={wd}: "
+          f"{json.dumps(kernels_line[-1])}")
     (mf_args, mf_m) = largest["merge_fix"]
     Km, Em = mf_args[0].numel() - 1, mf_args[1].numel()
     # events and the four edge arrays read once, alphas and deltas written

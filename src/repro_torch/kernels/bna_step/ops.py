@@ -71,8 +71,6 @@ def bna_step(d: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
     if d.device.type != "cuda":
         raise ValueError(f"bna_step runs on cpu or cuda, not {d.device}")
     B, w, _ = d.shape
-    if w > 1024:
-        raise ValueError(f"bna_step kernel takes w <= 1024, got {w}")
     out = torch.empty((B, 2 + 2 * w), dtype=d.dtype, device=d.device)
     lib = load_kernel("bna_step")
     fn = lib.bna_step_launch if d.dtype == torch.int32 \

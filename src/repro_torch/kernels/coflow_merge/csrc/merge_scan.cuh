@@ -14,9 +14,16 @@
 //                    thread re-walks its segment writing the carries, so
 //                    the serial chain is nblocks / 32 long, not nblocks;
 //   3. block_alphas: each block re-scans its rows from its carry, one
-//                    thread per port, into a shared-memory tile; then one
-//                    warp per row takes the max over ports (shuffle max)
-//                    and lane 0 calls the epilogue.
+//                    thread per port, into a shared-memory tile of kRows
+//                    rows by at most kPortTile ports; one warp per row
+//                    takes the max over the tile's ports (shuffle max)
+//                    into a running max per row, and the block walks the
+//                    port axis tile by tile; then one thread per row calls
+//                    the epilogue.  The tile is P ports wide up to 512
+//                    (2m <= 512: one tile, 64 KB at most), so shared memory
+//                    no longer grows with m and any switch width launches;
+//                    a max does not depend on the order it is taken in, so
+//                    the alphas are exactly those of one pass.
 // All offsets are 64-bit, so K * P may exceed the int32 index space.
 
 #pragma once
@@ -28,6 +35,7 @@
 namespace merge_scan {
 
 constexpr int kRows = 32;        // rows per block
+constexpr int kPortTile = 512;   // ports per shared-memory tile (64 KB)
 constexpr int kThreads = 256;    // threads per block
 constexpr int kCarryPorts = 32;  // ports per block_carry block (x)
 constexpr int kCarrySegs = 32;   // segments of the block axis per port (y)
@@ -77,25 +85,36 @@ template <class Epilogue>
 __global__ void block_alphas(const int32_t* __restrict__ delta, int64_t K,
                              int P, const int32_t* __restrict__ carry,
                              Epilogue epi) {
-  extern __shared__ int32_t counts[];  // [kRows][P]
+  extern __shared__ int32_t counts[];  // [kRows][tile]
+  __shared__ int32_t best[kRows];      // running max per row over the tiles
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kRows;
   const int rows = static_cast<int>((K - r0 < kRows) ? K - r0 : kRows);
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    int32_t acc = carry[static_cast<int64_t>(blockIdx.x) * P + p];
-    for (int i = 0; i < rows; ++i) {
-      acc += delta[(r0 + i) * P + p];
-      counts[i * P + p] = acc;
+  const int tile = P < kPortTile ? P : kPortTile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (static_cast<int>(threadIdx.x) < kRows) best[threadIdx.x] = INT32_MIN;
+  for (int p0 = 0; p0 < P; p0 += tile) {
+    const int np = (P - p0 < tile) ? P - p0 : tile;
+    __syncthreads();  // the previous tile's counts are read, best is set
+    for (int q = threadIdx.x; q < np; q += blockDim.x) {
+      const int p = p0 + q;
+      int32_t acc = carry[static_cast<int64_t>(blockIdx.x) * P + p];
+      for (int i = 0; i < rows; ++i) {
+        acc += delta[(r0 + i) * P + p];
+        counts[i * tile + q] = acc;
+      }
+    }
+    __syncthreads();
+    for (int i = warp; i < rows; i += blockDim.x >> 5) {
+      int32_t v = INT32_MIN;
+      for (int q = lane; q < np; q += 32) v = max(v, counts[i * tile + q]);
+      for (int off = 16; off > 0; off >>= 1)
+        v = max(v, __shfl_down_sync(0xffffffffu, v, off));
+      if (lane == 0) best[i] = max(best[i], v);
     }
   }
   __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = warp; i < rows; i += blockDim.x >> 5) {
-    int32_t v = INT32_MIN;
-    for (int p = lane; p < P; p += 32) v = max(v, counts[i * P + p]);
-    for (int off = 16; off > 0; off >>= 1)
-      v = max(v, __shfl_down_sync(0xffffffffu, v, off));
-    if (lane == 0) epi(r0 + i, v);
-  }
+  if (static_cast<int>(threadIdx.x) < rows) epi(r0 + threadIdx.x,
+                                                best[threadIdx.x]);
 }
 
 // Scratch: `totals` holds ceil(K / kRows) * P int32.  Returns the first
@@ -105,7 +124,8 @@ cudaError_t scan(const int32_t* delta, int64_t K, int P, int32_t* totals,
                  Epilogue epi, cudaStream_t st) {
   if (K <= 0) return cudaSuccess;
   const int64_t nblocks = (K + kRows - 1) / kRows;
-  const size_t shmem = static_cast<size_t>(kRows) * P * sizeof(int32_t);
+  const int tile = P < kPortTile ? P : kPortTile;
+  const size_t shmem = static_cast<size_t>(kRows) * tile * sizeof(int32_t);
   if (shmem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         block_alphas<Epilogue>, cudaFuncAttributeMaxDynamicSharedMemorySize,

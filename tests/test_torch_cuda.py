@@ -13,7 +13,8 @@ from repro_torch.core import (bna, bna_many, cache_stats, clear_caches,
                               no_caches, paper_workload, plan,
                               transcript_to_arrays, verify_transcript)
 from repro_torch.kernels.bna_decompose import bna_decompose
-from repro_torch.kernels.bna_decompose.ref import bna_decompose_ref
+from repro_torch.kernels.bna_decompose.ref import (bna_decompose_ref,
+                                                   tight_bucket)
 from repro_torch.kernels.bna_step import bna_step, stage_state
 from repro_torch.kernels.bna_step.ref import bna_step_ref
 from repro_torch.kernels.coflow_merge import coflow_merge, interval_alphas
@@ -50,7 +51,7 @@ def _random_state(rng, B, w):
 
 
 @pytest.mark.parametrize("B,w", [(1, 1), (37, 8), (37, 64), (256, 256),
-                                 (3, 13), (5, 1024)])
+                                 (3, 13), (5, 1024), (2, 2048)])
 def test_bna_step_kernel_equals_plain(B, w):
     dev = _card()
     a = list(stage_state(*_random_state(np.random.default_rng(B + w), B, w),
@@ -66,7 +67,8 @@ def test_bna_step_kernel_equals_plain(B, w):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("B,w", [(1, 1), (37, 8), (3, 64), (4, 256)])
+@pytest.mark.parametrize("B,w", [(1, 1), (37, 8), (3, 64), (4, 256),
+                                 (2, 2048)])
 def test_bna_step_int64_kernel_equals_plain(B, w):
     """States with effective sizes past 2^31 stage int64 and launch the
     kernel's int64 instance, equal to the plain version."""
@@ -257,7 +259,8 @@ def test_smoke_prefill_and_serve_on_card_equal_cpu():
 
 
 @pytest.mark.parametrize("K,P", [(1, 2), (31, 2), (33, 300), (4096, 64),
-                                 (100_000, 300), (2_000, 1_000)])
+                                 (100_000, 300), (2_000, 1_000),
+                                 (3_000, 2_000)])
 def test_coflow_merge_kernel_equals_plain(K, P):
     dev = _card()
     delta = torch.as_tensor(np.random.default_rng(K).integers(
@@ -378,9 +381,16 @@ def _random_bucket(rng, B, w, density):
     return torch.from_numpy(d), torch.from_numpy(ks), T_cap
 
 
+# Lanes per block: 4 up to w = 512, 1 at w = 1024 (a lane's 164 KB of
+# shared memory); past 1024 the lane's state is in a device scratch.  The
+# cases: several lanes per block whose step counts differ by tens of
+# times (w = 32, 64, 512), B not a multiple of 4 (5, 6, 7), k < w padding
+# and an empty last lane (all), w = 1024 in shared memory, and a short
+# t_store that forces the relaunch (w = 8 and 256)
 @pytest.mark.parametrize("B,w,density,t_store", [
     (3, 1, 1.0, None), (4, 2, 0.7, None), (5, 8, 0.5, 3), (6, 64, 0.2, None),
-    (3, 256, 0.02, 40), (2, 512, 0.003, None)])
+    (8, 32, 0.4, None), (3, 256, 0.02, 40), (2, 512, 0.003, None),
+    (7, 512, 0.003, None), (2, 1024, 0.001, 16)])
 def test_bna_decompose_kernel_equals_plain(B, w, density, t_store):
     dev = _card()
     d, ks, T_cap = _random_bucket(np.random.default_rng(w), B, w, density)
@@ -393,7 +403,8 @@ def test_bna_decompose_kernel_equals_plain(B, w, density, t_store):
         assert torch.equal(x.cpu(), y)
 
 
-@pytest.mark.parametrize("E,m", [(1, 2), (400, 7), (20_000, 150)])
+@pytest.mark.parametrize("E,m", [(1, 2), (400, 7), (20_000, 150), (3, 1000),
+                                 (20_000, 1000)])
 def test_merge_fix_kernel_equals_plain(E, m):
     dev = _card()
     rng = np.random.default_rng(E)
@@ -411,22 +422,44 @@ def test_merge_fix_kernel_equals_plain(E, m):
         assert torch.equal(x.cpu(), y)
 
 
-def test_refused_launch_raises():
-    """A launch the card refuses (the scan's row tile of 32 x 2m int32
-    exceeds a block's shared memory at 2m = 2000) raises; nothing falls
-    back and nothing is counted."""
+@pytest.mark.parametrize("w,lanes", [
+    (1024, [(1024, 3), (700, 2), (0, 0)]),
+    (2048, [(1100, 3), (2048, 1), (1500, 2), (0, 0)])])
+def test_bna_decompose_wide_kernel_equals_plain(w, lanes):
+    """w = 1024 (one lane a block, all in shared memory) and w = 2048 (the
+    layout past 1024 senders: a lane's state in a device scratch), with
+    repairs, k < w padding, an empty lane and a relaunch."""
     dev = _card()
-    m = 1000
-    ev = torch.arange(3, dtype=torch.int64, device=dev)
-    e = torch.zeros(1, dtype=torch.int64, device=dev)
-    before = merge_fix.launches
-    with pytest.raises(RuntimeError, match="merge_fix kernel launch failed"):
-        merge_fix(ev, e, e + 1, e, e, m)
-    assert merge_fix.launches == before
-    with pytest.raises(ValueError, match="w <= 1024"):
-        bna_decompose(torch.zeros((1, 2048, 2048), dtype=torch.int32,
-                                  device=dev),
-                      torch.ones(1, dtype=torch.int32, device=dev), 8)
+    d, ks, T_cap = tight_bucket(np.random.default_rng(w), w, lanes)
+    want = bna_decompose_ref(d, ks, T_cap)
+    before = bna_decompose.launches
+    got = bna_decompose(d.to(dev), ks.to(dev), T_cap, t_store=2)
+    torch.cuda.synchronize()
+    assert bna_decompose.launches == before + 2
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("plan_backend", ["pipeline", "python"])
+def test_wide_switch_plan_on_card_equals_cpu(plan_backend):
+    """A switch of m = 1000 ports, past the 908 whose 32 x 2m scan tile
+    once overflowed a block's shared memory: gdm plans on the card through
+    either path, launching that path's kernels, equal to the CPU's plan."""
+    _card()
+    inst = paper_workload(m=1000, mu_bar=2, seed=0, scale=0.01)
+    clear_caches()
+    bna_step.launches = coflow_merge.launches = 0
+    bna_decompose.launches = merge_fix.launches = 0
+    got = plan(inst, "gdm", device="cuda", plan_backend=plan_backend, seed=0)
+    if plan_backend == "pipeline":
+        assert bna_decompose.launches > 0 and merge_fix.launches > 0
+    else:
+        assert bna_step.launches > 0 and coflow_merge.launches > 0
+    clear_caches()
+    want = plan(inst, "gdm", device="cpu", plan_backend=plan_backend,
+                seed=0)
+    verify_transcript(inst, got.transcript())
+    _assert_plans_equal(got, want)
 
 
 # ssd_scan (K5): (B, S, H, G, N, P) and chunk.  The reference sweep's shapes,

@@ -147,6 +147,29 @@ def test_bna_step_int64_plain_equals_reference_numpy_step(B, w, seed):
         assert np.array_equal(g, np.asarray(o, np.int64)), name
 
 
+@pytest.mark.parametrize("past_int32", [False, True])
+def test_bna_step_plain_equals_reference_numpy_step_past_1024_senders(
+        past_int32):
+    """w = 2048, more senders than a CUDA block has threads: one step of
+    the int32 (and, with demands past 2^31, the int64) plain version equals
+    the reference's numpy step.  Under 1 s each."""
+    from repro.core.matching import bna_step_inplace
+
+    d, row, col, D, match = _random_bna_state(np.random.default_rng(2048),
+                                              2, 2048)
+    if past_int32:
+        d = d * (2**33 + 1)
+        row, col = d.sum(axis=2), d.sum(axis=1)
+        D = np.maximum(row.max(axis=1), col.max(axis=1))
+    staged = stage_state(d, row, col, D, match, CPU)
+    assert staged[0].dtype == (torch.int64 if past_int32 else torch.int32)
+    got = _port_step((d, row, col, D, match))
+    want = [x.copy() for x in (d, row, col)]
+    wt, wpiece, wD, winv = bna_step_inplace(*want, D, match)
+    for name, g, o in zip(_NAMES, got, (wt, wpiece, *want, wD, winv)):
+        assert np.array_equal(g, np.asarray(o, np.int64)), name
+
+
 def test_bna_step_rejects_bad_inputs():
     d, row, col, D, match = stage_state(
         *_random_bna_state(np.random.default_rng(0), 2, 4), CPU)
@@ -213,6 +236,25 @@ def test_coflow_merge_edge_entry_and_delta_equal_reference(seed):
         K, m))
     assert delta.dtype == torch.int32
     assert np.array_equal(delta.numpy(), ref_delta)
+
+
+def test_coflow_merge_plain_equals_reference_numpy_alphas_at_m_1000():
+    """A switch of m = 1000 ports (2m = 2000 columns, past the 908 ports
+    whose scan tile once overflowed a block's shared memory): the plain
+    version's alphas equal the reference's numpy oracle.  About 2 s."""
+    from repro.core.timeline import EdgeIntervals, _alphas_vectorized
+
+    rng = np.random.default_rng(1000)
+    m, E = 1000, 20_000
+    t0 = rng.integers(0, 10**6, E)
+    t1 = t0 + rng.integers(1, 5000, E)
+    s, r = rng.integers(0, m, E), rng.integers(0, m, E)
+    s[:2], r[:2] = m - 1, m - 1                   # the last ports carry
+    events = np.unique(np.concatenate([t0, t1]))
+    got = edge_interval_alphas(events, t0, t1, s, r, m, device="cpu")
+    want = _alphas_vectorized(events, EdgeIntervals(t0, t1, s, r), m)
+    assert got.dtype == np.int64
+    assert np.array_equal(got, want)
 
 
 def test_coflow_merge_empty():

@@ -29,6 +29,8 @@ from repro_torch.core import (backend, cache_stats, clear_caches,
                               transcript_to_arrays, verify_transcript)
 from repro_torch.core import pipeline
 from repro_torch.kernels.bna_decompose import bna_decompose
+from repro_torch.kernels.bna_decompose.ref import (bna_decompose_ref,
+                                                   tight_bucket)
 from repro_torch.kernels.merge_fix import merge_fix, merge_fix_step
 from repro_torch.kernels.merge_fix.ref import merge_fix_ref
 
@@ -148,6 +150,25 @@ def test_bna_decompose_plain_equals_reference_random(w, B, density):
     assert np.array_equal(got[1].numpy(), want[1][:, :T])
     assert np.array_equal(got[2].numpy(), want[2])
     assert int(got[3][B - 1]) == 0 and int(got[2][B - 1]) == 0
+
+
+def test_bna_decompose_plain_equals_reference_bna_past_1024_senders():
+    """A w = 2048 bucket (lanes of k = 1100 with repairs, 2048, 1500, and an
+    empty one): each lane's steps equal the reference's scalar ``bna`` of
+    its matrix, and the search counts add up.  About 8 s."""
+    lanes = [(1100, 3), (2048, 1), (1500, 2), (0, 0)]
+    d, ks, T_cap = tight_bucket(np.random.default_rng(2048), 2048, lanes)
+    counts: dict = {}
+    ts, pc, D, n = bna_decompose_ref(d, ks, T_cap, counts=counts)
+    got = pipeline._steps_to_lists(ts, pc, ks.tolist())
+    for b, (k, _) in enumerate(lanes):
+        want = ref.bna(d[b, :k, :k].numpy()) if k else []
+        assert len(got[b]) == len(want) == int(n[b]), f"lane {b}: steps"
+        for (t1, p1), (t2, p2) in zip(got[b], want):
+            assert t1 == t2 and np.array_equal(p1, p2), f"lane {b}"
+    assert D.tolist() == [0] * len(lanes)
+    assert counts["searches"][0] > 1100 and counts["searches"][3] == 0
+    assert all(v >= s for v, s in zip(counts["visits"], counts["searches"]))
 
 
 def test_bna_decompose_rejects_bad_inputs():
@@ -425,6 +446,23 @@ def test_pipeline_plan_options_equal_reference(sched, opts):
     got = plan(_port_instance(built.instance), sched, device="cpu",
                plan_backend="pipeline", **opts)
     _assert_plans_equal(got, want, f"{sched}/{opts}")
+
+
+@pytest.mark.parametrize("plan_backend", ["pipeline", "python"])
+def test_wide_switch_plan_equals_reference(plan_backend):
+    """gdm on a switch of m = 1000 ports (34 of its 277 busy ports above
+    908): the port's plan on the CPU, through either path, equals the
+    reference's python-path plan with its numpy alphas.  About 3 s."""
+    ref_inst = ref.paper_workload(m=1000, mu_bar=2, seed=0, scale=0.01)
+    with ref_backend.use_plan_backend("python"), \
+            ref_backend.use_alpha_backend("numpy"):
+        ref_backend.clear_caches()
+        want = ref.plan(ref_inst, "gdm", seed=0)
+    inst = _port_instance(ref_inst)
+    clear_caches()
+    got = plan(inst, "gdm", device="cpu", plan_backend=plan_backend, seed=0)
+    _assert_plans_equal(got, want, f"m=1000/{plan_backend}")
+    verify_transcript(inst, got.transcript())
 
 
 def test_plan_backend_default_follows_device_and_is_validated():
