@@ -47,7 +47,10 @@ Phases; any failure exits non-zero and prints no result line:
    pipeline on the card: feasible, 0 host repairs, 0 overflow buckets.
    The lane of gdm's widest bucket with the longest chain (8575 steps)
    runs alone through ``bna_decompose`` and is held, alone and as its row
-   of the bucket's result, against the plain version on the CPU.  Then a
+   of the bucket's result, against the plain version on the CPU.  gdm's
+   merge stage is split into each merge's ``merge_fix`` device time (CUDA
+   events) and the rest of the stage's host seconds (the wrapper's
+   staging), and its largest merge is held against the plain version.  Then a
    switch of m = 1000 ports (``paper_workload(m=1000, mu_bar=2, seed=0,
    scale=0.01)``) is planned with gdm through both paths on the card, each
    equal to the same path's plan on the CPU.
@@ -109,7 +112,11 @@ Phases; any failure exits non-zero and prints no result line:
    events for the asynchronous ones; host clock around the call for
    ``bna_decompose``, whose wrapper reads the step counts back), beside
    its plain version and its bound (the larger of bytes over the card's
-   3.35 TB/s and operations over its peak rate).  ``bna_decompose``'s row
+   3.35 TB/s and operations over its peak rate): ``merge_fix`` at the
+   largest merge of the scale-1.0 gdm plan (scale 0.25's and the synthetic
+   K ~ 1.2e5 beside it), ``bna_step`` beside an empty kernel launched
+   through its library (``launch_floor_ms``, what a launch costs).
+   ``bna_decompose``'s row
    adds the longest lane's steps, searches and search iterations (from
    the plain version's counters on the same bucket), the kernel's whole
    time over each (``whole_ns_per_iteration``, ``whole_ns_per_step``;
@@ -246,8 +253,11 @@ def main() -> int:
     from repro_torch.kernels.bna_step import bna_step, stage_state
     from repro_torch.kernels.bna_step.ref import bna_step_ref
     from repro_torch.kernels.coflow_merge import coflow_merge
+    from repro_torch.kernels.coflow_merge.ops import \
+        scratch as coflow_merge_scratch
     from repro_torch.kernels.coflow_merge.ref import alphas_ref, build_delta
     from repro_torch.kernels.merge_fix import merge_fix
+    from repro_torch.kernels.merge_fix.ops import scratch as merge_fix_scratch
     from repro_torch.kernels.merge_fix.ref import merge_fix_ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -689,15 +699,25 @@ def main() -> int:
             return out
         return wrapped
 
+    full_merges: list = []   # the scale-1.0 gdm plan's merges (host arrays)
+
+    def keep_merges(fn):
+        def wrapped(events, t0, t1, s, r, m, *, device):
+            full_merges.append(((events, t0, t1, s, r), m))
+            return fn(events, t0, t1, s, r, m, device=device)
+        return wrapped
+
     for sched in FULL_SCALE:
         inst = paper_workload(m=150, mu_bar=5, seed=0, scale=1.0)
-        key = (pipeline, "bna_decompose")
+        key, mkey = (pipeline, "bna_decompose"), (backend, "merge_fix_step")
         if sched == "gdm":
             saved_stages[key] = keep_widest(saved_stages[key])
+            saved_stages[mkey] = keep_merges(saved_stages[mkey])
         try:
             _, prun = pipeline_plan(inst, sched)
         finally:
             saved_stages[key] = orig_decompose
+            saved_stages[mkey] = orig_merge_fix_step
         full_runs[sched] = {"scale": 1.0,
                             "coflows": sum(j.mu for j in inst.jobs), **prun}
         print(f"plan {sched} (pipeline): scale=1.0, "
@@ -707,6 +727,28 @@ def main() -> int:
               f"{prun['bucket_fallbacks']}, stage s "
               f"{json.dumps(prun['stage_s'])}; feasible")
     record["full_scale_plans"] = full_runs
+
+    # the scale-1.0 gdm merge stage, split: each merge's kernel device time
+    # (CUDA events) against the stage's host seconds (the wrapper's staging:
+    # host-to-device copies, scratch, the launch, the copies back)
+    mf_dev = [([torch.as_tensor(np.ascontiguousarray(a, dtype=np.int64),
+                                device=dev) for a in args], m_)
+              for args, m_ in full_merges]
+    kernel_ms = [_cuda_ms(lambda a=a, m_=m_: merge_fix(*a, m_), reps=20,
+                          rounds=3) for a, m_ in mf_dev]
+    stage_ms = full_runs["gdm"]["stage_s"]["merge_fix_step"] * 1e3
+    mf_full = max(mf_dev, key=lambda x: x[0][0].numel())
+    note("merge_fix", abs_err(zip(merge_fix(*mf_full[0], mf_full[1]),
+                                  merge_fix_ref(*mf_full[0], mf_full[1]))),
+         f"the largest scale-1.0 merge (K={mf_full[0][0].numel() - 1})")
+    record["full_scale_merge_stage"] = {
+        "calls": len(mf_dev), "stage_ms": stage_ms,
+        "kernel_ms": sum(kernel_ms), "staging_ms": stage_ms - sum(kernel_ms),
+        "per_call": [{"K": a[0].numel() - 1, "E": a[1].numel(), "ms": t}
+                     for (a, _), t in zip(mf_dev, kernel_ms)]}
+    print("gdm scale-1.0 merge stage, split (ms): "
+          + json.dumps(record["full_scale_merge_stage"]))
+    del mf_dev   # up to a gigabyte of edges: free it before peak readings
 
     # the scale-1.0 lane with the longest chain, alone and inside its
     # bucket, against the plain version on the CPU
@@ -1314,6 +1356,11 @@ def main() -> int:
         + 4 * (3 * n_real + B + B * (2 + 2 * w))
     work = [x.clone() for x in state]
     plain = [x.clone() for x in state]
+    # what a launch costs: an empty kernel through K1's library, timed alike
+    empty = kernels.load_kernel("bna_step").bna_step_empty_launch
+    empty.argtypes, empty.restype = [ctypes.c_void_p], ctypes.c_int
+    launch_floor_ms = _cuda_ms(
+        lambda: empty(torch.cuda.current_stream().cuda_stream))
     kernels_line.append({
         "name": "bna_step", "route": "cuda",
         "source": "src/repro_torch/kernels/bna_step/csrc/bna_step.cu",
@@ -1324,7 +1371,8 @@ def main() -> int:
         "plain_ms": _cuda_ms(lambda: bna_step_ref(*plain)),
         "bound_ms": k1_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None, "equal": max_err["bna_step"] == 0,
-        "checked_calls": checked["bna_step"], "shape": [B, w, w]})
+        "checked_calls": checked["bna_step"], "shape": [B, w, w],
+        "launch_floor_ms": launch_floor_ms})
     delta = largest["coflow_merge"]
     K, P = delta.shape
     kernels_line.append({
@@ -1338,7 +1386,16 @@ def main() -> int:
         "bound_ms": 4 * (K * P + K) / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "library_ms": None,
         "equal": max_err["coflow_merge"] == 0,
-        "checked_calls": checked["coflow_merge"], "shape": [K, P]})
+        "checked_calls": checked["coflow_merge"], "shape": [K, P],
+        "cuda_launches_per_call": 2,
+        "design": "one pass: persistent blocks walk 32-row tiles (by "
+                  "block index, then a ticket), copy the next tile "
+                  "(cp.async) while they scan the current one; the carry "
+                  "from a radix-8 hierarchy of tile totals (publish, then "
+                  "wait on at most 7 blocks a level); a memset of the "
+                  "counts first",
+        "scratch_bytes": 4 * int(coflow_merge_scratch(K, P, "meta")
+                                 ["carry"].numel())})
     Kb, Pb = big.shape
     record["coflow_merge_1e5"] = {
         "shape": [Kb, Pb], "ms": _cuda_ms(lambda: coflow_merge(big)),
@@ -1408,10 +1465,20 @@ def main() -> int:
         **lay})
     print(f"bna_decompose at B={Bd}, w={wd}: "
           f"{json.dumps(kernels_line[-1])}")
-    (mf_args, mf_m) = largest["merge_fix"]
+    # the main path's largest merge: the scale-1.0 gdm plan's
+    (mf_args, mf_m) = mf_full
     Km, Em = mf_args[0].numel() - 1, mf_args[1].numel()
     # events and the four edge arrays read once, alphas and deltas written
     k3_bytes = 8 * (Km + 1 + 4 * Em) + 8 * 2 * Km
+    (q_args, q_m) = largest["merge_fix"]
+    Kq, Eq = q_args[0].numel() - 1, q_args[1].numel()
+    record["merge_fix_scale_0.25"] = {
+        "shape": [Kq, 2 * q_m, Eq],
+        "ms": _cuda_ms(lambda: merge_fix(*q_args, q_m)),
+        "plain_ms": _cuda_ms(lambda: merge_fix_ref(*q_args, q_m)),
+        "bound_ms": 8 * (Kq + 1 + 4 * Eq + 2 * Kq) / HBM_BYTES_PER_S * 1e3}
+    print(f"merge_fix at scale 0.25's largest merge, K={Kq}, E={Eq}: "
+          f"{json.dumps(record['merge_fix_scale_0.25'])}")
     kernels_line.append({
         "name": "merge_fix", "route": "cuda",
         "source": "src/repro_torch/kernels/merge_fix/csrc/merge_fix.cu",
@@ -1422,7 +1489,14 @@ def main() -> int:
         "plain_ms": _cuda_ms(lambda: merge_fix_ref(*mf_args, mf_m)),
         "bound_ms": k3_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None, "equal": max_err["merge_fix"] == 0,
-        "checked_calls": checked["merge_fix"], "shape": [Km, 2 * mf_m, Em]})
+        "checked_calls": checked["merge_fix"], "shape": [Km, 2 * mf_m, Em],
+        "cuda_launches_per_call": 3,
+        "design": "no (K + 1) x 2m array: a bucket table of the events' "
+                  "times, a counting sort of the endpoints per chunk of "
+                  "edges, a tile scan of 1-8 stretches of 32 rows on the "
+                  "radix-8 carry",
+        "scratch_bytes": sum(t.numel() * t.element_size() for t in
+                             merge_fix_scratch(Km, Em, mf_m, "meta").values())})
     Ks = events.size - 1
     record["merge_fix_1e5"] = {
         "shape": [Ks, 2 * m_syn, E],

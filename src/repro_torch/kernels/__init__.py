@@ -10,11 +10,13 @@ Each kernel ships, under ``<name>/``:
 Kernels (what each one replaces is named in its source note):
   bna_step      — one lock-step BNA iteration over a (B, w, w) demand stack
   coflow_merge  — alpha per merged interval: running per-port counts down
-                  the interval axis, maxed over ports
+                  the interval axis, maxed over ports, in one pass
   bna_decompose — a whole width bucket's BNA decomposition, step and
                   augmenting-path repair, one block per matrix
-  merge_fix     — the fused merge_and_fix tail: binning, delta scatter,
-                  coflow_merge's scan and the Lemma 6 durations
+  merge_fix     — the fused merge_and_fix tail: binning (a bucket table
+                  of the times), a counting sort of the endpoints, the
+                  tile scan and the Lemma 6 durations, with no dense
+                  interval x port array
   flash_attention — blocked online-softmax GQA attention (prefill):
                   bfloat16 on the tensor cores (mma.sync, a cp.async ring
                   of K/V tiles), float32 as float32 FMAs; float32
@@ -26,7 +28,8 @@ Kernels (what each one replaces is named in its source note):
                   FMAs
 Headers shared between kernels (``*/csrc/*.cuh``) are included by path:
 ``flash_attention/csrc/tensor_core.cuh`` holds the mma.sync, ldmatrix and
-cp.async primitives of K4 and K5.
+cp.async primitives of K4 and K5, ``coflow_merge/csrc/merge_scan.cuh`` the
+scan of coflow_merge and merge_fix (the carry between tiles, the row max).
 
 Dispatch is by device, never by a knob: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises.  Nothing here falls

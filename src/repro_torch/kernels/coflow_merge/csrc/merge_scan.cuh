@@ -1,30 +1,51 @@
-// merge_scan.cuh: the three-pass scan shared by coflow_merge (K2) and
-// merge_fix (K3).  Given the (K, P) int32 array of per-interval per-port
-// activation deltas, alpha[k] = max over ports of sum_{k' <= k} delta[k', p],
-// handed with its row index to an epilogue that stores it.
+// merge_scan.cuh: the one-pass merge scan shared by coflow_merge (K2) and
+// merge_fix (K3).  Both compute, per interval k of K,
+//   alpha[k] = max over the P ports of count[k, p],
+//   count[k, p] = sum over k' <= k of delta[k', p],
+// and hand alpha with its row index to an epilogue that stores it.
 //
-// Blocks of a CUDA grid run in no order, so the running count down the
-// interval axis is a block-sum scan in three launches:
-//   1. block_totals: per block of kRows rows, each port's column total;
-//   2. block_carry:  per port, an exclusive scan of those totals down the
-//                    blocks (the carry into each block).  One CUDA block
-//                    per 32 ports, 32 threads per port: each thread sums
-//                    its segment of the block axis, one thread per port
-//                    scans the 32 segment sums in shared memory, and each
-//                    thread re-walks its segment writing the carries, so
-//                    the serial chain is nblocks / 32 long, not nblocks;
-//   3. block_alphas: each block re-scans its rows from its carry, one
-//                    thread per port, into a shared-memory tile of kRows
-//                    rows by at most kPortTile ports; one warp per row
-//                    takes the max over the tile's ports (shuffle max)
-//                    into a running max per row, and the block walks the
-//                    port axis tile by tile; then one thread per row calls
-//                    the epilogue.  The tile is P ports wide up to 512
-//                    (2m <= 512: one tile, 64 KB at most), so shared memory
-//                    no longer grows with m and any switch width launches;
-//                    a max does not depend on the order it is taken in, so
-//                    the alphas are exactly those of one pass.
-// All offsets are 64-bit, so K * P may exceed the int32 index space.
+// The interval axis is cut into T tiles, one block each.  Blocks of a CUDA
+// grid run in no order, so the per-port count at a tile's first row (its
+// carry) comes from the other tiles' column totals, through a radix-8
+// hierarchy in device memory (the carry's levels):
+//   * Levels: level 0 holds each tile's totals (T rows of P int32), level l
+//     the sums over blocks of 8^l tiles (ceil(T / 8^l) rows).  Beside each
+//     row, a completion count per port tile.
+//   * Publish, as soon as a tile's totals are known and before it waits on
+//     anything: each thread stores its port's level-0 value and atomically
+//     adds it into its block's row at every level above (zeros are
+//     skipped); then a block barrier, and thread 0 fences
+//     (fence.acq_rel.gpu) and adds 1 to the count at every level (the
+//     barrier-then-one-fence pattern of CUTLASS's semaphores: the fence
+//     orders the block's stores and adds before the counts).
+//   * Carry: the tiles below tile b are, at each level l, the (up to 7)
+//     full blocks of 8^l tiles below b's own block within its block of 8
+//     at the level above; so warp 0 waits until those counts read 8^l
+//     (one lane a block, ld.acquire.gpu), a block barrier orders the
+//     acquires before the reads, and each thread adds at most 7 values a
+//     level (loads through L2, __ldcg, sixteen in flight at a time across
+//     the levels: two round trips up to 4096 tiles).  No tile waits on
+//     another's carry, so nothing chains: a tile's wait ends once every
+//     lower tile has read its own deltas.
+//   * Order: a tile waits only on lower tiles, and publishes before it
+//     waits.  Blocks take their first tile by block index (the hardware
+//     starts a grid's blocks in index order, which CUB's single-pass scan
+//     also relies on), and K2's persistent blocks their later tiles from an
+//     atomic ticket, publishing each as soon as its rows have landed; so
+//     the lowest unpublished tile always belongs to a started block whose
+//     own waits are on published tiles: the waits cannot deadlock.  Past
+//     512 ports a block walks the port axis in port tiles, in the same
+//     order in every block, each with its own counts.  A wait that polls
+//     2^26 times (seconds) traps, so a fault ends the launch with an
+//     error, not a hang.
+//   * Rows: a block scans each 32-row stretch of its tile in shared memory
+//     (32 rows of the port tile, thread q owns column q) from the carry, in
+//     place; then one warp a row takes the max over the port tile (one
+//     redux.sync) into the block's running max per row.
+// The counts, the levels above 0 and the ticket must be 0 when the scan
+// starts: K2's entry clears them with one memset, K3's binning kernel on
+// its way.  Counts are int32 (exact while the activations are fewer than
+// 2^31, the wrappers' guard); all offsets are 64-bit.
 
 #pragma once
 
@@ -34,115 +55,153 @@
 
 namespace merge_scan {
 
-constexpr int kRows = 32;        // rows per block
-constexpr int kPortTile = 512;   // ports per shared-memory tile (64 KB)
-constexpr int kThreads = 256;    // threads per block
-constexpr int kCarryPorts = 32;  // ports per block_carry block (x)
-constexpr int kCarrySegs = 32;   // segments of the block axis per port (y)
+constexpr int kRows = 32;           // rows a stretch
+constexpr int kPortTile = 512;      // ports a port tile: a block's threads
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxPolls = 1 << 26;  // polls before a wait traps
+constexpr int kRadix = 3;           // level l sums blocks of 8^l tiles
+constexpr int kFan = (1 << kRadix) - 1;  // blocks a level adds at most
 
-__global__ void block_totals(const int32_t* __restrict__ delta, int64_t K,
-                             int P, int32_t* __restrict__ totals) {
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kRows;
-  const int64_t r1 = (r0 + kRows < K) ? r0 + kRows : K;
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    int32_t acc = 0;
-    for (int64_t r = r0; r < r1; ++r) acc += delta[r * P + p];
-    totals[static_cast<int64_t>(blockIdx.x) * P + p] = acc;
+// threads a block: one per port of a port tile, a whole number of warps
+inline int block_threads(int P) {
+  const int t = (P + 31) / 32 * 32;
+  return t < kPortTile ? t : kPortTile;
+}
+
+// The carry's scratch, in one int32 buffer: the levels' values (rows of
+// P), then their counts (rows of npt, one a port tile), then the ticket.
+// All but level 0 must start at 0 (words [zero_from(), words())).
+struct Carry {
+  int32_t* buf;
+  int64_t T, P, npt;
+  int levels;
+
+  __host__ __device__ Carry(void* b, int64_t T_, int64_t P_)
+      : buf(static_cast<int32_t*>(b)), T(T_), P(P_),
+        npt((P_ + kPortTile - 1) / kPortTile), levels(1) {
+    for (int64_t n = 1 << kRadix; n < T; n <<= kRadix) ++levels;
+  }
+  // first row of level l, counting the rows of the levels below
+  __host__ __device__ int64_t row0(int l) const {
+    int64_t at = 0, n = T;
+    for (int i = 0; i < l; ++i, n = (n + kFan) >> kRadix) at += n;
+    return at;
+  }
+  __host__ __device__ int64_t rows() const { return row0(levels); }
+  __host__ __device__ int32_t* values() const { return buf; }
+  __host__ __device__ int* counts() const {
+    return reinterpret_cast<int*>(buf + rows() * P);
+  }
+  __host__ __device__ int* ticket() const { return counts() + rows() * npt; }
+  __host__ __device__ int64_t zero_from() const { return T * P; }
+  __host__ __device__ int64_t words() const { return rows() * (P + npt) + 1; }
+};
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Tile b's totals of port tile pt, this thread's port p (valid: p < P),
+// published.  Called by the whole block.
+__device__ __forceinline__ void publish(const Carry& cy, int b, int pt,
+                                        int64_t p, bool valid,
+                                        int32_t total) {
+  int32_t* lv = cy.values();
+  if (valid) {
+    __stcg(lv + static_cast<int64_t>(b) * cy.P + p, total);
+    if (total)
+      for (int l = 1; l < cy.levels; ++l)
+        atomicAdd(lv + (cy.row0(l) + (b >> (kRadix * l))) * cy.P + p, total);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("fence.acq_rel.gpu;" ::: "memory");
+    int* cnt = cy.counts();
+    for (int l = 0; l < cy.levels; ++l)
+      atomicAdd(cnt + (cy.row0(l) + (b >> (kRadix * l))) * cy.npt + pt, 1);
   }
 }
 
-__global__ void block_carry(int32_t* __restrict__ totals, int64_t nblocks,
-                            int P) {
-  __shared__ int32_t seg[kCarrySegs][kCarryPorts];
-  const int p = blockIdx.x * kCarryPorts + threadIdx.x;
-  const int64_t len = (nblocks + kCarrySegs - 1) / kCarrySegs;
-  const int64_t b0 = threadIdx.y * len;
-  const int64_t b1 = (b0 + len < nblocks) ? b0 + len : nblocks;
-  int32_t acc = 0;
-  if (p < P)
-    for (int64_t b = b0; b < b1; ++b) acc += totals[b * P + p];
-  seg[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0) {
-    int32_t run = 0;  // exclusive scan of this port's segment sums
-    for (int j = 0; j < kCarrySegs; ++j) {
-      const int32_t v = seg[j][threadIdx.x];
-      seg[j][threadIdx.x] = run;
-      run += v;
+// The carry into tile b of port tile pt, this thread's port p: the totals
+// of every lower tile, once published.  Called by the whole block.  The
+// blocks to add are, at each level l, the (up to kFan) full blocks of 8^l
+// tiles below b's own within its block at the level above: entry f of
+// them is level f / kFan, block f % kFan.  Warp 0 waits until their counts
+// are full (ld.acquire.gpu), a block barrier orders those acquires before
+// every thread's reads, and each thread adds its port's values, sixteen
+// loads in flight at a time, whatever their level.
+__device__ __forceinline__ int32_t carry_in(const Carry& cy, int b, int pt,
+                                            int64_t p, bool valid) {
+  __shared__ int64_t row0[32];  // first row of each level
+  const int n = cy.levels * kFan;
+  if (threadIdx.x < cy.levels) row0[threadIdx.x] = cy.row0(threadIdx.x);
+  if (threadIdx.x < 32) {
+    const int* cnt = cy.counts();
+    for (int polls = 0;; ++polls) {
+      bool all = true;
+      for (int f = threadIdx.x; f < n; f += 32) {
+        const int l = f / kFan, q = b >> (kRadix * l);
+        const int j = (q & ~kFan) + f - kFan * l;
+        if (j < q && ld_acquire(cnt + (cy.row0(l) + j) * cy.npt + pt) !=
+                         1 << (kRadix * l))
+          all = false;
+      }
+      if (__all_sync(kFull, all)) break;
+      if (polls == kMaxPolls) __trap();  // seconds: a fault, not a wait
+      __nanosleep(32);
     }
   }
   __syncthreads();
-  if (p >= P) return;
-  acc = seg[threadIdx.y][threadIdx.x];
-  for (int64_t b = b0; b < b1; ++b) {
-    const int32_t v = totals[b * P + p];
-    totals[b * P + p] = acc;  // exclusive: the carry into block b
-    acc += v;
+  int32_t carry = 0;
+  if (!valid) return carry;
+  const int32_t* lv = cy.values() + p;
+  for (int f0 = 0; f0 < n; f0 += 16) {
+    int32_t v[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int f = f0 + i, l = f / kFan, q = b >> (kRadix * l);
+      const int j = (q & ~kFan) + f - kFan * l;
+      v[i] = f < n && j < q ? __ldcg(lv + (row0[l] + j) * cy.P) : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) carry += v[i];
   }
+  return carry;
 }
 
-template <class Epilogue>
-__global__ void block_alphas(const int32_t* __restrict__ delta, int64_t K,
-                             int P, const int32_t* __restrict__ carry,
-                             Epilogue epi) {
-  extern __shared__ int32_t counts[];  // [kRows][tile]
-  __shared__ int32_t best[kRows];      // running max per row over the tiles
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kRows;
-  const int rows = static_cast<int>((K - r0 < kRows) ? K - r0 : kRows);
-  const int tile = P < kPortTile ? P : kPortTile;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (static_cast<int>(threadIdx.x) < kRows) best[threadIdx.x] = INT32_MIN;
-  for (int p0 = 0; p0 < P; p0 += tile) {
-    const int np = (P - p0 < tile) ? P - p0 : tile;
-    __syncthreads();  // the previous tile's counts are read, best is set
-    for (int q = threadIdx.x; q < np; q += blockDim.x) {
-      const int p = p0 + q;
-      int32_t acc = carry[static_cast<int64_t>(blockIdx.x) * P + p];
-      for (int i = 0; i < rows; ++i) {
-        acc += delta[(r0 + i) * P + p];
-        counts[i * tile + q] = acc;
+// A stretch of up to kRows rows in cells[i * ld + q] (shared memory, one
+// column a thread): each thread scans its column on from `carry` in place
+// (a thread past the np valid ports writes INT32_MIN), then one warp a row
+// folds the row's max over the valid ports into best[i].  Called by the
+// whole block; starts and ends with a barrier.
+__device__ __forceinline__ void scan_stretch(int32_t* cells, int ld, int np,
+                                             int32_t& carry, int rows,
+                                             int32_t* best) {
+  const int q = threadIdx.x, lane = q & 31, warp = q >> 5;
+  __syncthreads();  // the stretch's deltas are in place
+  if (q < ld) {
+    for (int i0 = 0; i0 < kRows; i0 += 8) {
+      int32_t v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = cells[(i0 + i) * ld + q];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        carry += v[i];
+        cells[(i0 + i) * ld + q] = q < np ? carry : INT32_MIN;
       }
     }
-    __syncthreads();
-    for (int i = warp; i < rows; i += blockDim.x >> 5) {
-      int32_t v = INT32_MIN;
-      for (int q = lane; q < np; q += 32) v = max(v, counts[i * tile + q]);
-      for (int off = 16; off > 0; off >>= 1)
-        v = max(v, __shfl_down_sync(0xffffffffu, v, off));
-      if (lane == 0) best[i] = max(best[i], v);
-    }
   }
   __syncthreads();
-  if (static_cast<int>(threadIdx.x) < rows) epi(r0 + threadIdx.x,
-                                                best[threadIdx.x]);
-}
-
-// Scratch: `totals` holds ceil(K / kRows) * P int32.  Returns the first
-// CUDA error of the three launches, or cudaSuccess.
-template <class Epilogue>
-cudaError_t scan(const int32_t* delta, int64_t K, int P, int32_t* totals,
-                 Epilogue epi, cudaStream_t st) {
-  if (K <= 0) return cudaSuccess;
-  const int64_t nblocks = (K + kRows - 1) / kRows;
-  const int tile = P < kPortTile ? P : kPortTile;
-  const size_t shmem = static_cast<size_t>(kRows) * tile * sizeof(int32_t);
-  if (shmem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        block_alphas<Epilogue>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(shmem));
-    if (e != cudaSuccess) return e;
+  for (int i = warp; i < rows; i += blockDim.x >> 5) {
+    int32_t m = INT32_MIN;
+    for (int c = lane; c < np; c += 32) m = max(m, cells[i * ld + c]);
+    m = __reduce_max_sync(kFull, m);
+    if (lane == 0) best[i] = max(best[i], m);
   }
-  block_totals<<<static_cast<unsigned>(nblocks), kThreads, 0, st>>>(
-      delta, K, P, totals);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  block_carry<<<(P + kCarryPorts - 1) / kCarryPorts,
-                dim3(kCarryPorts, kCarrySegs), 0, st>>>(totals, nblocks, P);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  block_alphas<<<static_cast<unsigned>(nblocks), kThreads, shmem, st>>>(
-      delta, K, P, totals, epi);
-  return cudaGetLastError();
+  __syncthreads();  // the cells are free again
 }
 
 }  // namespace merge_scan

@@ -3,8 +3,12 @@ them into the delta array on the device, and run the kernel.
 
 ``coflow_merge`` maps a (K, 2m) int32 delta array to the (K,) int32
 alphas.  A CPU tensor takes the plain version (``ref.alphas_ref``); a CUDA
-tensor launches the kernel in ``csrc/coflow_merge.cu`` or raises.
-``coflow_merge.launches`` counts the kernel launches.
+tensor launches the kernel in ``csrc/coflow_merge.cu`` (one pass over the
+deltas, after a memset of the carry's counts) or raises.
+``coflow_merge.launches`` counts the calls that launch it.  Its scratch
+(``scratch``): the carry of merge_scan.cuh, each 32-row tile's column
+totals (ceil(K / 32) x 2m int32) and their sums over 8, 64, ... tiles,
+with their counts.
 
 Guard: the per-port counts are int32 and bounded by the number of edge
 activations E, so E >= 2^31 - 1 raises (as in
@@ -21,10 +25,36 @@ import torch
 from .. import load_kernel, resolve_device
 from .ref import alphas_ref, build_delta
 
-__all__ = ["coflow_merge", "interval_alphas", "edge_interval_alphas"]
+__all__ = ["coflow_merge", "interval_alphas", "edge_interval_alphas",
+           "carry_words", "scratch"]
 
 _I32_MAX = int(np.iinfo(np.int32).max)
-_ROWS = 32   # rows per block; the kernel's kRows
+_ROWS = 32   # rows per tile: merge_scan.cuh's kRows
+
+
+def carry_levels(T: int) -> int:
+    """Levels of the scan's carry for T tiles (merge_scan.cuh's Carry):
+    level l sums blocks of 8**l tiles, up to the first that covers T."""
+    levels, n = 1, 8
+    while n < T:
+        levels, n = levels + 1, n * 8
+    return levels
+
+
+def carry_words(T: int, P: int) -> int:
+    """int32 words of the carry's scratch for T tiles of P ports: each
+    level's rows of P values and of one count a port tile (512 ports), and
+    the ticket."""
+    rows = sum(-(-T // 8 ** lv) for lv in range(carry_levels(T)))
+    return rows * (P + -(-P // 512)) + 1
+
+
+def scratch(K: int, P: int,
+            device: "str | torch.device") -> dict[str, torch.Tensor]:
+    """The kernel's scratch for a (K, P) delta array, from ``torch.empty``
+    (the launch clears what must start at 0)."""
+    return {"carry": torch.empty(carry_words(-(-K // _ROWS), P),
+                                 dtype=torch.int32, device=device)}
 
 
 def coflow_merge(delta: torch.Tensor) -> torch.Tensor:
@@ -44,15 +74,14 @@ def coflow_merge(delta: torch.Tensor) -> torch.Tensor:
     alphas = torch.empty(K, dtype=torch.int32, device=delta.device)
     if K == 0:
         return alphas
-    totals = torch.empty(((K + _ROWS - 1) // _ROWS, P), dtype=torch.int32,
-                         device=delta.device)
+    sc = scratch(K, P, delta.device)
     fn = load_kernel("coflow_merge").coflow_merge_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] \
+        + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     with torch.cuda.device(delta.device):
         stream = torch.cuda.current_stream(delta.device).cuda_stream
-        err = fn(delta.data_ptr(), K, P, totals.data_ptr(),
+        err = fn(delta.data_ptr(), K, P, sc["carry"].data_ptr(),
                  alphas.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"coflow_merge kernel failed: CUDA error {err}")

@@ -4,14 +4,24 @@ dispatch by device.
 ``merge_fix`` maps the merged edge activations to the per-interval alphas
 and expanded durations.  A CPU tensor takes the plain version
 (``ref.merge_fix_ref``); a CUDA tensor launches the kernel in
-``csrc/merge_fix.cu`` (binning, scatter, scan and duration product, no host
-step between) or raises.  ``merge_fix.launches`` counts the kernel
-launches.  ``merge_fix_step`` is the host-array entry point that
-``core/backend.fused_merge_fix`` calls.
+``csrc/merge_fix.cu`` (three launches: a bucket table of the events'
+times, binning and a chunk-local counting sort of the endpoints, then the
+tile scan on merge_scan.cuh's radix-32 carry; no host step between) or
+raises.  ``merge_fix.launches`` counts
+the calls that launch it.  ``merge_fix_step`` is the host-array entry
+point that ``core/backend.fused_merge_fix`` calls.
 
 Guard: the per-port counts are int32 and bounded by the number of edge
 activations E, so E >= 2^31 - 1 raises (as in
 ``repro/kernels/merge_fix/ops.py``).  Durations are int64 on every path.
+The kernel's endpoint records hold ports below 2^22 and rows below 2^31,
+so m >= 2^22 or K >= 2^31 - 1 raises on the card.
+
+Scratch (``scratch``; no (K + 1) x 2m array): the bucket table (up to
+2(K + 1) int32), the endpoints' rows (2E int32) and records (2E int64), each chunk's bin offsets, and the carry:
+each tile's column totals (tiles x 2m int32, a tile being 32 to 256 rows:
+``ref.tile_layout``) and their sums over 8, 64, ... tiles, with their
+counts.
 """
 from __future__ import annotations
 
@@ -21,12 +31,13 @@ import numpy as np
 import torch
 
 from .. import load_kernel, resolve_device
-from .ref import merge_fix_ref
+from ..coflow_merge.ops import carry_words
+from .ref import merge_fix_ref, tile_layout
 
-__all__ = ["merge_fix", "merge_fix_step"]
+__all__ = ["merge_fix", "merge_fix_step", "scratch"]
 
 _I32_MAX = 2**31 - 1
-_ROWS = 32   # rows per scan block; merge_scan.cuh's kRows
+_PORT_LIMIT = 2**22   # merge_fix.cu's kPortBits
 
 
 def _check_edge_count(E: int) -> None:
@@ -35,6 +46,20 @@ def _check_edge_count(E: int) -> None:
         # the kernel accumulates them in int32
         raise ValueError("too many edge activations for the int32 "
                          f"merge_fix accumulator ({E} >= 2^31-1)")
+
+
+def scratch(K: int, E: int, m: int,
+            device: "str | torch.device") -> dict[str, torch.Tensor]:
+    """The kernel's scratch for K intervals, E edges and 2m ports, from
+    ``torch.empty`` (the first launch clears what must start at 0)."""
+    lay = tile_layout(K, E)
+    sizes = {"table": lay.nb + 1, "rows": 2 * E,
+             "seg": lay.C * (lay.nbins + 1),
+             "carry": carry_words(lay.T, 2 * m)}
+    buf = torch.empty(sum(sizes.values()), dtype=torch.int32, device=device)
+    out = dict(zip(sizes, torch.split(buf, list(sizes.values()))))
+    out["recs"] = torch.empty(max(2 * E, 1), dtype=torch.int64, device=device)
+    return out
 
 
 def merge_fix(events: torch.Tensor, t0: torch.Tensor, t1: torch.Tensor,
@@ -67,21 +92,24 @@ def merge_fix(events: torch.Tensor, t0: torch.Tensor, t1: torch.Tensor,
     deltas = torch.empty(max(K, 0), dtype=torch.int64, device=dev)
     if K < 1:
         return alphas, deltas
-    P = 2 * m
-    delta = torch.empty((K + 1) * P, dtype=torch.int32, device=dev)
-    totals = torch.empty(((K + _ROWS - 1) // _ROWS) * P, dtype=torch.int32,
-                         device=dev)
+    if m >= _PORT_LIMIT or K >= _I32_MAX:
+        raise ValueError(f"merge_fix on the card takes m < 2^22 and "
+                         f"K < 2^31 - 1, got m={m}, K={K}")
+    lay = tile_layout(K, E)
+    sc = scratch(K, E, m, dev)
     fn = load_kernel("merge_fix").merge_fix_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] \
         + [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int] \
-        + [ctypes.c_void_p] * 5
+        + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(events.data_ptr(), K, t0.data_ptr(), t1.data_ptr(),
-                 s.data_ptr(), r.data_ptr(), E, m, delta.data_ptr(),
-                 totals.data_ptr(), alphas.data_ptr(), deltas.data_ptr(),
-                 stream)
+                 s.data_ptr(), r.data_ptr(), E, m, lay.nb, lay.Ec, lay.C,
+                 lay.nbins, lay.lg, lay.lg_sub, lay.stash,
+                 *(sc[k].data_ptr() for k in ("table", "rows", "recs", "seg",
+                                              "carry")),
+                 alphas.data_ptr(), deltas.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"merge_fix kernel launch failed: CUDA error "
                            f"{err}")

@@ -3,12 +3,74 @@ alphas from the edge activations, then the expanded interval durations
 ``len * max(alpha, 1)`` (Lemma 6).  The port's copy of
 ``repro/kernels/merge_fix/ref.py::merge_fix_ref``, on tensors.  A CPU
 tensor runs it; ``chip_smoke.py`` holds the CUDA kernel against it on the
-card."""
+card.
+
+Also here: ``tile_layout``, the tiling the kernel runs with (the wrapper
+passes it to the kernel and sizes its scratch from it), and
+``merge_fix_tiled``, a plain emulation of the kernel's tiled algorithm for
+the tests; it is on no path."""
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
+from ..coflow_merge.ops import carry_levels
 from ..coflow_merge.ref import alphas_ref, build_delta
+
+ROWS = 32            # rows per sub-tile: merge_scan.cuh's kRows
+PORT_TILE = 512      # ports per port tile: merge_scan.cuh's kPortTile
+MAX_SUB = 8          # sub-tiles a tile holds at most: merge_fix.cu's kSub
+MIN_TILES = 400      # a tile grows only while this many tiles remain
+STASH = 4096         # records a tile of several stretches expects at most
+MAX_BINS = 12000     # bins a chunk counts in shared memory (48 KB)
+CHUNK_EDGES = 1024   # edges a chunk takes at least (two a thread)
+MAX_CHUNKS = 512     # chunks at most: merge_fix.cu's kMaxChunks
+
+
+class TileLayout(NamedTuple):
+    T: int       # tiles of rows << lg_sub rows: one block each
+    lg_sub: int  # a tile holds 2**lg_sub sub-tiles of `rows` rows
+    lg: int      # a bin holds 2**lg tiles
+    nbins: int
+    Ec: int      # edges a chunk
+    C: int       # chunks
+    nb: int      # buckets of the events' times: 2**k >= K + 1
+    stash: int   # records a tile keeps in shared memory
+
+
+def tile_layout(K: int, E: int, *, rows: int = ROWS,
+                max_sub: int = MAX_SUB, min_tiles: int = MIN_TILES,
+                stash: int = STASH, max_bins: int = MAX_BINS,
+                chunk_edges: int = CHUNK_EDGES,
+                max_chunks: int = MAX_CHUNKS) -> TileLayout:
+    """The tiling of K intervals and E edges.  A tile (one block of the
+    second launch) holds up to `max_sub` sub-tiles of `rows`
+    rows while at least `min_tiles` tiles remain (about three blocks an SM
+    of the H100's 132) and its expected records (2E of them spread over K
+    rows) fit the `stash`; the bins hold 2**lg tiles so that a chunk's
+    counts fit its shared memory; the edges are cut into at most
+    `max_chunks` chunks; the events' times fall into 2**k >= K + 1
+    buckets; a tile of several stretches keeps up to twice the records it
+    expects in shared memory (a tile with more reads them again from device
+    memory)."""
+    T32 = -(-K // rows)
+    lg_sub = 0
+    while (2 << lg_sub) <= max_sub \
+            and -(-T32 // (2 << lg_sub)) >= min_tiles \
+            and 2 * E * (rows << (lg_sub + 1)) <= stash * K:
+        lg_sub += 1
+    T = -(-T32 // (1 << lg_sub))
+    lg = 0
+    while -(-T // (1 << lg)) > max_bins:
+        lg += 1
+    Ec = max(chunk_edges, -(-E // max_chunks))
+    # a tile of several stretches keeps twice the records it expects, in
+    # steps of 256, 256 to 8192 (one stretch needs none)
+    expect = -(-2 * E * (rows << lg_sub) // K)
+    stash = min(8192, max(256, -(-2 * expect // 256) * 256)) if lg_sub else 0
+    return TileLayout(T, lg_sub, lg, -(-T // (1 << lg)), Ec,
+                      max(1, -(-E // Ec)), 1 << K.bit_length(), stash)
 
 
 def merge_fix_ref(
@@ -28,5 +90,89 @@ def merge_fix_ref(
     si = torch.searchsorted(events, t0)
     ei = torch.searchsorted(events, t1)
     alphas = alphas_ref(build_delta(si, ei, s, r, K, m)).to(torch.int64)
+    lens = events[1:] - events[:-1]
+    return alphas, lens * alphas.clamp(min=1)
+
+
+def merge_fix_tiled(events: torch.Tensor, t0: torch.Tensor, t1: torch.Tensor,
+                    s: torch.Tensor, r: torch.Tensor, m: int, *,
+                    rows: int = ROWS, port_tile: int = PORT_TILE,
+                    min_tiles: int = MIN_TILES, max_bins: int = MAX_BINS,
+                    chunk_edges: int = CHUNK_EDGES
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``merge_fix_ref`` computed the way ``csrc/merge_fix.cu`` computes it,
+    on CPU tensors.  Launch 1: each chunk of edges bins its kept endpoints
+    (row < K) by bin of tiles and orders its records by bin.  Launch 2,
+    per tile: its column totals from its records from every chunk are
+    published at level 0 of the carry and summed into its blocks of 8**l
+    tiles above; its carry is the sum, at each level, of the blocks below
+    its own within its block of 8; each 32-row stretch's records go into
+    a [rows, port tile] array whose columns are scanned on from the carry,
+    and each row's max is taken over the port tiles."""
+    K, E, P = int(events.numel()) - 1, int(t0.numel()), 2 * m
+    if K < 1:
+        z = torch.zeros(0, dtype=torch.int64)
+        return z, z.clone()
+    lay = tile_layout(K, E, rows=rows, min_tiles=min_tiles,
+                      max_bins=max_bins, chunk_edges=chunk_edges)
+    tile_rows = rows << lay.lg_sub
+    bin_rows = tile_rows << lay.lg
+    si = torch.searchsorted(events, t0)
+    ei = torch.searchsorted(events, t1)
+    # launch 1: per chunk, records (row in bin, sign, s, r) in bin order
+    # and the offsets of each bin
+    chunks = []
+    for c in range(lay.C):
+        e = torch.arange(c * lay.Ec, min(E, (c + 1) * lay.Ec))
+        row = torch.cat([si[e], ei[e]])
+        sign = torch.cat([torch.ones_like(e), -torch.ones_like(e)])
+        ps, pr = torch.cat([s[e], s[e]]), torch.cat([r[e], r[e]])
+        kept = row < K
+        row, sign, ps, pr = row[kept], sign[kept], ps[kept], pr[kept]
+        b = row // bin_rows
+        order = torch.argsort(b, stable=True)
+        seg = torch.zeros(lay.nbins + 1, dtype=torch.int64)
+        seg[1:] = torch.bincount(b, minlength=lay.nbins).cumsum(0)
+        chunks.append((seg, (row % bin_rows)[order], sign[order],
+                       ps[order], m + pr[order]))
+
+    def tile_records(t):
+        bn, tib = t >> lay.lg, t & ((1 << lay.lg) - 1)
+        rib, sg, ps, pr = (torch.cat(x) for x in zip(*(
+            [a[seg[bn]:seg[bn + 1]] for a in rest]
+            for seg, *rest in chunks)))
+        mine = rib // tile_rows == tib
+        return rib[mine] % tile_rows, sg[mine], (ps[mine], pr[mine])
+
+    # launch 2: every tile publishes its totals before any waits
+    lv = [torch.zeros((-(-lay.T // 8 ** lvl), P), dtype=torch.int64)
+          for lvl in range(carry_levels(lay.T))]
+    for t in range(lay.T):
+        _, sg, ports = tile_records(t)
+        for q in ports:
+            for lvl, a in enumerate(lv):
+                a[t >> 3 * lvl].index_add_(0, q, sg)
+    # then each tile's carry and scan, in any order
+    PT = min(-(-P // 32) * 32, port_tile)
+    alphas = torch.empty(K, dtype=torch.int64)
+    for t in range(lay.T):
+        carry = sum(a[(t >> 3 * lvl) & ~7:t >> 3 * lvl].sum(0)
+                    for lvl, a in enumerate(lv))
+        rit, sg, ports = tile_records(t)
+        n = min(tile_rows, K - t * tile_rows)
+        best = torch.full((n,), torch.iinfo(torch.int64).min)
+        for p0 in range(0, P, PT):
+            np_ = min(PT, P - p0)
+            cells = torch.zeros((tile_rows, PT), dtype=torch.int64)
+            for q in ports:
+                w = (q >= p0) & (q < p0 + PT)
+                cells.index_put_((rit[w], q[w] - p0), sg[w], accumulate=True)
+            cells = cells[:, :np_]
+            for u in range(0, n, rows):   # the sub-tiles, in turn
+                scan = carry[p0:p0 + np_] + cells[:u].sum(0) \
+                    + cells[u:u + rows].cumsum(0)
+                best[u:u + rows] = torch.maximum(
+                    best[u:u + rows], scan[:n - u].amax(1))
+        alphas[t * tile_rows:t * tile_rows + n] = best
     lens = events[1:] - events[:-1]
     return alphas, lens * alphas.clamp(min=1)

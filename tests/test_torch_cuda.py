@@ -258,18 +258,48 @@ def test_smoke_prefill_and_serve_on_card_equal_cpu():
     assert outs[0][0]["completed"] == 5
 
 
-@pytest.mark.parametrize("K,P", [(1, 2), (31, 2), (33, 300), (4096, 64),
-                                 (100_000, 300), (2_000, 1_000),
-                                 (3_000, 2_000)])
-def test_coflow_merge_kernel_equals_plain(K, P):
+def _merge_deltas(K, P, kind):
+    """(K, P) int32 deltas: random in [-3, 3]; one hot 32-row tile (every
+    other row 0); or every port +1 at row 0 (edges spanning all of K)."""
+    rng = np.random.default_rng(K)
+    if kind in ("random", "repeat"):
+        return rng.integers(-3, 4, size=(K, P))
+    d = np.zeros((K, P), dtype=np.int64)
+    if kind == "hot":
+        t = K // 64 * 32
+        d[t:t + 32] = rng.integers(-3, 6, size=(min(32, K - t), P))
+    else:
+        d[0] = 1
+        d[K // 2, ::3] = -1
+    return d
+
+
+@pytest.mark.parametrize("K,P,kind", [
+    pytest.param(K, P, "random", id=f"{K}-{P}")
+    for K, P in [(1, 2), (31, 2), (33, 300), (4096, 64), (100_000, 300),
+                 (2_000, 1_000), (3_000, 2_000)]] + [
+    pytest.param(1, 2_000, "random", id="K_1-2m_2000"),
+    pytest.param(33, 2_000, "random", id="K_33-2m_2000"),
+    pytest.param(119_288, 300, "random", id="K_119288"),
+    pytest.param(40_001, 2_000, "random", id="K_40001-2m_2000"),
+    pytest.param(20_000, 300, "hot", id="hot_tile"),
+    pytest.param(20_000, 2_000, "hot", id="hot_tile-2m_2000"),
+    pytest.param(100_000, 300, "span", id="span_all_of_K"),
+    pytest.param(5_277, 300, "repeat", id="repeat_100")])
+def test_coflow_merge_kernel_equals_plain(K, P, kind):
+    """One pass with a decoupled look-back: tiles of 32 rows, up to
+    thousands of blocks in the carry chain; repeated on one stream, a
+    stale status word or ticket would show."""
     dev = _card()
-    delta = torch.as_tensor(np.random.default_rng(K).integers(
-        -3, 4, size=(K, P)), dtype=torch.int32, device=dev)
+    delta = torch.as_tensor(_merge_deltas(K, P, kind), dtype=torch.int32,
+                            device=dev)
+    want = alphas_ref(delta)
+    reps = 100 if kind == "repeat" else 1
     before = coflow_merge.launches
-    got = coflow_merge(delta)
+    got = [coflow_merge(delta) for _ in range(reps)]
     torch.cuda.synchronize()
-    assert coflow_merge.launches == before + 1
-    assert torch.equal(got, alphas_ref(delta))
+    assert coflow_merge.launches == before + reps
+    assert all(torch.equal(g, want) for g in got)
 
 
 def test_interval_alphas_on_card_equal_cpu():
@@ -403,23 +433,70 @@ def test_bna_decompose_kernel_equals_plain(B, w, density, t_store):
         assert torch.equal(x.cpu(), y)
 
 
-@pytest.mark.parametrize("E,m", [(1, 2), (400, 7), (20_000, 150), (3, 1000),
-                                 (20_000, 1000)])
-def test_merge_fix_kernel_equals_plain(E, m):
-    dev = _card()
+def _merge_edges(E, m, kind):
+    """(events, t0, t1, s, r) int64: random activations over 10^6 time
+    units (10^7 for "long", K ~ 1.2e5 at E = 60,000); one interval ("k1");
+    K = 33, one row past a tile; every endpoint in one 32-row tile of
+    K = 9999 ("hot") or in one tile of four stretches of K = 99,999, more
+    records than its shared-memory stash ("hot_stretches"); or half the
+    edges spanning all of K ("span")."""
     rng = np.random.default_rng(E)
-    t0 = rng.integers(0, 10**6, E)
-    t1 = t0 + rng.integers(1, 5000, E)
-    args = [torch.as_tensor(a, dtype=torch.int64) for a in (
-        np.unique(np.concatenate([t0, t1])), t0, t1,
-        rng.integers(0, m, E), rng.integers(0, m, E))]
+    events = None
+    if kind == "k1":
+        t0, t1 = np.zeros(E, np.int64), np.full(E, 5)
+    elif kind == "past_a_tile":
+        events = np.arange(34) * 3
+        i0 = rng.integers(0, 33, E)
+        t0, t1 = events[i0], events[np.minimum(33, i0 + rng.integers(1, 4, E))]
+    elif kind == "hot":
+        events = np.arange(10_000) * 7
+        t0 = events[3200 + rng.integers(0, 16, E)]
+        t1 = events[3216 + rng.integers(0, 16, E)]
+    elif kind == "hot_stretches":     # a tile of 4 stretches, past its stash
+        events = np.arange(100_000) * 7
+        t0 = events[3200 + rng.integers(0, 64, E)]
+        t1 = events[3264 + rng.integers(0, 64, E)]
+    else:
+        span = 10**7 if kind == "long" else 10**6
+        t0 = rng.integers(0, span, E)
+        t1 = t0 + rng.integers(1, 5000, E)
+        if kind == "span":
+            t0[::2], t1[::2] = t0.min(), t1.max()
+    if events is None:
+        events = np.unique(np.concatenate([t0, t1]))
+    return [torch.as_tensor(a, dtype=torch.int64) for a in (
+        events, t0, t1, rng.integers(0, m, E), rng.integers(0, m, E))]
+
+
+@pytest.mark.parametrize("E,m,kind", [
+    pytest.param(E, m, "random", id=f"{E}-{m}")
+    for E, m in [(1, 2), (400, 7), (20_000, 150), (3, 1000),
+                 (20_000, 1000)]] + [
+    pytest.param(300, 150, "k1", id="K_1"),
+    pytest.param(500, 150, "past_a_tile", id="K_33"),
+    pytest.param(60_000, 150, "long", id="K_119k"),
+    pytest.param(60_000, 1000, "long", id="K_119k-m_1000"),
+    pytest.param(50_000, 150, "hot", id="hot_tile"),
+    pytest.param(5_000, 1000, "hot", id="hot_tile-m_1000"),
+    pytest.param(50_000, 150, "hot_stretches", id="hot_tile-stretches"),
+    pytest.param(20_000, 150, "span", id="span_all_of_K"),
+    pytest.param(20_000, 150, "repeat", id="repeat_100")])
+def test_merge_fix_kernel_equals_plain(E, m, kind):
+    """Binning, the chunks' counting sort and the tile scan with its
+    decoupled look-back; repeated on one stream, a stale status word or
+    ticket (cleared by the first launch) would show."""
+    dev = _card()
+    args = _merge_edges(E, m, kind)
     want = merge_fix_ref(*args, m)
+    reps = 100 if kind == "repeat" else 1
+    dargs = [a.to(dev) for a in args]
     before = merge_fix.launches
-    got = merge_fix(*[a.to(dev) for a in args], m)
+    got = [merge_fix(*dargs, m) for _ in range(reps)]
     torch.cuda.synchronize()
-    assert merge_fix.launches == before + 1
-    for x, y in zip(got, want):
-        assert torch.equal(x.cpu(), y)
+    assert merge_fix.launches == before + reps
+    for g in got:
+        for x, y in zip(g, want):
+            assert torch.equal(x.cpu(), y)
 
 
 @pytest.mark.parametrize("w,lanes", [

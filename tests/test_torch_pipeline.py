@@ -31,8 +31,13 @@ from repro_torch.core import pipeline
 from repro_torch.kernels.bna_decompose import bna_decompose
 from repro_torch.kernels.bna_decompose.ref import (bna_decompose_ref,
                                                    tight_bucket)
+from repro_torch.kernels.coflow_merge.ops import carry_words
+from repro_torch.kernels.coflow_merge.ops import \
+    scratch as coflow_merge_scratch
 from repro_torch.kernels.merge_fix import merge_fix, merge_fix_step
-from repro_torch.kernels.merge_fix.ref import merge_fix_ref
+from repro_torch.kernels.merge_fix.ops import scratch as merge_fix_scratch
+from repro_torch.kernels.merge_fix.ref import (merge_fix_ref,
+                                               merge_fix_tiled, tile_layout)
 
 SCHEDULERS = ("gdm", "gdm_rt", "om_alg")
 # tiny per-scenario sizes, as tests/test_scenarios.py
@@ -379,6 +384,89 @@ def test_merge_fix_edge_count_guard_and_checks():
     assert merge_fix.launches == before            # CPU: plain version
     want = merge_fix_ref(ev, e, e + 1, e, e, 2)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _tiled_case(case):
+    """(events, t0, t1, s, r, m) of K = 1003 intervals (no multiple of 7,
+    32 or 128) unless the case sets its own."""
+    rng = np.random.default_rng(len(case))
+    m, E = 13, 700
+    events = np.arange(1004, dtype=np.int64) * 3
+    i0 = rng.integers(0, 1003, E)
+    i1 = np.minimum(i0 + rng.integers(1, 40, E), 1003)
+    if case == "si_eq_ei":            # empty activations: t0 == t1
+        i1[::3] = i0[::3]
+    elif case == "at_K":              # endpoints at row K (dropped)
+        i1[::4] = 1003
+        i0[::9] = 1003
+    elif case == "empty_tiles":       # nothing in rows 200 .. 899
+        i0 = np.where((i0 >= 200) & (i0 < 900), i0 % 200, i0)
+        i1 = np.minimum(i0 + rng.integers(1, 40, E), 199 + (i0 >= 900) * 804)
+    elif case == "one_tile":          # every edge inside rows 512 .. 543
+        i0 = 512 + rng.integers(0, 16, E)
+        i1 = i0 + rng.integers(0, 16, E)
+    elif case == "m_1000":            # four port tiles of 512
+        m = 1000
+    t0, t1 = events[i0], events[i1]
+    return events, t0, t1, rng.integers(0, m, E), rng.integers(0, m, E), m
+
+
+@pytest.mark.parametrize("case", ["ragged", "si_eq_ei", "at_K",
+                                  "empty_tiles", "one_tile", "m_1000"])
+@pytest.mark.parametrize("R", [1, 7, 32, 128])
+def test_merge_fix_tiled_equals_plain_and_reference(case, R):
+    """The plain emulation of the kernel's tiled algorithm (bins by tile,
+    a chunk-local sort, the radix-8 carry between tiles, the scan within
+    each 32-row stretch) equals merge_fix_ref and the reference's
+    merge_fix_step, at every tile height."""
+    events, t0, t1, s, r, m = _tiled_case(case)
+    assert (events.size - 1) % max(R, 2) != 0
+    args = [torch.as_tensor(a) for a in (events, t0, t1, s, r)]
+    got = merge_fix_tiled(*args, m, rows=R)
+    want = merge_fix_ref(*args, m)
+    ral, rde = ref_merge_fix_step(events, t0, t1, s, r, m,
+                                  use_kernel=m < 1000, block_k=64)
+    for x, y, z in zip(got, want, (ral, rde)):
+        assert torch.equal(x, y) and np.array_equal(x.numpy(), z)
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(min_tiles=1),                              # 8 stretches a tile
+    dict(min_tiles=1, max_bins=3),                  # bins of many tiles
+    dict(chunk_edges=17, port_tile=32)])            # many chunks, ports
+def test_merge_fix_tiled_layout_corners(knobs):
+    """The layout's corners: tiles of several stretches, bins of several
+    tiles, many chunks and narrow port tiles, on the ragged case with
+    endpoints at K."""
+    events, t0, t1, s, r, m = _tiled_case("at_K")
+    args = [torch.as_tensor(a) for a in (events, t0, t1, s, r)]
+    want = merge_fix_ref(*args, m)
+    for R in (1, 32):
+        got = merge_fix_tiled(*args, m, rows=R, **knobs)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("K,E,m", [(12593, 267537, 150), (119256, 60000, 150),
+                                   (60985, 2961141, 150), (1, 1, 2),
+                                   (3000, 20000, 1000)])
+def test_merge_scratch_holds_no_dense_interval_port_array(K, E, m):
+    """The kernels' scratch, as the wrappers allocate it: no (K + 1) x 2m
+    array.  merge_fix's is edge-sized (rows, records), bin-sized (a bucket
+    table, the chunks' offsets) and the carry (tile totals and their sums,
+    a tile being 32 to 256 rows); coflow_merge's the carry alone."""
+    P = 2 * m
+    lay = tile_layout(K, E)
+    got = {k: v.numel() for k, v in merge_fix_scratch(K, E, m,
+                                                      "meta").items()}
+    assert got == {"table": lay.nb + 1, "rows": 2 * E,
+                   "seg": lay.C * (lay.nbins + 1),
+                   "carry": carry_words(lay.T, P), "recs": max(2 * E, 1)}
+    assert lay.nb <= 2 * (K + 1) and lay.C <= 512
+    assert got["carry"] <= (K + 1) * P // 16 + 64
+    cm = {k: v.numel() for k, v in coflow_merge_scratch(K, P,
+                                                        "meta").items()}
+    assert cm == {"carry": carry_words(-(-K // 32), P)}
+    assert cm["carry"] <= (K + 1) * P // 16 + 64
 
 
 # --------------------------------------------------------------------------
