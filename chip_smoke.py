@@ -42,7 +42,10 @@ Phases; any failure exits non-zero and prints no result line:
    launched its path's kernels.  gdm is also planned through the python
    path with the caches off (no prefetch), where every coflow must still
    go through ``bna_step``; a few coflows are checked against the scalar
-   BNA.
+   BNA.  Then gdm is planned once more through each path under
+   ``torch.profiler``, the counters set to 0 just before, and each of
+   ``coflow_merge``'s two CUDA kernels (python path) and ``merge_fix``'s
+   three (pipeline) must have run once a call.
 6. gdm and om_alg at ``scale=1.0`` (the paper's 267 coflows) through the
    pipeline on the card: feasible, 0 host repairs, 0 overflow buckets.
    The lane of gdm's widest bucket with the longest chain (8575 steps)
@@ -50,7 +53,10 @@ Phases; any failure exits non-zero and prints no result line:
    of the bucket's result, against the plain version on the CPU.  gdm's
    merge stage is split into each merge's ``merge_fix`` device time (CUDA
    events) and the rest of the stage's host seconds (the wrapper's
-   staging), and its largest merge is held against the plain version.  Then a
+   staging), and its largest merge is held against the plain version; the
+   K and E of every scale-1.0 merge are recorded, and om_alg's one merge
+   (the main path's largest) is held against the plain version and
+   timed.  Then a
    switch of m = 1000 ports (``paper_workload(m=1000, mu_bar=2, seed=0,
    scale=0.01)``) is planned with gdm through both paths on the card, each
    equal to the same path's plan on the CPU.
@@ -129,12 +135,16 @@ Phases; any failure exits non-zero and prints no result line:
    PyTorch call computes the SSD scan, so its library time is null).  K4's
    and K5's rows add their design, TFLOP/s, and the registers, local
    memory (spills) and dynamic shared memory of each kernel as the loaded
-   library reports them; K4 its ratio to ``library_ms``; K5 the CUDA
-   launches per call counted in phase 11, its float32 scratch bytes and
-   the design's floor
-   (the algorithm's bytes plus the chunk states written, read, written and
-   read, over 3.35 TB/s), beside ``bound_ms``, which stays the
-   algorithm's.  Print the ``kernels`` line, the plan and serve timings
+   library reports them; K4 its ratio to ``library_ms``; K2, K3 and K5 the
+   CUDA launches per call counted under the profiler (phases 5 and 11) and
+   the device bytes one call holds at its peak (``alloc_bytes``: outputs
+   and scratch, read from the caching allocator).  What a model computes
+   rather than the run measures (K5's and ``bna_decompose``'s design
+   floors, the parts of K5's bound) goes to the record's
+   ``kernel_models``, not the line; K5's floor is the algorithm's bytes
+   plus the chunk states written, read, written and read, over 3.35 TB/s,
+   beside ``bound_ms``, which stays the algorithm's.  Print the
+   ``kernels`` line, the plan and serve timings
    and counts, and the card's name and power limit.  The last line is the
    result line.
 
@@ -167,6 +177,13 @@ KERNELS = ("bna_step", "coflow_merge", "bna_decompose", "merge_fix",
 SERVE_ARCH = "qwen3-1.7b"
 SSM_ARCH = "mamba2-2.7b"
 K5_NAMES = ("ssd_state_", "ssd_pass", "ssd_out_")   # K5's three kernels
+K2_NAMES = ("carry_clear", "merge_pass")              # K2's two kernels
+K3_NAMES = ("bucket_index", "bin_sort", "tile_scan")  # K3's three kernels
+# fields of the kernels line that a model computes rather than the run
+# measures, besides bound_ms: kept in the record, not the line
+MODEL_KEYS = ("bound_bytes_ms", "bound_ops_ms", "bound_f32_cuda_core_ms",
+              "design_floor_ms", "design_floor_round_trips",
+              "cycles_per_round_trip")
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 4e-2}
 SSD_TOL = {"float32": 1e-4, "bfloat16": 8e-3}   # relative to max |y|
 CHECK_SCALE = 0.25                  # phase 4's checked pipeline plan
@@ -230,6 +247,21 @@ def _attributes(fn, *args) -> dict:
             "smem_bytes": smem.value}
 
 
+def alloc_bytes(fn) -> int:
+    """Device bytes that one fn() call holds at its peak, its outputs and
+    scratch included, as the caching allocator counts them."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -253,11 +285,8 @@ def main() -> int:
     from repro_torch.kernels.bna_step import bna_step, stage_state
     from repro_torch.kernels.bna_step.ref import bna_step_ref
     from repro_torch.kernels.coflow_merge import coflow_merge
-    from repro_torch.kernels.coflow_merge.ops import \
-        scratch as coflow_merge_scratch
     from repro_torch.kernels.coflow_merge.ref import alphas_ref, build_delta
     from repro_torch.kernels.merge_fix import merge_fix
-    from repro_torch.kernels.merge_fix.ops import scratch as merge_fix_scratch
     from repro_torch.kernels.merge_fix.ref import merge_fix_ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -687,6 +716,39 @@ def main() -> int:
     record["plans"] = runs
     record["pipeline_plans"] = pipe_runs
 
+    # 5b. K2's and K3's CUDA launches a call, read under torch.profiler in
+    # a rerun of the main path's gdm plan (python path: K2; pipeline: K3),
+    # the counts set to 0 just before: each of a kernel's CUDA kernels must
+    # run once a call
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def profiled_launches(plan_backend, wrapper, names) -> dict:
+        inst = paper_workload(m=150, mu_bar=5, seed=0, scale=SCALES["gdm"])
+        clear_caches()
+        zero_counts()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            plan(inst, "gdm", device="cuda", plan_backend=plan_backend,
+                 seed=0)
+            torch.cuda.synchronize()
+        calls = wrapper.launches
+        ka = prof.key_averages()
+        per = {n: sum(e.count for e in ka if n in e.key
+                      and e.device_type == DeviceType.CUDA) for n in names}
+        if not calls or any(c != calls for c in per.values()):
+            _fail(f"gdm {plan_backend} (profiled): {calls} calls launched "
+                  f"{per}, expected each kernel once a call")
+        return {"calls": calls, "cuda_kernels": per,
+                "per_call": sum(per.values()) / calls}
+
+    record["merge_cuda_launches"] = {
+        "coflow_merge": profiled_launches("python", coflow_merge, K2_NAMES),
+        "merge_fix": profiled_launches("pipeline", merge_fix, K3_NAMES)}
+    print("merge kernels' CUDA launches in a profiled gdm plan (scale "
+          f"{SCALES['gdm']}): {json.dumps(record['merge_cuda_launches'])}")
+
     # 6. the paper's full trace size through the pipeline --------------------
     full_runs = {}
     widest: dict = {}
@@ -699,11 +761,12 @@ def main() -> int:
             return out
         return wrapped
 
-    full_merges: list = []   # the scale-1.0 gdm plan's merges (host arrays)
+    # the scale-1.0 plans' merges (host arrays)
+    full_merges: dict = {sched: [] for sched in FULL_SCALE}
 
-    def keep_merges(fn):
+    def keep_merges(fn, kept):
         def wrapped(events, t0, t1, s, r, m, *, device):
-            full_merges.append(((events, t0, t1, s, r), m))
+            kept.append(((events, t0, t1, s, r), m))
             return fn(events, t0, t1, s, r, m, device=device)
         return wrapped
 
@@ -712,7 +775,8 @@ def main() -> int:
         key, mkey = (pipeline, "bna_decompose"), (backend, "merge_fix_step")
         if sched == "gdm":
             saved_stages[key] = keep_widest(saved_stages[key])
-            saved_stages[mkey] = keep_merges(saved_stages[mkey])
+        saved_stages[mkey] = keep_merges(saved_stages[mkey],
+                                         full_merges[sched])
         try:
             _, prun = pipeline_plan(inst, sched)
         finally:
@@ -727,13 +791,16 @@ def main() -> int:
               f"{prun['bucket_fallbacks']}, stage s "
               f"{json.dumps(prun['stage_s'])}; feasible")
     record["full_scale_plans"] = full_runs
+    record["full_scale_merge_shapes"] = {
+        sched: [{"K": a[0].size - 1, "E": a[1].size} for a, _ in kept]
+        for sched, kept in full_merges.items()}
 
     # the scale-1.0 gdm merge stage, split: each merge's kernel device time
     # (CUDA events) against the stage's host seconds (the wrapper's staging:
     # host-to-device copies, scratch, the launch, the copies back)
     mf_dev = [([torch.as_tensor(np.ascontiguousarray(a, dtype=np.int64),
                                 device=dev) for a in args], m_)
-              for args, m_ in full_merges]
+              for args, m_ in full_merges["gdm"]]
     kernel_ms = [_cuda_ms(lambda a=a, m_=m_: merge_fix(*a, m_), reps=20,
                           rounds=3) for a, m_ in mf_dev]
     stage_ms = full_runs["gdm"]["stage_s"]["merge_fix_step"] * 1e3
@@ -749,6 +816,23 @@ def main() -> int:
     print("gdm scale-1.0 merge stage, split (ms): "
           + json.dumps(record["full_scale_merge_stage"]))
     del mf_dev   # up to a gigabyte of edges: free it before peak readings
+    # om_alg's scale-1.0 merge, the main path's largest: checked and timed
+    oa, oa_m = max(full_merges["om_alg"], key=lambda x: x[0][0].size)
+    oa_args = [torch.as_tensor(np.ascontiguousarray(a, dtype=np.int64),
+                               device=dev) for a in oa]
+    Ko, Eo = oa_args[0].numel() - 1, oa_args[1].numel()
+    note("merge_fix", abs_err(zip(merge_fix(*oa_args, oa_m),
+                                  merge_fix_ref(*oa_args, oa_m))),
+         f"om_alg's scale-1.0 merge (K={Ko})")
+    record["merge_fix_om_alg_1.0"] = {
+        "shape": [Ko, 2 * oa_m, Eo],
+        "ms": _cuda_ms(lambda: merge_fix(*oa_args, oa_m)),
+        "plain_ms": _cuda_ms(lambda: merge_fix_ref(*oa_args, oa_m), reps=3,
+                             rounds=3),
+        "bound_ms": 8 * (Ko + 1 + 4 * Eo + 2 * Ko) / HBM_BYTES_PER_S * 1e3}
+    print(f"merge_fix at om_alg's scale-1.0 merge: "
+          f"{json.dumps(record['merge_fix_om_alg_1.0'])}")
+    del oa, oa_args
 
     # the scale-1.0 lane with the longest chain, alone and inside its
     # bucket, against the plain version on the CPU
@@ -926,9 +1010,6 @@ def main() -> int:
     # aten op's own device time repeats its kernels'); the profiler slows
     # the host, so the busy share of decode is also taken against the
     # unprofiled run's median tick
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     def device_us(events) -> float:
         return sum(e.self_device_time_total for e in events
                    if e.device_type == DeviceType.CUDA)
@@ -1387,15 +1468,14 @@ def main() -> int:
         "bound_by": "bytes", "library_ms": None,
         "equal": max_err["coflow_merge"] == 0,
         "checked_calls": checked["coflow_merge"], "shape": [K, P],
-        "cuda_launches_per_call": 2,
-        "design": "one pass: persistent blocks walk 32-row tiles (by "
-                  "block index, then a ticket), copy the next tile "
-                  "(cp.async) while they scan the current one; the carry "
-                  "from a radix-8 hierarchy of tile totals (publish, then "
-                  "wait on at most 7 blocks a level); a memset of the "
-                  "counts first",
-        "scratch_bytes": 4 * int(coflow_merge_scratch(K, P, "meta")
-                                 ["carry"].numel())})
+        "cuda_launches_per_call":
+            record["merge_cuda_launches"]["coflow_merge"]["per_call"],
+        "design": "one pass: a block a 32-row tile from a ticket copies "
+                  "its rows (cp.async), publishes their totals and scans "
+                  "them on from the carry, a radix-8 hierarchy of tile "
+                  "totals (publish, then wait on at most 7 blocks a "
+                  "level); a kernel clears the carry's counts first",
+        "alloc_bytes": alloc_bytes(lambda: coflow_merge(delta))})
     Kb, Pb = big.shape
     record["coflow_merge_1e5"] = {
         "shape": [Kb, Pb], "ms": _cuda_ms(lambda: coflow_merge(big)),
@@ -1490,13 +1570,13 @@ def main() -> int:
         "bound_ms": k3_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None, "equal": max_err["merge_fix"] == 0,
         "checked_calls": checked["merge_fix"], "shape": [Km, 2 * mf_m, Em],
-        "cuda_launches_per_call": 3,
+        "cuda_launches_per_call":
+            record["merge_cuda_launches"]["merge_fix"]["per_call"],
         "design": "no (K + 1) x 2m array: a bucket table of the events' "
                   "times, a counting sort of the endpoints per chunk of "
-                  "edges, a tile scan of 1-8 stretches of 32 rows on the "
+                  "edges, a scan of 32-row tiles from a ticket on the "
                   "radix-8 carry",
-        "scratch_bytes": sum(t.numel() * t.element_size() for t in
-                             merge_fix_scratch(Km, Em, mf_m, "meta").values())})
+        "alloc_bytes": alloc_bytes(lambda: merge_fix(*mf_args, mf_m))})
     Ks = events.size - 1
     record["merge_fix_1e5"] = {
         "shape": [Ks, 2 * m_syn, E],
@@ -1590,7 +1670,6 @@ def main() -> int:
     # chunk's log decay (B, nC, H); the states are written (kernel 1), read
     # and written (kernel 2) and read (kernel 3)
     nC5 = fwd_S // L5
-    k5_scratch = 4 * fwd_B * nC5 * H5 * (N5 * P5 + 1)
     k5_floor_ms = (k5_bytes + 4 * 4 * fwd_B * nC5 * H5 * N5 * P5) \
         / HBM_BYTES_PER_S * 1e3
     ssd_attrs = kernels.load_kernel("ssd_scan").ssd_scan_attributes
@@ -1617,9 +1696,16 @@ def main() -> int:
                   "m16n8k16, the products with a computed float32 operand "
                   "TF32 m16n8k8",
         "cuda_launches_per_call": k5_per_call,
-        "scratch_bytes": k5_scratch, "design_floor_ms": k5_floor_ms,
+        "alloc_bytes": alloc_bytes(
+            lambda: ssd_scan(x5, a5, b5, c5, chunk=L5)),
+        "design_floor_ms": k5_floor_ms,
         "kernels": k5_kernels})
     print(f"ssd_scan at B={fwd_B}, S={fwd_S}: {json.dumps(kernels_line[-1])}")
+    # the modelled fields go to the record: the line keeps bound_ms and
+    # what this run measured
+    record["kernel_models"] = {
+        k["name"]: {x: k.pop(x) for x in MODEL_KEYS if x in k}
+        for k in kernels_line}
     record["kernels"] = kernels_line
 
     smi = subprocess.run(

@@ -6,8 +6,8 @@ one card, in turns (A, B, B, A), at the main path's shapes:
 - ``coflow_merge`` on (K, 2m) = (5277, 300) and (119288, 300) deltas;
 - ``merge_fix`` on K ~ 1.3e4 intervals of E = 267,537 edges and on
   K ~ 1.2e5 of E = 60,000, at m = 150, and on the largest merge of the
-  pipeline's gdm plan of ``paper_workload(m=150, mu_bar=5, seed=0,
-  scale=1.0)``;
+  pipeline's gdm and om_alg plans of ``paper_workload(m=150, mu_bar=5,
+  seed=0, scale=1.0)``;
 - ``bna_decompose`` on the widest bucket of the pipeline's gdm plan of
   ``paper_workload(m=150, mu_bar=5, seed=0, scale=0.25)`` (B=29, w=256).
 
@@ -68,25 +68,29 @@ def time_root(root: Path) -> dict:
             rng.integers(0, 150, E), rng.integers(0, 150, E))]
         K = args[0].numel() - 1
         out[f"merge_fix K={K} E={E}"] = _cuda_ms(lambda: merge_fix(*args, 150))
-    largest: dict = {}
     orig_mf = backend.merge_fix_step
+    for sched in ("gdm", "om_alg"):
+        largest: dict = {}
 
-    def keep_merge(events, t0, t1, s, r, m, *, device):
-        if events.size > largest.get("K", 0):
-            largest.update(K=events.size, args=(events, t0, t1, s, r), m=m)
-        return orig_mf(events, t0, t1, s, r, m, device=device)
+        def keep_merge(events, t0, t1, s, r, m, *, device):
+            if events.size > largest.get("K", 0):
+                largest.update(K=events.size, args=(events, t0, t1, s, r),
+                               m=m)
+            return orig_mf(events, t0, t1, s, r, m, device=device)
 
-    backend.merge_fix_step = keep_merge
-    try:
-        clear_caches()
-        plan(paper_workload(m=150, mu_bar=5, seed=0, scale=1.0), "gdm",
-             device="cuda", plan_backend="pipeline", seed=0)
-    finally:
-        backend.merge_fix_step = orig_mf
-    args = [torch.as_tensor(np.ascontiguousarray(a, dtype=np.int64),
-                            device=dev) for a in largest["args"]]
-    out[f"merge_fix K={args[0].numel() - 1} E={args[1].numel()} "
-        f"(gdm at 1.0)"] = _cuda_ms(lambda: merge_fix(*args, largest["m"]))
+        backend.merge_fix_step = keep_merge
+        try:
+            clear_caches()
+            plan(paper_workload(m=150, mu_bar=5, seed=0, scale=1.0), sched,
+                 device="cuda", plan_backend="pipeline", seed=0)
+        finally:
+            backend.merge_fix_step = orig_mf
+        args = [torch.as_tensor(np.ascontiguousarray(a, dtype=np.int64),
+                                device=dev) for a in largest["args"]]
+        out[f"merge_fix K={args[0].numel() - 1} E={args[1].numel()} "
+            f"({sched} at 1.0)"] = _cuda_ms(
+                lambda: merge_fix(*args, largest["m"]))
+        del args
     widest: dict = {}
     orig = pipeline.bna_decompose
 

@@ -8,23 +8,23 @@
 // interval axis as a sequential grid and carries the running counts from
 // one grid step to the next in VMEM scratch.  Blocks of a CUDA grid run in
 // no order, so the carry comes from merge_scan.cuh's radix-8 hierarchy of
-// tile totals (shared with merge_fix), in one pass over the deltas:
-// persistent blocks, as many as fit on the card (two an SM at 2m = 300),
-// one thread a port of a port tile, walk 32-row tiles (the first by block
-// index, the rest from a ticket).  A block copies a tile's rows into one
-// half of its shared memory with cp.async (16-byte copies of the tile's
-// contiguous run of rows * 2m ints), publishes the column totals as soon
-// as they land, starts the next tile's copy into the other half, waits for
-// the carry, scans its column in place and takes each row's max with one
-// warp a row.  The epilogue stores alpha as int32.  The TPU's padding of
-// 2m to 128 lanes is not needed and is gone.
+// tile totals (shared with merge_fix), in one pass over the deltas: one
+// block a 32-row tile, taken from a ticket, one thread a port
+// of a port tile.  A block copies its rows into shared memory with
+// cp.async (16-byte copies of the tile's contiguous run of rows * 2m ints
+// where aligned), publishes their column totals as soon as they land,
+// waits for the carry, scans its column in place and takes each row's max
+// with one warp a row; the blocks resident beside it on the SM overlap one
+// tile's copy with another's scan.  The epilogue stores
+// alpha as int32.  The TPU's padding of 2m to 128 lanes is not needed and
+// is gone.
 //
 // Bound on the card: memory.  The function reads K * P int32 deltas once
 // and writes K int32 alphas; this design reads the deltas once.  Beside
 // them it writes the carry (each tile's totals, ceil(K / 32) * P int32,
 // 1/32 of the deltas' bytes, and their sums over 8, 64, ... tiles), which
-// the tiles above read back from L2, and clears the carry's counts and
-// upper levels with one memset before the kernel (two launches a call).
+// the tiles above read back from L2, and clears the carry's counts, upper
+// levels and ticket with a small kernel first (two launches a call).
 // Counts are int32 and exact while the number of edge activations is below
 // 2^31 - 1 (the wrapper's guard); all offsets are 64-bit, so K * P may
 // exceed the int32 index space.
@@ -54,8 +54,8 @@ __device__ __forceinline__ void cp_async16(int32_t* dst, const int32_t* src) {
                :: "r"(smem_addr(dst)), "l"(src) : "memory");
 }
 
-// Start copying work item (tile b, port tile pt) into dst: kRows rows of
-// the port tile, rows past K as zeros.  With one port tile the tile is one
+// Start copying port tile pt of tile b into dst: kRows rows of the port
+// tile, rows past K as zeros.  With one port tile the tile is one
 // run of rows * P ints, copied 16 bytes a thread where aligned and laid
 // out [kRows][P]; otherwise [kRows][PT], one column a thread.
 __device__ __forceinline__ void stage(int32_t* dst, const int32_t* delta,
@@ -87,23 +87,24 @@ __device__ __forceinline__ void stage(int32_t* dst, const int32_t* delta,
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-// The block's next tile, for the whole block: the first is its own index
-// (the hardware starts blocks in index order, as CUB's single-pass scan
-// assumes, so every lower first tile's block has started); the rest come
-// from the ticket in the order the blocks ask, past the first tiles, and
-// none is asked for when the grid covers every tile.
-__device__ __forceinline__ int next_tile(int* ticket, int T, bool first) {
-  if (first) return blockIdx.x;
-  if (static_cast<int>(gridDim.x) >= T) return T;
+// The block's tile, the next ticket: called by the whole block at its
+// start; ends in a barrier.
+__device__ __forceinline__ int take_tile(const merge_scan::Carry& cy) {
   __shared__ int tile;
-  __syncthreads();  // every thread has read the previous one
-  if (threadIdx.x == 0) tile = gridDim.x + atomicAdd(ticket, 1);
+  if (threadIdx.x == 0) tile = atomicAdd(cy.ticket(), 1);
   __syncthreads();
   return tile;
 }
 
-// The column totals of the staged item (port tile pt of tile b) in cells,
-// published.
+// Launch 1: the carry's words [from, to) set to 0.
+__global__ void carry_clear(int32_t* carry, int64_t from, int64_t to) {
+  for (int64_t i = from + static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < to; i += static_cast<int64_t>(gridDim.x) * blockDim.x)
+    carry[i] = 0;
+}
+
+// The column totals of port tile pt of tile b, staged in cells, published.
 __device__ __forceinline__ void publish_item(const merge_scan::Carry& cy,
                                              const int32_t* cells, int ld,
                                              int P, int b, int pt) {
@@ -114,88 +115,60 @@ __device__ __forceinline__ void publish_item(const merge_scan::Carry& cy,
   merge_scan::publish(cy, b, pt, p0 + q, p0 + q < P, total);
 }
 
-// Persistent blocks, one thread per port of a port tile.  A block walks
-// work items (a 32-row tile from the ticket, then each of its port tiles)
-// in order, in two halves of its dynamic shared memory: it publishes an
-// item's totals as soon as its rows have landed, starts copying the next
-// item, then waits for the carry and scans.
+// Launch 2: one block a 32-row tile (from the ticket), one thread a port
+// of a port tile.  Per port tile, in order: copy the rows into shared
+// memory, publish their column totals, wait for the carry, scan.
 __global__ void __launch_bounds__(merge_scan::kPortTile, 2)
     merge_pass(const int32_t* __restrict__ delta, int64_t K, int P, int T,
                void* carry, StoreAlpha epi) {
-  extern __shared__ __align__(16) int32_t buf[];  // [2][kRows * blockDim.x]
+  extern __shared__ __align__(16) int32_t cells[];  // [kRows * blockDim.x]
   __shared__ int32_t best[kRows];  // running max per row
   const merge_scan::Carry cy(carry, T, P);
   const int PT = blockDim.x, q = threadIdx.x;
   const int npt = static_cast<int>(cy.npt), ld = npt == 1 ? P : PT;
   if (q < kRows) best[q] = INT32_MIN;
-  int b = next_tile(cy.ticket(), T, true), pt = 0, half = 0;
-  stage(buf, delta, K, P, b, 0);
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-  __syncthreads();
-  publish_item(cy, buf, ld, P, b, 0);
-  for (;;) {
-    int nb = b, npt_next = pt + 1;
-    if (npt_next == npt) {
-      npt_next = 0;
-      nb = next_tile(cy.ticket(), T, false);
-    }
-    if (nb < T) stage(buf + (half ^ 1) * kRows * PT, delta, K, P, nb, npt_next);
-    int32_t* cells = buf + half * kRows * PT;
-    const int64_t r0 = static_cast<int64_t>(b) * kRows;
-    const int rows = static_cast<int>(K - r0 < kRows ? K - r0 : kRows);
+  const int b = take_tile(cy);  // ends in a barrier
+  const int64_t r0 = static_cast<int64_t>(b) * kRows;
+  const int rows = static_cast<int>(K - r0 < kRows ? K - r0 : kRows);
+  for (int pt = 0; pt < npt; ++pt) {
+    stage(cells, delta, K, P, b, pt);
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();  // every thread's copies are in
+    publish_item(cy, cells, ld, P, b, pt);
     const int p0 = pt * PT, np = P - p0 < PT ? P - p0 : PT;
     int32_t carry = merge_scan::carry_in(cy, b, pt, p0 + q, q < np);
     merge_scan::scan_stretch(cells, ld, np, carry, rows, best);
-    if (pt == npt - 1 && q < rows) {
-      epi(r0 + q, best[q]);
-      best[q] = INT32_MIN;  // the next scan's first barrier orders this
-    }
-    if (nb >= T) break;
-    b = nb;
-    pt = npt_next;
-    half ^= 1;
-    asm volatile("cp.async.wait_group 0;" ::: "memory");
-    __syncthreads();  // every thread's copies of the item are in
-    publish_item(cy, buf + half * kRows * PT, ld, P, b, pt);
   }
+  if (q < rows) epi(r0 + q, best[q]);  // scan_stretch ends in a barrier
 }
 
 }  // namespace
 
 // delta: (K, P) int32; carry: merge_scan::Carry(T, P).words() int32 with
 // T = ceil(K / 32); alphas: (K,) int32.  Returns the first CUDA error of
-// the memset and the launch, or 0.
+// the two launches, or 0.
 extern "C" int coflow_merge_launch(void* delta, long long K, int P,
                                    void* carry, void* alphas, void* stream) {
   if (K <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t T = (K + kRows - 1) / kRows;
   const merge_scan::Carry cy(carry, T, P);
-  cudaError_t e = cudaMemsetAsync(
-      cy.buf + cy.zero_from(), 0,
-      static_cast<size_t>(cy.words() - cy.zero_from()) * sizeof(int32_t), st);
+  const int64_t nz = cy.words() - cy.zero_from();
+  const int64_t cblocks = (nz + 255) / 256;
+  carry_clear<<<static_cast<unsigned>(cblocks < 1024 ? cblocks : 1024), 256,
+                0, st>>>(cy.buf, cy.zero_from(), cy.words());
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int threads = merge_scan::block_threads(P);
-  const size_t shmem = 2 * static_cast<size_t>(kRows) * threads * sizeof(int32_t);
+  const size_t shmem = static_cast<size_t>(kRows) * threads * sizeof(int32_t);
   {  // the dynamic size, past 48 KB with the static part included
     e = cudaFuncSetAttribute(merge_pass,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(shmem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  // as many blocks as fit on the card at once, at most one a tile
-  int dev = 0, sms = 0, per_sm = 0;
-  e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, merge_pass,
-                                                      threads, shmem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int64_t grid = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
-  merge_pass<<<static_cast<unsigned>(grid < T ? grid : T), threads, shmem,
-               st>>>(static_cast<const int32_t*>(delta), K, P,
-                     static_cast<int>(T), carry,
-                     StoreAlpha{static_cast<int32_t*>(alphas)});
+  merge_pass<<<static_cast<unsigned>(T), threads, shmem, st>>>(
+      static_cast<const int32_t*>(delta), K, P, static_cast<int>(T), carry,
+      StoreAlpha{static_cast<int32_t*>(alphas)});
   return static_cast<int>(cudaGetLastError());
 }

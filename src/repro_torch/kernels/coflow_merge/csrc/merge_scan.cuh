@@ -28,23 +28,25 @@
 //     another's carry, so nothing chains: a tile's wait ends once every
 //     lower tile has read its own deltas.
 //   * Order: a tile waits only on lower tiles, and publishes before it
-//     waits.  Blocks take their first tile by block index (the hardware
-//     starts a grid's blocks in index order, which CUB's single-pass scan
-//     also relies on), and K2's persistent blocks their later tiles from an
-//     atomic ticket, publishing each as soon as its rows have landed; so
-//     the lowest unpublished tile always belongs to a started block whose
-//     own waits are on published tiles: the waits cannot deadlock.  Past
-//     512 ports a block walks the port axis in port tiles, in the same
-//     order in every block, each with its own counts.  A wait that polls
-//     2^26 times (seconds) traps, so a fault ends the launch with an
-//     error, not a hang.
-//   * Rows: a block scans each 32-row stretch of its tile in shared memory
-//     (32 rows of the port tile, thread q owns column q) from the carry, in
-//     place; then one warp a row takes the max over the port tile (one
-//     redux.sync) into the block's running max per row.
+//     waits; so the block holding the lowest unfinished tile waits on
+//     published totals alone, provided every lower tile's block has
+//     started.  K2 takes its tile from an atomic ticket as a block starts
+//     (coflow_merge.cu), which provides that whatever order the hardware
+//     starts blocks in and however few fit at once: a block that has not
+//     started holds no tile.  K3's tile_scan takes tile = block index and
+//     relies on the hardware starting a grid's blocks in index order, as
+//     CUB's single-pass scan does (a ticket there slowed the main path's
+//     merges, as PERF.md records).  Past 512 ports a block walks the port
+//     axis in port tiles, in the same order in every block, each with its
+//     own counts.  A wait that polls 2^26 times (seconds) traps, so a fault
+//     ends the launch with an error, not a hang.
+//   * Rows: a block scans its tile's 32 rows of the port tile in shared
+//     memory (thread q owns column q) from the carry, in place; then one
+//     warp a row takes the max over the port tile (one redux.sync) into the
+//     block's running max per row.
 // The counts, the levels above 0 and the ticket must be 0 when the scan
-// starts: K2's entry clears them with one memset, K3's binning kernel on
-// its way.  Counts are int32 (exact while the activations are fewer than
+// starts: K2's first launch (carry_clear) clears them, K3's binning kernel
+// on its way.  Counts are int32 (exact while the activations are fewer than
 // 2^31, the wrappers' guard); all offsets are 64-bit.
 
 #pragma once
@@ -55,7 +57,7 @@
 
 namespace merge_scan {
 
-constexpr int kRows = 32;           // rows a stretch
+constexpr int kRows = 32;           // rows a tile
 constexpr int kPortTile = 512;      // ports a port tile: a block's threads
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxPolls = 1 << 26;  // polls before a wait traps
@@ -69,7 +71,7 @@ inline int block_threads(int P) {
 }
 
 // The carry's scratch, in one int32 buffer: the levels' values (rows of
-// P), then their counts (rows of npt, one a port tile), then the ticket.
+// P), then their counts (rows of npt, one a port tile), then K2's ticket.
 // All but level 0 must start at 0 (words [zero_from(), words())).
 struct Carry {
   int32_t* buf;

@@ -4,7 +4,7 @@ them into the delta array on the device, and run the kernel.
 ``coflow_merge`` maps a (K, 2m) int32 delta array to the (K,) int32
 alphas.  A CPU tensor takes the plain version (``ref.alphas_ref``); a CUDA
 tensor launches the kernel in ``csrc/coflow_merge.cu`` (one pass over the
-deltas, after a memset of the carry's counts) or raises.
+deltas, after a small kernel clears the carry's counts) or raises.
 ``coflow_merge.launches`` counts the calls that launch it.  Its scratch
 (``scratch``): the carry of merge_scan.cuh, each 32-row tile's column
 totals (ceil(K / 32) x 2m int32) and their sums over 8, 64, ... tiles,

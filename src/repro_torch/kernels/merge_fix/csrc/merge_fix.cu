@@ -14,8 +14,8 @@
 // scatter), the coflow_merge Pallas kernel (coflow_merge_padded) and the
 // duration product.  The inputs are sparse (E edges, K + 1 times), so here
 // no (K + 1, 2m) array exists anywhere, and no memset runs; three launches
-// on one stream, whose layout (tile, bin, chunk and bucket counts, the
-// stash) the wrapper computes (kernels/merge_fix/ref.py::tile_layout):
+// on one stream, whose layout (tile, bin, chunk and bucket counts) the
+// wrapper computes (kernels/merge_fix/ref.py::tile_layout):
 //   1. bucket_index: the events' times cut into 2^k >= K + 1 buckets of
 //      equal width, and per bucket the lower bound of its first time, so a
 //      search is one table read and a binary search of the few events in
@@ -23,28 +23,24 @@
 //   2. bin_sort: one block per chunk of edges (at most 512 chunks), four
 //      edges a thread at a time.  Each endpoint's row (numpy's
 //      searchsorted, side='left', through the buckets) is counted per bin
-//      of rows in shared memory (a bin is one tile, or 2^j tiles when the
-//      tiles outnumber the 12,000 counts that fit); a hand-written block
-//      scan turns the counts into offsets, which the block stores
+//      of rows in shared memory (a bin is one 32-row tile, or 2^j tiles
+//      when the tiles outnumber the 12,000 counts that fit); a hand-written
+//      block scan turns the counts into offsets, which the block stores
 //      (seg[chunk][bin]), and a second walk over its edges scatters one
 //      8-byte record per endpoint (row in bin, start or end, s, r) into its
 //      chunk's region in bin order.  Each chunk is its own counting sort, so
 //      no device-wide sort, scan or histogram is needed; the blocks also
 //      clear the carry's counts and upper levels for launch 3.
-//   3. tile_scan: one block per tile, by block index, of 1 to 8 stretches
-//      of 32 rows (as many as keep about 400 tiles, three blocks an SM, so
-//      a sparse merge does not pay a block's fixed latency per 32 rows).
-//      The block reads its bin's range in every chunk at once, then the
-//      tile's records (four a thread, their chunks by binary search).  With
-//      one stretch, per port tile, the records go by shared-memory atomics
-//      into a zeroed [32][port tile] int32 array whose column sums are the
-//      tile's totals, which merge_scan.cuh publishes into its radix-8
-//      carry; merge_scan then scans each column on from the carry and
-//      takes each row's max.  With several stretches the records, kept in
-//      shared memory when they fit, give the totals first, then go into
-//      the array stretch by stretch.  The epilogue writes alpha and the duration as int64:
-//      the product in int64 equals both branches of the reference (int32
-//      in-graph when it fits, host int64 otherwise).
+//   3. tile_scan: one block per 32-row tile, by block index.  The block
+//      reads its bin's range in every chunk at once, then, per port tile,
+//      the tile's records (four a thread, their chunks by binary search),
+//      which go by shared-memory atomics into a zeroed
+//      [32][port tile] int32 array whose column sums are the tile's totals;
+//      merge_scan.cuh publishes them into its radix-8 carry, then scans
+//      each column on from the carry and takes each row's max.  The
+//      epilogue writes alpha and the duration as int64: the product in
+//      int64 equals both branches of the reference (int32 in-graph when it
+//      fits, host int64 otherwise).
 // Integer atomics are exact in any order, so neither the order of records
 // within a bin nor that of the adds changes a count.
 //
@@ -69,7 +65,7 @@ using merge_scan::kFull;
 using merge_scan::kRows;
 
 constexpr int kSortThreads = 512;
-constexpr int kSub = 8;           // 32-row stretches a tile holds at most
+constexpr int kLgRows = 5;        // a tile's rows: 2^5 = kRows
 constexpr int kMaxChunks = 512;   // the wrapper's chunks at most
 constexpr int kPortBits = 22;     // s and r, each below 2^22
 constexpr int kRowShift = 44;     // row in bin: bits 44..62 (below 2^19)
@@ -327,128 +323,68 @@ struct StoreFix {
   }
 };
 
-// Launch 3.  One block per tile (by block index) of 2^lg_sub stretches of
-// 32 rows, one thread per port of a port tile.  Dynamic shared memory: a
-// stash of `stash_cap` records (none for one stretch), cells
-// [kRows][blockDim.x] and tot [blockDim.x] int32.
+// Launch 3.  One block per 32-row tile (by block index), one thread per
+// port of a port tile.  A bin holds 2^lg_tiles tiles.  Dynamic shared
+// memory: cells [kRows][blockDim.x] int32.
 __global__ void __launch_bounds__(merge_scan::kPortTile, 2)
     tile_scan(const uint64_t* __restrict__ recs,
               const int32_t* __restrict__ seg, int C, int64_t Ec, int nbins,
-              int lg_tiles, int lg_sub, int stash_cap, int64_t K, int T,
-              int m, int P, void* carry, StoreFix epi) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint64_t* stash = reinterpret_cast<uint64_t*>(smem);
-  int32_t* cells = reinterpret_cast<int32_t*>(stash + stash_cap);
-  int32_t* tot = cells + kRows * blockDim.x;
-  __shared__ int32_t best[kSub * kRows];  // running max per row
+              int lg_tiles, int64_t K, int T, int m, int P, void* carry,
+              StoreFix epi) {
+  static_assert(kRows == 1 << kLgRows, "a tile's rows");
+  extern __shared__ __align__(16) int32_t cells[];
+  __shared__ int32_t best[kRows];  // running max per row
   __shared__ int32_t lo[kMaxChunks], off[kMaxChunks + 1], warp_sum[32];
-  __shared__ int n_kept;
   const merge_scan::Carry cy(carry, T, P);
   const int tid = threadIdx.x, PT = blockDim.x;
-  const int tile_rows = kRows << lg_sub, lg_t = 5 + lg_sub;
-  for (int i = tid; i < tile_rows; i += PT) best[i] = INT32_MIN;
-  if (tid == 0) n_kept = 0;
-  // tiles in block order: the hardware starts blocks in index order, so
-  // every lower tile's block has started (as CUB's single-pass scan
-  // assumes), and a tile publishes before it waits
-  const int b = blockIdx.x;
-  const int64_t r0 = static_cast<int64_t>(b) * tile_rows;
-  const int rows = static_cast<int>(K - r0 < tile_rows ? K - r0 : tile_rows);
+  if (tid < kRows) best[tid] = INT32_MIN;
+  const int b = blockIdx.x;  // tiles in block order: see merge_scan.cuh
+  const int64_t r0 = static_cast<int64_t>(b) * kRows;
+  const int rows = static_cast<int>(K - r0 < kRows ? K - r0 : kRows);
   const int tib = b & ((1 << lg_tiles) - 1);  // the tile within its bin
   BinRecords br{recs, Ec, C, lo, off};
   br.load(seg, nbins, b >> lg_tiles, warp_sum);  // ends in a barrier
-  if (lg_sub == 0) {
-    // one stretch: the records go straight into the cells, whose column
-    // sums are the tile's totals (one pass over the records, no stash)
-    for (int p0 = 0; p0 < P; p0 += PT) {
-      const int np = P - p0 < PT ? P - p0 : PT;
-      const int64_t p = p0 + tid;
-      int4* c4 = reinterpret_cast<int4*>(cells);
-      for (int i = tid; i < kRows * PT / 4; i += PT)
-        c4[i] = make_int4(0, 0, 0, 0);
-      __syncthreads();
-      br.each([&](uint64_t x) {
-        const int rib = row_in_bin(x);
-        if (rib >> lg_t == tib)  // else another tile of the bin
-          add_record(x, cells + (rib & (kRows - 1)) * PT, m, p0, PT);
-      });
-      __syncthreads();
-      int32_t total = 0;
-      if (tid < np)
-        for (int i = 0; i < kRows; ++i) total += cells[i * PT + tid];
-      merge_scan::publish(cy, b, p0 / PT, p, tid < np, total);
-      int32_t carry = merge_scan::carry_in(cy, b, p0 / PT, p, tid < np);
-      merge_scan::scan_stretch(cells, PT, np, carry, rows, best);
-    }
-  } else {
-    // several stretches: the tile's records, kept in shared memory when
-    // they fit, give its totals first, then each stretch in turn
+  for (int p0 = 0; p0 < P; p0 += PT) {
+    const int np = P - p0 < PT ? P - p0 : PT;
+    const int64_t p = p0 + tid;
+    int4* c4 = reinterpret_cast<int4*>(cells);
+    for (int i = tid; i < kRows * PT / 4; i += PT)
+      c4[i] = make_int4(0, 0, 0, 0);
+    __syncthreads();
     br.each([&](uint64_t x) {
-      if (row_in_bin(x) >> lg_t != tib) return;  // another tile of the bin
-      const int at = atomicAdd(&n_kept, 1);
-      if (at < stash_cap) stash[at] = x;
+      const int rib = row_in_bin(x);
+      if (rib >> kLgRows == tib)  // else another tile of the bin
+        add_record(x, cells + (rib & (kRows - 1)) * PT, m, p0, PT);
     });
     __syncthreads();
-    const int n_stash = n_kept;
-    // fn(x) for each of the tile's records
-    auto each = [&](auto fn) {
-      if (n_stash <= stash_cap) {
-        for (int f = tid; f < n_stash; f += PT) fn(stash[f]);
-      } else {
-        br.each([&](uint64_t x) {
-          if (row_in_bin(x) >> lg_t == tib) fn(x);
-        });
-      }
-    };
-    for (int p0 = 0; p0 < P; p0 += PT) {
-      const int np = P - p0 < PT ? P - p0 : PT;
-      const int64_t p = p0 + tid;
-      tot[tid] = 0;
-      __syncthreads();
-      each([&](uint64_t x) { add_record(x, tot, m, p0, PT); });
-      __syncthreads();
-      merge_scan::publish(cy, b, p0 / PT, p, tid < np, tot[tid]);
-      int32_t carry = merge_scan::carry_in(cy, b, p0 / PT, p, tid < np);
-      for (int u = 0; (u << 5) < rows; ++u) {
-        int4* c4 = reinterpret_cast<int4*>(cells);
-        for (int i = tid; i < kRows * PT / 4; i += PT)
-          c4[i] = make_int4(0, 0, 0, 0);
-        __syncthreads();
-        each([&](uint64_t x) {
-          const int rib = row_in_bin(x);
-          if (((rib >> 5) & ((1 << lg_sub) - 1)) == u)
-            add_record(x, cells + (rib & (kRows - 1)) * PT, m, p0, PT);
-        });
-        merge_scan::scan_stretch(cells, PT, np, carry,
-                                 rows - (u << 5) < kRows ? rows - (u << 5)
-                                                         : kRows,
-                                 best + (u << 5));
-      }
-    }
+    int32_t total = 0;
+    if (tid < np)
+      for (int i = 0; i < kRows; ++i) total += cells[i * PT + tid];
+    merge_scan::publish(cy, b, p0 / PT, p, tid < np, total);
+    int32_t carry = merge_scan::carry_in(cy, b, p0 / PT, p, tid < np);
+    merge_scan::scan_stretch(cells, PT, np, carry, rows, best);
   }
-  for (int i = tid; i < rows; i += PT) epi(r0 + i, best[i]);
+  if (tid < rows) epi(r0 + tid, best[tid]);  // scan_stretch ends in a barrier
 }
 
 }  // namespace
 
 // events: (K + 1,) int64, sorted, unique; t0, t1, s, r: (E,) int64; the
-// layout (nb, Ec, C, nbins, lg_tiles, lg_sub, stash_cap) and the scratch
-// come from the wrapper (kernels/merge_fix/ops.py::scratch): table nb + 1
-// int32, rows 2E int32, recs 2E uint64, seg C * (nbins + 1) int32, carry
-// merge_scan::Carry(T, 2m).words() int32 (T tiles of 32 << lg_sub rows);
-// alphas, deltas: (K,) int64.  Returns the first CUDA error, or 0.
+// layout (nb, Ec, C, nbins, lg_tiles) and the scratch come from the
+// wrapper (kernels/merge_fix/ops.py::scratch): table nb + 1 int32, rows 2E
+// int32, recs 2E uint64, seg C * (nbins + 1) int32, carry
+// merge_scan::Carry(T, 2m).words() int32 (T tiles of 32 rows); alphas,
+// deltas: (K,) int64.  Returns the first CUDA error, or 0.
 extern "C" int merge_fix_launch(void* events, long long K, void* t0, void* t1,
                                 void* s, void* r, long long E, int m,
                                 long long nb, long long Ec, int C, int nbins,
-                                int lg_tiles, int lg_sub, int stash_cap,
-                                void* table, void* rows, void* recs,
-                                void* seg, void* carry, void* alphas,
-                                void* deltas, void* stream) {
+                                int lg_tiles, void* table, void* rows,
+                                void* recs, void* seg, void* carry,
+                                void* alphas, void* deltas, void* stream) {
   if (K <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int P = 2 * m;
-  const int tile_rows = kRows << lg_sub;
-  const int T = static_cast<int>((K + tile_rows - 1) / tile_rows);
+  const int T = static_cast<int>((K + kRows - 1) / kRows);
   const merge_scan::Carry cy(carry, T, P);
   const int64_t* ev = static_cast<const int64_t*>(events);
   int32_t* tb = static_cast<int32_t*>(table);
@@ -460,14 +396,13 @@ extern "C" int merge_fix_launch(void* events, long long K, void* t0, void* t1,
   bin_sort<<<static_cast<unsigned>(C), kSortThreads, sort_smem, st>>>(
       ev, K, nb, tb, static_cast<const int64_t*>(t0),
       static_cast<const int64_t*>(t1), static_cast<const int64_t*>(s),
-      static_cast<const int64_t*>(r), E, Ec, nbins, 5 + lg_sub + lg_tiles,
+      static_cast<const int64_t*>(r), E, Ec, nbins, kLgRows + lg_tiles,
       static_cast<int32_t*>(rows), static_cast<uint64_t*>(recs),
       static_cast<int32_t*>(seg), cy.buf, cy.zero_from(), cy.words());
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int threads = merge_scan::block_threads(P);
-  const size_t shmem = static_cast<size_t>(stash_cap) * sizeof(uint64_t) +
-                       static_cast<size_t>(kRows + 1) * threads * sizeof(int32_t);
+  const size_t shmem = static_cast<size_t>(kRows) * threads * sizeof(int32_t);
   {  // the dynamic size, past 48 KB with the static part included
     e = cudaFuncSetAttribute(tile_scan,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -476,7 +411,7 @@ extern "C" int merge_fix_launch(void* events, long long K, void* t0, void* t1,
   }
   tile_scan<<<static_cast<unsigned>(T), threads, shmem, st>>>(
       static_cast<const uint64_t*>(recs), static_cast<const int32_t*>(seg), C,
-      Ec, nbins, lg_tiles, lg_sub, stash_cap, K, T, m, P, carry,
+      Ec, nbins, lg_tiles, K, T, m, P, carry,
       StoreFix{ev, static_cast<int64_t*>(alphas),
                static_cast<int64_t*>(deltas)});
   return static_cast<int>(cudaGetLastError());

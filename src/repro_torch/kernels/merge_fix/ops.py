@@ -6,7 +6,7 @@ and expanded durations.  A CPU tensor takes the plain version
 (``ref.merge_fix_ref``); a CUDA tensor launches the kernel in
 ``csrc/merge_fix.cu`` (three launches: a bucket table of the events'
 times, binning and a chunk-local counting sort of the endpoints, then the
-tile scan on merge_scan.cuh's radix-32 carry; no host step between) or
+tile scan on merge_scan.cuh's radix-8 carry; no host step between) or
 raises.  ``merge_fix.launches`` counts
 the calls that launch it.  ``merge_fix_step`` is the host-array entry
 point that ``core/backend.fused_merge_fix`` calls.
@@ -19,9 +19,8 @@ so m >= 2^22 or K >= 2^31 - 1 raises on the card.
 
 Scratch (``scratch``; no (K + 1) x 2m array): the bucket table (up to
 2(K + 1) int32), the endpoints' rows (2E int32) and records (2E int64), each chunk's bin offsets, and the carry:
-each tile's column totals (tiles x 2m int32, a tile being 32 to 256 rows:
-``ref.tile_layout``) and their sums over 8, 64, ... tiles, with their
-counts.
+each 32-row tile's column totals (tiles x 2m int32: ``ref.tile_layout``)
+and their sums over 8, 64, ... tiles, with their counts and the ticket.
 """
 from __future__ import annotations
 
@@ -100,13 +99,13 @@ def merge_fix(events: torch.Tensor, t0: torch.Tensor, t1: torch.Tensor,
     fn = load_kernel("merge_fix").merge_fix_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] \
         + [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int] \
-        + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8
+        + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(events.data_ptr(), K, t0.data_ptr(), t1.data_ptr(),
                  s.data_ptr(), r.data_ptr(), E, m, lay.nb, lay.Ec, lay.C,
-                 lay.nbins, lay.lg, lay.lg_sub, lay.stash,
+                 lay.nbins, lay.lg,
                  *(sc[k].data_ptr() for k in ("table", "rows", "recs", "seg",
                                               "carry")),
                  alphas.data_ptr(), deltas.data_ptr(), stream)

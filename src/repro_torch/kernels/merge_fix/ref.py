@@ -18,59 +18,37 @@ import torch
 from ..coflow_merge.ops import carry_levels
 from ..coflow_merge.ref import alphas_ref, build_delta
 
-ROWS = 32            # rows per sub-tile: merge_scan.cuh's kRows
-PORT_TILE = 512      # ports per port tile: merge_scan.cuh's kPortTile
-MAX_SUB = 8          # sub-tiles a tile holds at most: merge_fix.cu's kSub
-MIN_TILES = 400      # a tile grows only while this many tiles remain
-STASH = 4096         # records a tile of several stretches expects at most
+ROWS = 32            # rows a tile: merge_scan.cuh's kRows
+PORT_TILE = 512      # ports a port tile: merge_scan.cuh's kPortTile
 MAX_BINS = 12000     # bins a chunk counts in shared memory (48 KB)
 CHUNK_EDGES = 1024   # edges a chunk takes at least (two a thread)
 MAX_CHUNKS = 512     # chunks at most: merge_fix.cu's kMaxChunks
 
 
 class TileLayout(NamedTuple):
-    T: int       # tiles of rows << lg_sub rows: one block each
-    lg_sub: int  # a tile holds 2**lg_sub sub-tiles of `rows` rows
+    T: int       # tiles of `rows` rows: one block each
     lg: int      # a bin holds 2**lg tiles
     nbins: int
     Ec: int      # edges a chunk
     C: int       # chunks
     nb: int      # buckets of the events' times: 2**k >= K + 1
-    stash: int   # records a tile keeps in shared memory
 
 
 def tile_layout(K: int, E: int, *, rows: int = ROWS,
-                max_sub: int = MAX_SUB, min_tiles: int = MIN_TILES,
-                stash: int = STASH, max_bins: int = MAX_BINS,
-                chunk_edges: int = CHUNK_EDGES,
-                max_chunks: int = MAX_CHUNKS) -> TileLayout:
-    """The tiling of K intervals and E edges.  A tile (one block of the
-    second launch) holds up to `max_sub` sub-tiles of `rows`
-    rows while at least `min_tiles` tiles remain (about three blocks an SM
-    of the H100's 132) and its expected records (2E of them spread over K
-    rows) fit the `stash`; the bins hold 2**lg tiles so that a chunk's
-    counts fit its shared memory; the edges are cut into at most
-    `max_chunks` chunks; the events' times fall into 2**k >= K + 1
-    buckets; a tile of several stretches keeps up to twice the records it
-    expects in shared memory (a tile with more reads them again from device
-    memory)."""
-    T32 = -(-K // rows)
-    lg_sub = 0
-    while (2 << lg_sub) <= max_sub \
-            and -(-T32 // (2 << lg_sub)) >= min_tiles \
-            and 2 * E * (rows << (lg_sub + 1)) <= stash * K:
-        lg_sub += 1
-    T = -(-T32 // (1 << lg_sub))
+                max_bins: int = MAX_BINS,
+                chunk_edges: int = CHUNK_EDGES) -> TileLayout:
+    """The tiling of K intervals and E edges: tiles of `rows` rows (one
+    block each of the last launch); bins of 2**lg tiles, so that a chunk's
+    counts of its endpoints per bin fit its shared memory (`max_bins`); the
+    edges cut into at most MAX_CHUNKS chunks of at least `chunk_edges`;
+    the events' times in 2**k >= K + 1 buckets."""
+    T = -(-K // rows)
     lg = 0
     while -(-T // (1 << lg)) > max_bins:
         lg += 1
-    Ec = max(chunk_edges, -(-E // max_chunks))
-    # a tile of several stretches keeps twice the records it expects, in
-    # steps of 256, 256 to 8192 (one stretch needs none)
-    expect = -(-2 * E * (rows << lg_sub) // K)
-    stash = min(8192, max(256, -(-2 * expect // 256) * 256)) if lg_sub else 0
-    return TileLayout(T, lg_sub, lg, -(-T // (1 << lg)), Ec,
-                      max(1, -(-E // Ec)), 1 << K.bit_length(), stash)
+    Ec = max(chunk_edges, -(-E // MAX_CHUNKS))
+    return TileLayout(T, lg, -(-T // (1 << lg)), Ec, max(1, -(-E // Ec)),
+                      1 << K.bit_length())
 
 
 def merge_fix_ref(
@@ -97,29 +75,27 @@ def merge_fix_ref(
 def merge_fix_tiled(events: torch.Tensor, t0: torch.Tensor, t1: torch.Tensor,
                     s: torch.Tensor, r: torch.Tensor, m: int, *,
                     rows: int = ROWS, port_tile: int = PORT_TILE,
-                    min_tiles: int = MIN_TILES, max_bins: int = MAX_BINS,
-                    chunk_edges: int = CHUNK_EDGES
+                    max_bins: int = MAX_BINS, chunk_edges: int = CHUNK_EDGES
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """``merge_fix_ref`` computed the way ``csrc/merge_fix.cu`` computes it,
-    on CPU tensors.  Launch 1: each chunk of edges bins its kept endpoints
-    (row < K) by bin of tiles and orders its records by bin.  Launch 2,
-    per tile: its column totals from its records from every chunk are
-    published at level 0 of the carry and summed into its blocks of 8**l
-    tiles above; its carry is the sum, at each level, of the blocks below
-    its own within its block of 8; each 32-row stretch's records go into
-    a [rows, port tile] array whose columns are scanned on from the carry,
+    on CPU tensors, with tiles of `rows` rows.  Launch 2: each chunk of
+    edges bins its kept endpoints (row < K) by bin of tiles and orders its
+    records by bin.  Launch 3, per tile: its column totals from its records
+    from every chunk are published at level 0 of the carry and summed into
+    its blocks of 8**l tiles above; its carry is the sum, at each level, of
+    the blocks below its own within its block of 8; its records go into a
+    [rows, port tile] array whose columns are scanned on from the carry,
     and each row's max is taken over the port tiles."""
     K, E, P = int(events.numel()) - 1, int(t0.numel()), 2 * m
     if K < 1:
         z = torch.zeros(0, dtype=torch.int64)
         return z, z.clone()
-    lay = tile_layout(K, E, rows=rows, min_tiles=min_tiles,
-                      max_bins=max_bins, chunk_edges=chunk_edges)
-    tile_rows = rows << lay.lg_sub
-    bin_rows = tile_rows << lay.lg
+    lay = tile_layout(K, E, rows=rows, max_bins=max_bins,
+                      chunk_edges=chunk_edges)
+    bin_rows = rows << lay.lg
     si = torch.searchsorted(events, t0)
     ei = torch.searchsorted(events, t1)
-    # launch 1: per chunk, records (row in bin, sign, s, r) in bin order
+    # launch 2: per chunk, records (row in bin, sign, s, r) in bin order
     # and the offsets of each bin
     chunks = []
     for c in range(lay.C):
@@ -141,10 +117,10 @@ def merge_fix_tiled(events: torch.Tensor, t0: torch.Tensor, t1: torch.Tensor,
         rib, sg, ps, pr = (torch.cat(x) for x in zip(*(
             [a[seg[bn]:seg[bn + 1]] for a in rest]
             for seg, *rest in chunks)))
-        mine = rib // tile_rows == tib
-        return rib[mine] % tile_rows, sg[mine], (ps[mine], pr[mine])
+        mine = rib // rows == tib
+        return rib[mine] % rows, sg[mine], (ps[mine], pr[mine])
 
-    # launch 2: every tile publishes its totals before any waits
+    # launch 3: every tile publishes its totals before any waits
     lv = [torch.zeros((-(-lay.T // 8 ** lvl), P), dtype=torch.int64)
           for lvl in range(carry_levels(lay.T))]
     for t in range(lay.T):
@@ -159,20 +135,16 @@ def merge_fix_tiled(events: torch.Tensor, t0: torch.Tensor, t1: torch.Tensor,
         carry = sum(a[(t >> 3 * lvl) & ~7:t >> 3 * lvl].sum(0)
                     for lvl, a in enumerate(lv))
         rit, sg, ports = tile_records(t)
-        n = min(tile_rows, K - t * tile_rows)
+        n = min(rows, K - t * rows)
         best = torch.full((n,), torch.iinfo(torch.int64).min)
         for p0 in range(0, P, PT):
             np_ = min(PT, P - p0)
-            cells = torch.zeros((tile_rows, PT), dtype=torch.int64)
+            cells = torch.zeros((rows, PT), dtype=torch.int64)
             for q in ports:
                 w = (q >= p0) & (q < p0 + PT)
                 cells.index_put_((rit[w], q[w] - p0), sg[w], accumulate=True)
-            cells = cells[:, :np_]
-            for u in range(0, n, rows):   # the sub-tiles, in turn
-                scan = carry[p0:p0 + np_] + cells[:u].sum(0) \
-                    + cells[u:u + rows].cumsum(0)
-                best[u:u + rows] = torch.maximum(
-                    best[u:u + rows], scan[:n - u].amax(1))
-        alphas[t * tile_rows:t * tile_rows + n] = best
+            scan = carry[p0:p0 + np_] + cells[:n, :np_].cumsum(0)
+            best = torch.maximum(best, scan.amax(1))
+        alphas[t * rows:t * rows + n] = best
     lens = events[1:] - events[:-1]
     return alphas, lens * alphas.clamp(min=1)

@@ -287,9 +287,9 @@ def _merge_deltas(K, P, kind):
     pytest.param(100_000, 300, "span", id="span_all_of_K"),
     pytest.param(5_277, 300, "repeat", id="repeat_100")])
 def test_coflow_merge_kernel_equals_plain(K, P, kind):
-    """One pass with a decoupled look-back: tiles of 32 rows, up to
-    thousands of blocks in the carry chain; repeated on one stream, a
-    stale status word or ticket would show."""
+    """One pass on the radix-8 carry: tiles of 32 rows from the ticket, up
+    to thousands of blocks waiting on lower tiles' totals; repeated on one
+    stream, a stale completion count or ticket would show."""
     dev = _card()
     delta = torch.as_tensor(_merge_deltas(K, P, kind), dtype=torch.int32,
                             device=dev)
@@ -437,9 +437,9 @@ def _merge_edges(E, m, kind):
     """(events, t0, t1, s, r) int64: random activations over 10^6 time
     units (10^7 for "long", K ~ 1.2e5 at E = 60,000); one interval ("k1");
     K = 33, one row past a tile; every endpoint in one 32-row tile of
-    K = 9999 ("hot") or in one tile of four stretches of K = 99,999, more
-    records than its shared-memory stash ("hot_stretches"); or half the
-    edges spanning all of K ("span")."""
+    K = 9999 ("hot") or in four adjacent tiles of K = 99,999, some 25,000
+    records a tile ("hot_stretches"); or half the edges spanning all of K
+    ("span")."""
     rng = np.random.default_rng(E)
     events = None
     if kind == "k1":
@@ -452,7 +452,7 @@ def _merge_edges(E, m, kind):
         events = np.arange(10_000) * 7
         t0 = events[3200 + rng.integers(0, 16, E)]
         t1 = events[3216 + rng.integers(0, 16, E)]
-    elif kind == "hot_stretches":     # a tile of 4 stretches, past its stash
+    elif kind == "hot_stretches":     # four adjacent hot tiles
         events = np.arange(100_000) * 7
         t0 = events[3200 + rng.integers(0, 64, E)]
         t1 = events[3264 + rng.integers(0, 64, E)]
@@ -482,9 +482,9 @@ def _merge_edges(E, m, kind):
     pytest.param(20_000, 150, "span", id="span_all_of_K"),
     pytest.param(20_000, 150, "repeat", id="repeat_100")])
 def test_merge_fix_kernel_equals_plain(E, m, kind):
-    """Binning, the chunks' counting sort and the tile scan with its
-    decoupled look-back; repeated on one stream, a stale status word or
-    ticket (cleared by the first launch) would show."""
+    """Binning, the chunks' counting sort and the tile scan on the radix-8
+    carry; repeated on one stream, a stale completion count or ticket
+    (cleared by the binning launch) would show."""
     dev = _card()
     args = _merge_edges(E, m, kind)
     want = merge_fix_ref(*args, m)

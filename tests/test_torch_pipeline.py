@@ -9,6 +9,8 @@ as tests/test_pipeline.py and tests/test_kernels.py run them.  The CUDA
 kernels are held against the plain versions on the card in
 tests/test_torch_cuda.py."""
 import functools
+import re
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -431,12 +433,12 @@ def test_merge_fix_tiled_equals_plain_and_reference(case, R):
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(min_tiles=1),                              # 8 stretches a tile
-    dict(min_tiles=1, max_bins=3),                  # bins of many tiles
+    dict(max_bins=3),                               # bins of many tiles
+    dict(max_bins=1),                               # one bin of all tiles
     dict(chunk_edges=17, port_tile=32)])            # many chunks, ports
 def test_merge_fix_tiled_layout_corners(knobs):
-    """The layout's corners: tiles of several stretches, bins of several
-    tiles, many chunks and narrow port tiles, on the ragged case with
+    """The layout's corners: bins of several tiles, one bin for every
+    tile, many chunks and narrow port tiles, on the ragged case with
     endpoints at K."""
     events, t0, t1, s, r, m = _tiled_case("at_K")
     args = [torch.as_tensor(a) for a in (events, t0, t1, s, r)]
@@ -452,8 +454,8 @@ def test_merge_fix_tiled_layout_corners(knobs):
 def test_merge_scratch_holds_no_dense_interval_port_array(K, E, m):
     """The kernels' scratch, as the wrappers allocate it: no (K + 1) x 2m
     array.  merge_fix's is edge-sized (rows, records), bin-sized (a bucket
-    table, the chunks' offsets) and the carry (tile totals and their sums,
-    a tile being 32 to 256 rows); coflow_merge's the carry alone."""
+    table, the chunks' offsets) and the carry (the totals of 32-row tiles
+    and their sums); coflow_merge's the carry alone."""
     P = 2 * m
     lay = tile_layout(K, E)
     got = {k: v.numel() for k, v in merge_fix_scratch(K, E, m,
@@ -461,12 +463,38 @@ def test_merge_scratch_holds_no_dense_interval_port_array(K, E, m):
     assert got == {"table": lay.nb + 1, "rows": 2 * E,
                    "seg": lay.C * (lay.nbins + 1),
                    "carry": carry_words(lay.T, P), "recs": max(2 * E, 1)}
-    assert lay.nb <= 2 * (K + 1) and lay.C <= 512
+    assert lay.T == -(-K // 32) and lay.nb <= 2 * (K + 1) and lay.C <= 512
     assert got["carry"] <= (K + 1) * P // 16 + 64
     cm = {k: v.numel() for k, v in coflow_merge_scratch(K, P,
                                                         "meta").items()}
     assert cm == {"carry": carry_words(-(-K // 32), P)}
     assert cm["carry"] <= (K + 1) * P // 16 + 64
+
+
+def test_merge_layout_constants_match_the_kernel_sources():
+    """The wrappers size the merge kernels' launches and scratch from
+    Python constants that must equal the constants compiled into the
+    kernels: the tile's rows and the port tile (merge_scan.cuh), the carry's
+    radix, the chunks that fit a block's shared offsets and the ports a
+    record holds (merge_fix.cu)."""
+    from repro_torch.kernels.coflow_merge import ops as cm_ops
+    from repro_torch.kernels.merge_fix import ops as mf_ops
+    from repro_torch.kernels.merge_fix import ref as mf_ref
+
+    def consts(path):
+        text = (Path(cm_ops.__file__).parents[1] / path).read_text()
+        return {k: int(v) for k, v in re.findall(
+            r"constexpr int (k\w+) = (\d+);", text)}
+
+    scan = consts("coflow_merge/csrc/merge_scan.cuh")
+    fix = consts("merge_fix/csrc/merge_fix.cu")
+    assert scan["kRows"] == mf_ref.ROWS == cm_ops._ROWS
+    assert 1 << fix["kLgRows"] == scan["kRows"]
+    assert scan["kPortTile"] == mf_ref.PORT_TILE
+    assert 1 << scan["kRadix"] == 8   # carry_levels' and carry_words' radix
+    assert fix["kMaxChunks"] == mf_ref.MAX_CHUNKS
+    assert 1 << fix["kPortBits"] == mf_ops._PORT_LIMIT
+    assert (mf_ref.MAX_BINS + 1) * 4 <= 48 * 1024
 
 
 # --------------------------------------------------------------------------
