@@ -60,6 +60,27 @@ Phases; any failure exits non-zero and prints no result line:
    switch of m = 1000 ports (``paper_workload(m=1000, mu_bar=2, seed=0,
    scale=0.01)``) is planned with gdm through both paths on the card, each
    equal to the same path's plan on the CPU.
+6c. Backfilling: ``gdm_bf``, ``gdm_rt_bf`` and ``om_alg_bf`` (exec
+   ``packet``) and ``gdm_bf`` with ``ledger`` at scale 0.1 (``rooted=True``
+   for gdm_rt), through ``plan(...)`` on both plan backends on the card,
+   each equal bit for bit (a sha256 of the transcript, completions, twct,
+   makespan) to the same plan on the CPU.  Every run: the transcript
+   capacity-feasible (``verify_transcript(check_capacity=True)``), no
+   scalar BNA in the fix-up, a packet plan no worse than its base plan,
+   and on the card the path's kernels launched, counted from 0 around the
+   run (the pipeline's fix-up through ``bna_decompose`` with 0 host
+   repairs; the python path's through ``bna_step``).  Every fix-up bucket
+   of the gdm_rt_bf pipeline plan is held against ``bna_decompose``'s
+   plain version on the same inputs.  Then ``BF_LARGE``: ``gdm_bf`` and
+   ``om_alg_bf`` at 0.35 and ``gdm_rt_bf`` at 0.25 through the pipeline,
+   each feasible and no worse than its plan (scale 1.0 does not fit the
+   time limit: the host's packet sweep grows faster than the trace).  The
+   CPU runs, the python path's card runs and the larger scales run in
+   spawned worker processes while this one runs the pipeline's 0.1 plans,
+   so they share the host and the card.  Each run's wall is split into
+   the plan, the prefetch, the fix-up (its walk, batch and emission; in
+   the batch the ``bna_decompose`` device time by CUDA events,
+   ``_steps_to_lists`` and the staging), the sweep and the rest.
 7. ``flash_attention`` (K4) against its plain version on the card, float32
    (FMA path) and bfloat16 (tensor-core path, ``mma.sync``), causal and
    not, at the reference sweep's shapes (d = 24, 32, 48, 64, 128) and
@@ -168,8 +189,8 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
 BF16_FLOPS = 989e12                 # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12                   # H100 SXM float32 outside the tensor cores
 # the python path's host repair takes 30-60 s a plan at 0.25 (card and
-# CPU), and gdm_rt's host fix-up BNA minutes, so the time limit cuts all
-# three to 0.1 (the pipeline plans the full trace, scale 1.0, in phase 6)
+# CPU), so the time limit cuts all three to 0.1 (the pipeline plans the
+# full trace, scale 1.0, in phase 6, and backfills gdm_rt at 0.25 in 6c)
 SCALES = {"gdm": 0.1, "gdm_rt": 0.1, "om_alg": 0.1}
 FULL_SCALE = ("gdm", "om_alg")      # planned at scale 1.0 on the pipeline
 KERNELS = ("bna_step", "coflow_merge", "bna_decompose", "merge_fix",
@@ -187,6 +208,14 @@ MODEL_KEYS = ("bound_bytes_ms", "bound_ops_ms", "bound_f32_cuda_core_ms",
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 4e-2}
 SSD_TOL = {"float32": 1e-4, "bfloat16": 8e-3}   # relative to max |y|
 CHECK_SCALE = 0.25                  # phase 4's checked pipeline plan
+# phase 6c: the *_bf schedulers at scale 0.1 (card == CPU on both plan
+# backends), then through the pipeline at the largest scales the time
+# limit allows (the packet sweep on the host takes minutes at 0.35; 0.35
+# is the reference's figure scale, paper_figs.DEFAULT_SCALE)
+BF_SCHEDS = ("gdm_bf", "gdm_rt_bf", "om_alg_bf")
+BF_SCALE = 0.1
+BF_LARGE = {"gdm_bf": 0.35, "om_alg_bf": 0.35, "gdm_rt_bf": 0.25}
+BF_WORKERS = 7                      # spawned processes for phase 6c's runs
 LOGIT_TOL = 0.05                    # of the largest logit, bf16 card vs CPU
 LOGIT_TOL_F32 = 1e-3                # of the largest logit, float32 weights
 TF_TOL_BF16 = 0.08                  # of the largest logit, bf16 teacher forcing
@@ -262,6 +291,231 @@ def alloc_bytes(fn) -> int:
     return peak
 
 
+def _host_cpu() -> str:
+    """The host's CPU model and core count (host-bound times move with
+    it)."""
+    import os
+    import platform
+
+    try:
+        model = next(line.split(":", 1)[1].strip() for line in
+                     Path("/proc/cpuinfo").read_text().splitlines()
+                     if line.startswith("model name"))
+    except (OSError, StopIteration):
+        model = "model not named"
+    return f"{platform.machine()}, {model}, {os.cpu_count()} cores"
+
+
+def _bf_digest(transcript) -> str:
+    """sha256 of a transcript, entry by entry in order: (jid, cid, t0, t1)
+    and each array's dtype and bytes.  Equal digests mean equal
+    transcripts, bit for bit."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for e in transcript.entries:
+        h.update(repr((int(e.jid), int(e.cid), float(e.t0),
+                       float(e.t1))).encode())
+        for a in (e.srcs, e.dsts, e.units):
+            h.update(a.dtype.str.encode())
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _bf_plan(job, check=None) -> dict:
+    """Phase 6c: one ``*_bf`` plan of ``paper_workload(m=150, mu_bar=5,
+    seed=0, scale)`` (``rooted=True`` for gdm_rt_bf), ``job = (sched, exec,
+    scale, device, plan_backend)``, through ``plan(...)``.  Returns the
+    result as card and CPU runs are compared (transcript digest,
+    completions, twct, makespan), the wall split into the plan (the base
+    scheduler's factory), the fix-up (the BNA of every merged interval
+    with alpha > 1: its walk, batch and emission; inside the batch the
+    ``bna_decompose`` device time by CUDA events, ``_steps_to_lists`` and
+    the rest, its staging), the sweep, the prefetch and the rest, and the
+    counters.  ``check(d, ks, T_cap, out)`` sees every fix-up bucket's
+    ``bna_decompose`` call (its seconds are taken out of the split).
+    Raises RuntimeError when a check fails: the transcript is capacity-
+    feasible, no scalar BNA ran, a packet plan is no worse than its base
+    plan, and on the card the path's kernels ran (the pipeline with 0 host
+    repairs)."""
+    import importlib
+
+    import torch
+
+    src = str(ROOT / "src")
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    from repro_torch.core import (cache_stats, clear_caches, paper_workload,
+                                  plan, verify_transcript)
+    from repro_torch.kernels.bna_decompose import bna_decompose
+    from repro_torch.kernels.bna_step import bna_step
+    from repro_torch.kernels.coflow_merge import coflow_merge
+    from repro_torch.kernels.merge_fix import merge_fix
+
+    wrappers = {"bna_step": bna_step, "coflow_merge": coflow_merge,
+                "bna_decompose": bna_decompose, "merge_fix": merge_fix}
+    engine = importlib.import_module("repro_torch.core.engine")
+    pipeline = importlib.import_module("repro_torch.core.pipeline")
+    timeline = importlib.import_module("repro_torch.core.timeline")
+    sched, exec_, scale, device, plan_backend = job
+    cuda = device == "cuda"
+    inst = paper_workload(m=150, mu_bar=5, seed=0, scale=scale,
+                          rooted=(sched == "gdm_rt_bf"))
+    acc = dict.fromkeys(("plan", "prefetch", "backfill", "walk", "pieces",
+                         "emit", "fix_plan", "check", "check_plan",
+                         "device_ms", "steps_to_lists"), 0.0)
+    state = {"plan": False, "fixup": False}
+    kept: dict = {"buckets": []}
+
+    def timed(name, fn, flag=None):
+        def wrapped(*args, **kwargs):
+            prev = state.get(flag)
+            if flag:
+                state[flag] = True
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                dt = time.perf_counter() - t0
+                acc[name] += dt
+                if name in ("walk", "pieces", "emit") and state["plan"]:
+                    acc["fix_plan"] += dt
+                if flag:
+                    state[flag] = prev
+        return wrapped
+
+    base_name = "_" + sched[:-3]        # _gdm, _gdm_rt, _om_alg
+    base = getattr(engine, base_name)
+    orig_dec, orig_lists = pipeline.bna_decompose, pipeline._steps_to_lists
+
+    def factory(*args, **kwargs):
+        kept["plan"] = timed("plan", base, "plan")(*args, **kwargs)
+        return kept["plan"]
+
+    def decompose(d, ks, T_cap, t_store=None):
+        if not state["fixup"]:
+            return orig_dec(d, ks, T_cap, t_store=t_store)
+        if cuda:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+        out = orig_dec(d, ks, T_cap, t_store=t_store)
+        if cuda:
+            b.record()
+            b.synchronize()
+            acc["device_ms"] += a.elapsed_time(b)
+        kept["buckets"].append(list(d.shape))
+        if check is not None:
+            t0 = time.perf_counter()
+            check(d, ks, T_cap, out)
+            dt = time.perf_counter() - t0
+            acc["check"] += dt
+            if state["plan"]:
+                acc["check_plan"] += dt
+        return out
+
+    def steps_to_lists(*args):
+        if not state["fixup"]:
+            return orig_lists(*args)
+        return timed("steps_to_lists", orig_lists)(*args)
+
+    patches = [(engine, base_name, factory),
+               (engine, "backfill", timed("backfill", engine.backfill)),
+               (engine.backend, "prefetch_plan",
+                timed("prefetch", engine.backend.prefetch_plan)),
+               (timeline, "_fixup_walk", timed("walk", timeline._fixup_walk)),
+               (timeline, "_interval_pieces",
+                timed("pieces", timeline._interval_pieces, "fixup")),
+               (timeline, "_fixup_emit", timed("emit", timeline._fixup_emit)),
+               (pipeline, "bna_decompose", decompose),
+               (pipeline, "_steps_to_lists", steps_to_lists)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    clear_caches()
+    for fn in wrappers.values():
+        fn.launches = 0
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    try:
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = plan(inst, sched, device=device, plan_backend=plan_backend,
+                   seed=0, exec=exec_)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    st = cache_stats()
+    fixup = st["plan"]["fixup"]
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    t0 = time.perf_counter()
+    try:
+        verify_transcript(inst, got.transcript(), check_capacity=True,
+                          makespan=got.makespan)
+    except AssertionError as err:
+        raise RuntimeError(f"{job}: transcript check failed: {err}") from err
+    verify_s = time.perf_counter() - t0
+    plan_twct = kept["plan"].twct()
+    fix_gross = acc["walk"] + acc["pieces"] + acc["emit"]
+    fix = fix_gross - acc["check"]
+    split = {"wall_s": wall - acc["check"],
+             "plan_s": acc["plan"] - acc["fix_plan"],
+             "prefetch_s": acc["prefetch"], "fixup_s": fix,
+             "sweep_s": acc["backfill"] - (fix_gross - acc["fix_plan"])}
+    split["rest_s"] = split["wall_s"] - sum(
+        split[k] for k in ("plan_s", "prefetch_s", "fixup_s", "sweep_s"))
+    batch = acc["pieces"] - acc["check"]
+    detail = {"walk_s": acc["walk"], "emit_s": acc["emit"], "batch_s": batch,
+              "device_ms": acc["device_ms"] if cuda else None,
+              "steps_to_lists_s": acc["steps_to_lists"],
+              "staging_s": batch - acc["device_ms"] / 1e3
+              - acc["steps_to_lists"],
+              "in_plan_s": acc["fix_plan"] - acc["check_plan"],
+              "lanes": fixup["lanes"], "buckets": fixup["buckets"],
+              "launches": fixup["launches"],
+              "bucket_fallbacks": fixup["bucket_fallbacks"],
+              "largest_bucket": max(kept["buckets"], default=None,
+                                    key=lambda x: x[0] * x[1] * x[2])}
+    out = {"job": list(job), "coflows": sum(j.mu for j in inst.jobs),
+           "twct": got.twct(), "plan_twct": plan_twct,
+           "job_completions": got.job_completions(),
+           "coflow_completions": dict(got.schedule.coflow_completions),
+           "makespan": got.makespan, "digest": _bf_digest(got.transcript()),
+           "entries": len(got.transcript().entries), "split": split,
+           "fixup": detail, "launches": launches,
+           "host_repairs": st["bna"]["repairs"],
+           "scalar_bna": fixup["scalar_bna"], "verify_s": verify_s,
+           "check_s": acc["check"]}
+    bad = []
+    if fixup["scalar_bna"]:
+        bad.append(f"{fixup['scalar_bna']} scalar bna calls")
+    if exec_ == "packet" and not got.twct() <= plan_twct * (1 + 1e-9) + 1e-9:
+        bad.append(f"twct {got.twct()} > the plan's {plan_twct}")
+    if cuda and plan_backend == "pipeline" and (
+            st["bna"]["repairs"] or fixup["bucket_fallbacks"]
+            or (fixup["lanes"] and not fixup["launches"])):
+        bad.append(f"{st['bna']['repairs']} host repairs, "
+                   f"{fixup['bucket_fallbacks']} overflow buckets, "
+                   f"{fixup['launches']} fix-up launches")
+    path = ("bna_decompose", "merge_fix") if plan_backend == "pipeline" \
+        else ("bna_step", "coflow_merge")
+    if cuda and not all(launches[k] for k in path):
+        bad.append(f"a kernel of the path was not launched: {launches}")
+    if bad:
+        raise RuntimeError(f"{job}: " + "; ".join(bad))
+    return out
+
+
+def _bf_worker(job) -> dict:
+    """_bf_plan in a spawned process, one intra-op thread."""
+    import torch
+
+    torch.set_num_threads(1)
+    return _bf_plan(job)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -274,7 +528,7 @@ def main() -> int:
     from repro_torch.models.lm import tree_leaves
     from repro_torch.core import (backend, bna, bna_many, cache_stats,
                                   clear_caches, matching, no_caches,
-                                  paper_workload, pipeline, plan,
+                                  paper_workload, pipeline, plan, timeline,
                                   transcript_to_arrays, verify_schedule,
                                   verify_transcript)
     from repro_torch.kernels.bna_decompose import bna_decompose
@@ -301,7 +555,8 @@ def main() -> int:
     wrappers = {"bna_step": bna_step, "coflow_merge": coflow_merge,
                 "bna_decompose": bna_decompose, "merge_fix": merge_fix,
                 "flash_attention": flash_attention, "ssd_scan": ssd_scan}
-    record: dict = {"device": torch.cuda.get_device_name(0)}
+    record: dict = {"device": torch.cuda.get_device_name(0),
+                    "host": _host_cpu()}
     t_start = time.perf_counter()
 
     def zero_counts() -> None:
@@ -315,7 +570,8 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build_kernels(list(KERNELS))
     record["build_s"] = time.perf_counter() - t0
-    print(f"build: {record['build_s']:.2f} s, sm_90a, into {kernels.BUILD_DIR}")
+    print(f"build: {record['build_s']:.2f} s, sm_90a, into {kernels.BUILD_DIR}; "
+          f"host {record['host']}")
 
     # largest |kernel - plain| over every comparison made in this run, the
     # kernels' outputs and the states they update in place included
@@ -640,9 +896,12 @@ def main() -> int:
             return out
         return wrapped
 
+    # (timeline._interval_pieces: merge_and_fix's fix-up batch, gdm_rt's
+    # decompose=True merges; its bna_decompose and _steps_to_lists calls
+    # are in those stages too)
     stages = {(pipeline, "bna_decompose"), (pipeline, "_steps_to_lists"),
               (pipeline, "_rle_batch"), (pipeline, "instance_load_vectors"),
-              (backend, "merge_fix_step")}
+              (backend, "merge_fix_step"), (timeline, "_interval_pieces")}
     saved_stages = {(mod, name): getattr(mod, name) for mod, name in stages}
 
     def pipeline_plan(inst, sched):
@@ -659,13 +918,16 @@ def main() -> int:
         if min(launches["bna_decompose"], launches["merge_fix"]) == 0:
             _fail(f"{sched} pipeline: a kernel of the path was not launched "
                   f"({launches})")
-        if st["bna"]["repairs"] or dec["bucket_fallbacks"]:
+        fix = st["plan"]["fixup"]
+        if st["bna"]["repairs"] or dec["bucket_fallbacks"] \
+                or fix["bucket_fallbacks"] or fix["scalar_bna"]:
             _fail(f"{sched} pipeline: {st['bna']['repairs']} host repairs, "
-                  f"{dec['bucket_fallbacks']} int32-overflow buckets")
+                  f"{dec['bucket_fallbacks']} + {fix['bucket_fallbacks']} "
+                  f"int32-overflow buckets, {fix['scalar_bna']} scalar bna")
         return got, {"plan_s_cuda": wall, "launches": launches,
                      "host_repairs": st["bna"]["repairs"],
                      "bucket_fallbacks": dec["bucket_fallbacks"],
-                     "buckets": dec["buckets"],
+                     "buckets": dec["buckets"], "fixup": fix,
                      "stage_s": dict(stage_s)}
 
     runs, pipe_runs = {}, {}
@@ -920,6 +1182,110 @@ def main() -> int:
             _fail("bna_many on the card != the scalar BNA")
     print(f"bna_many on the card equals the scalar BNA on {len(small)} "
           "coflows")
+
+    # 6c. backfilling: the *_bf schedulers --------------------------------
+    # (a) at scale 0.1 on both plan backends on the card, each equal to the
+    # same plan on the CPU, and (c) the larger scales through the pipeline.
+    # The host's packet sweep and the python path's host repair dominate
+    # these runs, so all but the pipeline's 0.1 runs (this process) go to
+    # spawned workers that share the host and the card with it
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    def bf_checked(d, ks, T_cap, out):
+        want = bna_decompose_ref(d.cpu(), ks.cpu(), T_cap)
+        got = [x.cpu() for x in out]
+        note("bna_decompose", abs_err(zip(got, want))
+             if got[1].shape == want[1].shape else 1 << 30,
+             f"a fix-up bucket (B={d.shape[0]}, w={d.shape[1]})")
+        bf_check["buckets"] += 1
+        bf_check["lanes"] += d.shape[0]
+
+    def bf_same(a, b) -> bool:
+        return all(a[k] == b[k] for k in (
+            "digest", "entries", "job_completions", "coflow_completions",
+            "twct", "makespan"))
+
+    def bf_line(run) -> str:   # the whole run goes to the record
+        sp, fx = run["split"], run["fixup"]
+        dev_ms = "-" if fx["device_ms"] is None else f"{fx['device_ms']:.1f}"
+        return (f"twct {run['twct']} (plan {run['plan_twct']}); wall "
+                f"{sp['wall_s']:.2f} s: plan {sp['plan_s']:.2f}, prefetch "
+                f"{sp['prefetch_s']:.2f}, fix-up {sp['fixup_s']:.2f} (walk "
+                f"{fx['walk_s']:.2f}, batch {fx['batch_s']:.2f} [device "
+                f"{dev_ms} ms, _steps_to_lists {fx['steps_to_lists_s']:.2f}, "
+                f"staging {fx['staging_s']:.2f}], emit {fx['emit_s']:.2f}; "
+                f"{fx['lanes']} lanes, {fx['buckets']} buckets, "
+                f"{fx['launches']} launches), sweep {sp['sweep_s']:.2f}; "
+                f"launches {run['launches']}, host repairs "
+                f"{run['host_repairs']}")
+
+    bf_check = {"buckets": 0, "lanes": 0}
+    backends = ("python", "pipeline")
+    bf_jobs = [(s_, "packet", BF_SCALE) for s_ in BF_SCHEDS] \
+        + [("gdm_bf", "ledger", BF_SCALE)]
+    large_jobs = [(s_, "packet", sc, "cuda", "pipeline")
+                  for s_, sc in BF_LARGE.items()]
+    # longest first: the larger scales, the CPU's python backend, the
+    # card's python backend, the CPU's pipeline
+    worker_jobs = large_jobs + [(*j, "cpu", "python") for j in bf_jobs] \
+        + [(*j, "cuda", "python") for j in bf_jobs] \
+        + [(*j, "cpu", "pipeline") for j in bf_jobs]
+    t_bf = time.perf_counter()
+    pool = ProcessPoolExecutor(max_workers=BF_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futures = {job: pool.submit(_bf_worker, job) for job in worker_jobs}
+        bf_runs: dict = {}
+        for j in bf_jobs:
+            job = (*j, "cuda", "pipeline")
+            try:
+                bf_runs[job] = _bf_plan(job, check=bf_checked if j[0] ==
+                                        "gdm_rt_bf" else None)
+            except RuntimeError as err:
+                _fail(str(err))
+            torch.cuda.synchronize()
+        if not bf_check["buckets"]:
+            _fail("gdm_rt_bf: no fix-up bucket reached bna_decompose")
+        for job, fut in futures.items():
+            try:
+                bf_runs[job] = fut.result()
+            except RuntimeError as err:
+                _fail(str(err))
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    bf_s = time.perf_counter() - t_bf
+    for j in bf_jobs:
+        for pb in backends:
+            card, cpu = bf_runs[(*j, "cuda", pb)], bf_runs[(*j, "cpu", pb)]
+            if not bf_same(card, cpu):
+                _fail(f"{j} {pb}: the card's plan differs from the CPU's "
+                      f"(twct {card['twct']} vs {cpu['twct']})")
+        a, b = (bf_runs[(*j, "cuda", pb)] for pb in backends)
+        if not all(a[k] == b[k] for k in ("job_completions", "twct",
+                                           "makespan")):
+            _fail(f"{j}: the two plan backends differ (twct {a['twct']} "
+                  f"vs {b['twct']})")
+        for pb in backends:
+            print(f"plan {j[0]} exec={j[1]} ({pb}, scale {j[2]}): "
+                  f"{bf_line(bf_runs[(*j, 'cuda', pb)])}; equal to the CPU")
+    bf_large = {job[0]: bf_runs.pop(job) for job in large_jobs}
+    for job in large_jobs:
+        print(f"plan {job[0]} (pipeline, scale {job[2]}): "
+              f"{bf_line(bf_large[job[0]])}; feasible, no worse than its "
+              "plan")
+    print(f"gdm_rt_bf (pipeline, scale {BF_SCALE}): {bf_check['buckets']} "
+          f"fix-up buckets ({bf_check['lanes']} lanes) equal to "
+          f"bna_decompose's plain version; phase 6c took {bf_s:.1f} s with "
+          f"{BF_WORKERS} workers")
+    keep = ("job", "coflows", "twct", "plan_twct", "makespan", "entries",
+            "split", "fixup", "launches", "host_repairs", "scalar_bna",
+            "verify_s")
+    record["bf_check"] = dict(bf_check)
+    record["bf_s"] = bf_s
+    record["bf_plans"] = [{k: r[k] for k in keep} for r in bf_runs.values()]
+    record["bf_large"] = {s_: {k: r[k] for k in keep}
+                          for s_, r in bf_large.items()}
 
     # 7. flash_attention (K4) against its plain version --------------------
     from repro_torch.configs import get_config
@@ -1542,6 +1908,17 @@ def main() -> int:
                   "per-lane bit sets in registers, first receiver by "
                   "__clz and redux.sync min, a lane's state in shared "
                   "memory",
+        # merge_and_fix's fix-up (phase 6c): launches per *_bf plan on the
+        # pipeline and the largest fix-up bucket, (B, w, w)
+        "fixup_launches": {
+            f"{r['job'][0]}@{r['job'][2]}": r["fixup"]["launches"]
+            for r in [*bf_runs.values(), *bf_large.values()]
+            if r["job"][3:] == ["cuda", "pipeline"]
+            and r["job"][1] == "packet"},
+        "fixup_largest_bucket": max(
+            (r["fixup"]["largest_bucket"] for r in bf_large.values()
+             if r["fixup"]["largest_bucket"]), default=None,
+            key=lambda x: x[0] * x[1] * x[2]),
         **lay})
     print(f"bna_decompose at B={Bd}, w={wd}: "
           f"{json.dumps(kernels_line[-1])}")

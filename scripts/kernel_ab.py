@@ -9,7 +9,11 @@ one card, in turns (A, B, B, A), at the main path's shapes:
   pipeline's gdm and om_alg plans of ``paper_workload(m=150, mu_bar=5,
   seed=0, scale=1.0)``;
 - ``bna_decompose`` on the widest bucket of the pipeline's gdm plan of
-  ``paper_workload(m=150, mu_bar=5, seed=0, scale=0.25)`` (B=29, w=256).
+  ``paper_workload(m=150, mu_bar=5, seed=0, scale=0.25)`` (B=29, w=256);
+- and the whole pipeline plan of gdm_rt on ``paper_workload(m=150,
+  mu_bar=5, seed=0, scale=0.1, rooted=True)`` (host clock, synced, caches
+  cleared before each of three rounds), whose merges run merge_and_fix's
+  fix-up BNA.
 
     python3 scripts/kernel_ab.py A_ROOT [B_ROOT]
 
@@ -110,6 +114,14 @@ def time_root(root: Path) -> dict:
     d, ks, T_cap, t_store = widest["args"]
     out[f"bna_decompose B={d.shape[0]} w={d.shape[1]}"] = _wall_ms(
         lambda: bna_decompose(d, ks, T_cap, t_store=t_store), rounds=5)
+    inst_rt = paper_workload(m=150, mu_bar=5, seed=0, scale=0.1, rooted=True)
+
+    def plan_rt():
+        clear_caches()
+        plan(inst_rt, "gdm_rt", device="cuda", plan_backend="pipeline",
+             seed=0)
+
+    out["plan gdm_rt scale=0.1 pipeline (wall)"] = _wall_ms(plan_rt)
     return out
 
 

@@ -1,13 +1,14 @@
 """The port's planning path: the paper's offline schedulers (BNA, DMA,
-DMA-SRT/RT, the Algorithm 5 order, G-DM / G-DM-RT, O(m)Alg) on PyTorch,
-with the BNA decomposition and the merge on hand-written CUDA kernels,
-through the python plan path or the pipeline (``core/pipeline.py``).
+DMA-SRT/RT, the Algorithm 5 order, G-DM / G-DM-RT, O(m)Alg, backfill) on
+PyTorch, with the BNA decomposition and the merge on hand-written CUDA
+kernels, through the python plan path or the pipeline (``core/pipeline.py``).
 Each module mirrors its namesake in ``repro.core``."""
 
 from .backend import (bna_pieces_many, cache_stats, clear_caches,
-                      compute_alphas, group_block, grouping_prefix,
-                      no_caches, prefetch_bna, prefetch_plan,
-                      resolve_plan_backend)
+                      compute_alphas, fixup_pieces, group_block,
+                      grouping_prefix, no_caches, prefetch_bna,
+                      prefetch_plan, resolve_plan_backend)
+from .backfill import BackfillResult, backfill
 from .baseline import om_alg
 from .bna import bna, verify_bna_schedule
 from .convert import (instance_from_arrays, instance_to_arrays,

@@ -14,8 +14,9 @@ planning path, as the reference's ``use_plan_backend`` does:
 * ``"pipeline"`` — ``core/pipeline.py`` (the reference's ``jit``): one
   ``kernels/bna_decompose`` call per width bucket, step and repair, behind
   :func:`prefetch_plan` / :func:`plan_edges`, the device segment sum behind
-  :func:`plan_order_loads`, and the fused ``kernels/merge_fix`` behind
-  :func:`fused_merge_fix`.
+  :func:`plan_order_loads`, the fused ``kernels/merge_fix`` behind
+  :func:`fused_merge_fix`, and the fix-up's batch of interval demands
+  behind :func:`fixup_pieces`.
 
 Its default follows the device: ``"pipeline"`` on a card (the reference
 resolves ``auto`` to ``jit`` on its accelerator), ``"python"`` on the
@@ -73,6 +74,7 @@ __all__ = [
     "plan_edges",
     "plan_order_loads",
     "fused_merge_fix",
+    "fixup_pieces",
     "compute_alphas",
     "bna_pieces",
     "bna_pieces_many",
@@ -160,6 +162,24 @@ def plan_order_loads(instance, plan_backend: "str | None" = None,
     from . import pipeline
 
     return pipeline.instance_load_vectors(instance, device=device)
+
+
+def fixup_pieces(subs: list, plan_backend: "str | None" = None,
+                 device: "str | torch.device" = "cuda") -> list:
+    """BNA pieces of merge_and_fix's fix-up demands (each interval's merged
+    demand, support-restricted; ``timeline._decompose``) in one batch on
+    `device`: ``pipeline.decompose_pieces`` (``bna_decompose`` per width
+    bucket) under ``"pipeline"``, ``matching.bna_many`` (``bna_step`` and
+    the host repair) under ``"python"``.  Each list is bit-identical to
+    the scalar ``bna`` of its matrix.  Nothing is cached: the fix-up's
+    demands are decomposed uncached, as in the reference."""
+    from . import pipeline
+
+    pipeline._fixup["batches"] += 1
+    pipeline._fixup["lanes"] += len(subs)
+    if resolve_plan_backend(plan_backend, device) == "pipeline":
+        return pipeline.decompose_pieces(subs, device=device)
+    return matching.bna_many(subs, device=device)
 
 
 def fused_merge_fix(events: np.ndarray, edges, m: int,

@@ -13,7 +13,17 @@ gdm_rt     G-DM-RT (Algorithm 4 over rooted trees): groups scheduled by
            fast path (single global merge-and-fix)
 om_alg     O(m)Alg baseline (Tian et al. [5]): one-at-a-time jobs in
            Algorithm 5 order, each coflow optimally via BNA (Algorithm 1)
+gdm_bf     G-DM + backfilling (§VII)
+gdm_rt_bf  G-DM-RT + backfilling (§VII)
+om_alg_bf  O(m)Alg + backfilling (§VII)
 ========== ==============================================================
+
+The ``*_bf`` variants accept ``exec="packet"`` (default: matching-granular
+re-execution of the plan's timed-matching decomposition, pointwise never
+worse than the plan) or ``exec="ledger"`` (the historical uniform-rate
+ledger sweep) — see ``backfill.py``.  The packet executor's decomposition
+(the fix-up BNA of every merged interval) runs on the plan's device and
+plan backend.
 
 Every plan runs on a device and a plan backend:
 ``plan(instance, name, device="cuda", plan_backend=None)``.
@@ -35,7 +45,7 @@ Adding a scheduler is one decorator::
     @register_scheduler("my_sched", "one-line description",
                         options=("seed",))
     def _my_sched(instance, *, device, plan_backend, seed=0):
-        return ...  # CompositeSchedule
+        return ...  # CompositeSchedule or BackfillResult
 """
 from __future__ import annotations
 
@@ -48,6 +58,7 @@ import torch
 
 from ..kernels import resolve_device
 from . import backend
+from .backfill import BackfillResult, backfill
 from .baseline import om_alg
 from .gdm import gdm
 from .result import CompositeSchedule, Transcript
@@ -65,16 +76,24 @@ __all__ = [
 
 @dataclass
 class PlanResult:
-    """A planned schedule plus uniform metric access."""
+    """A planned schedule plus uniform metric access.
+
+    `schedule` is the scheduler's native result — a CompositeSchedule for
+    the plain algorithms, a BackfillResult for the backfilled variants —
+    with the metric/transcript accessors normalized here.
+    """
 
     name: str
-    schedule: CompositeSchedule
+    schedule: CompositeSchedule | BackfillResult
 
     def transcript(self) -> Transcript:
-        return self.schedule.transcript()
+        s = self.schedule
+        return s.transcript() if callable(s.transcript) else s.transcript
 
     def job_completions(self) -> dict[int, float]:
-        return self.schedule.job_completions()
+        s = self.schedule
+        return dict(s.job_completions) if isinstance(s, BackfillResult) \
+            else s.job_completions()
 
     def twct(self, from_release: bool = False) -> float:
         return self.schedule.twct(from_release)
@@ -83,8 +102,24 @@ class PlanResult:
     def makespan(self) -> float:
         return float(self.schedule.makespan)
 
+    def backfilled(self, exec: str = "packet") -> "PlanResult":
+        """Backfill this plan (§VII) without re-planning, on the plan's own
+        device and plan backend.
 
-_Factory = Callable[..., CompositeSchedule]
+        exec="packet" (default) re-executes the timed-matching decomposition
+        (pointwise never worse than the plan); exec="ledger" re-executes the
+        uniform-rate ledger (the historical executor)."""
+        if isinstance(self.schedule, BackfillResult):
+            if self.schedule.executor != exec:
+                raise ValueError(
+                    f"already backfilled with exec={self.schedule.executor!r}; "
+                    f"a BackfillResult cannot be re-executed as {exec!r} — "
+                    f"plan the base scheduler and call backfill(..., exec=...)")
+            return self
+        return PlanResult(f"{self.name}_bf", backfill(self.schedule, exec=exec))
+
+
+_Factory = Callable[..., "CompositeSchedule | BackfillResult"]
 
 
 @dataclass
@@ -106,20 +141,22 @@ def register_scheduler(name: str, doc: str = "",
     :func:`make_scheduler` rejects anything else.  The declared tuple is
     checked against the factory's signature at registration: every
     keyword-only parameter but ``device`` and ``plan_backend`` must be
-    declared, and every declared option must be a real parameter."""
+    declared, and — unless the factory forwards ``**opts`` — every
+    declared option must be a real parameter."""
 
     def deco(factory: _Factory) -> _Factory:
         if name in _REGISTRY:
             raise ValueError(f"scheduler {name!r} already registered")
         params = inspect.signature(factory).parameters.values()
         kw = {p.name for p in params if p.kind == p.KEYWORD_ONLY}
+        has_var = any(p.kind == p.VAR_KEYWORD for p in params)
         for arg in ("device", "plan_backend"):
             if arg not in kw:
                 raise ValueError(f"scheduler {name!r}: the factory must "
                                  f"take a keyword-only {arg!r}")
             kw.discard(arg)
         declared = set(options)
-        if kw != declared:
+        if kw - declared or (not has_var and declared - kw):
             raise ValueError(f"scheduler {name!r}: declared options "
                              f"{sorted(declared)} differ from the factory's "
                              f"keywords {sorted(kw)}")
@@ -249,3 +286,29 @@ def _om_alg(instance: Instance, *, device, plan_backend,
     del seed
     return om_alg(instance, decompose=decompose, device=device,
                   plan_backend=plan_backend)
+
+
+@register_scheduler("gdm_bf", "G-DM + backfilling (§VII); exec=packet|ledger",
+                    options=_GDM_OPTS + ("exec",))
+def _gdm_bf(instance: Instance, *, device, plan_backend, exec: str = "packet",
+            **opts) -> BackfillResult:
+    return backfill(_gdm(instance, device=device, plan_backend=plan_backend,
+                         **opts), exec=exec)
+
+
+@register_scheduler("gdm_rt_bf", "G-DM-RT + backfilling (§VII); "
+                                 "exec=packet|ledger",
+                    options=_GDM_RT_OPTS + ("exec",))
+def _gdm_rt_bf(instance: Instance, *, device, plan_backend,
+               exec: str = "packet", **opts) -> BackfillResult:
+    return backfill(_gdm_rt(instance, device=device,
+                            plan_backend=plan_backend, **opts), exec=exec)
+
+
+@register_scheduler("om_alg_bf", "O(m)Alg + backfilling (§VII); "
+                                 "exec=packet|ledger",
+                    options=_OM_ALG_OPTS + ("exec",))
+def _om_alg_bf(instance: Instance, *, device, plan_backend,
+               exec: str = "packet", **opts) -> BackfillResult:
+    return backfill(_om_alg(instance, device=device,
+                            plan_backend=plan_backend, **opts), exec=exec)

@@ -19,6 +19,7 @@ port of the session.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from fractions import Fraction
 
@@ -131,6 +132,12 @@ def gdm(
                 nested=nested, require_tree=require_tree, delays=delays,
                 device=device, plan_backend=plan_backend
             ).shifted_expanded(int(start))
+            # the cached block may have been built by a plan on another
+            # device or plan backend: a lazy fix-up runs on this plan's
+            sub = dataclasses.replace(
+                sub, device=torch.device(device),
+                plan_backend=backend.resolve_plan_backend(plan_backend,
+                                                          device))
         elif rooted:
             sub = dma_rt(jobs, instance.m, beta=beta, rng=rng,
                          origin=int(start), decompose=decompose,

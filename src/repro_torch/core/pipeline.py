@@ -30,6 +30,14 @@ overflow int32 goes through ``matching._bna_core_batch`` on the same
 device (an exactness branch, counted in ``bucket_fallbacks``, not a device
 fallback).  The pieces produced here go into the shared BNA cache, so
 python- and pipeline-planned calls interoperate.
+
+:func:`decompose_pieces` is the pieces-only entry of the same bucket sweep
+for merge_and_fix's fix-up (the BNA of each merged interval with
+alpha > 1, ``timeline._decompose``): no RLE, nothing cached (the fix-up's
+demands are decomposed uncached, as in the reference), its own counters.
+Every bucket is split into launches under a byte budget
+(:data:`LAUNCH_BUDGET_BYTES`): a scale-1.0 plan's merges hold tens of
+thousands of interval lanes.
 """
 from __future__ import annotations
 
@@ -47,6 +55,8 @@ from .matching import _bna_core_batch, bucket_width
 
 __all__ = [
     "prefetch_demands",
+    "decompose_pieces",
+    "LAUNCH_BUDGET_BYTES",
     "coflow_edges_rel",
     "instance_load_vectors",
     "edge_cache",
@@ -60,10 +70,21 @@ _INT32_MAX = int(np.iinfo(np.int32).max)
 edge_cache = _backend.edge_cache
 
 # counters surfaced via backend.cache_stats()["plan"]: bna_decompose kernel
-# launches made here (0 on the CPU), buckets decomposed, decomposition
-# batches, and int32-overflow buckets sent down the batched path
+# launches made here (0 on the CPU), buckets decomposed (a bucket split
+# under the byte budget counts once a chunk), decomposition batches, and
+# int32-overflow buckets sent down the batched path
 _counters = {"launches": 0, "buckets": 0, "batches": 0,
              "bucket_fallbacks": 0}
+# the same for merge_and_fix's fix-up (decompose_pieces, or bna_many on the
+# python plan backend), with its interval lanes; "fixup" in cache_stats
+# adds timeline.fixup_stats's scalar_bna
+_fixup = {"lanes": 0, "launches": 0, "buckets": 0, "batches": 0,
+          "bucket_fallbacks": 0}
+
+#: device bytes one bna_decompose launch may hold: the lanes' demand stack
+#: and its work copy (2 w^2 int32 a lane) and their stored step stacks
+#: ((nnz + 2k) (w + 1) int32 a lane); a bucket past it is split
+LAUNCH_BUDGET_BYTES = 2 << 30
 
 _warned_overflow = False
 
@@ -73,14 +94,20 @@ def _pow2(n: int) -> int:
 
 
 def pipeline_stats() -> dict:
-    return {"edges": edge_cache.stats(), "decompose": dict(_counters)}
+    from .timeline import fixup_stats
+
+    return {"edges": edge_cache.stats(), "decompose": dict(_counters),
+            "fixup": {**_fixup, **fixup_stats}}
 
 
 def clear_pipeline_caches() -> None:
     """Drop cached edge intervals and zero the counters."""
+    from .timeline import fixup_stats
+
     edge_cache.clear()
-    for k in _counters:
-        _counters[k] = 0
+    for counts in (_counters, _fixup, fixup_stats):
+        for k in counts:
+            counts[k] = 0
 
 
 # --------------------------------------------------------------------------
@@ -142,10 +169,11 @@ class _BucketOverflow(Exception):
 
 
 def _decompose_bucket_device(subs: list[np.ndarray], w: int,
-                             device: torch.device):
+                             device: torch.device, counters: dict,
+                             rle: bool = True):
     """Decompose one width bucket through ``bna_decompose`` on `device`;
     returns per matrix ``(pieces_restricted, (t0, t1, s, r) restricted
-    rel-edges)``."""
+    rel-edges)``, or the pieces alone when ``rle`` is False."""
     B = len(subs)
     nnz = [int((s > 0).sum()) for s in subs]
     T_cap = _pow2(max(nnz) + 6 * w + 8)
@@ -165,11 +193,13 @@ def _decompose_bucket_device(subs: list[np.ndarray], w: int,
     ts, pieces, D_end, _ = bna_decompose(
         torch.from_numpy(d).to(device), torch.from_numpy(ks).to(device),
         T_cap, t_store=t_store)
-    _counters["launches"] += _decompose_ops.bna_decompose.launches - before
-    _counters["buckets"] += 1
+    counters["launches"] += _decompose_ops.bna_decompose.launches - before
+    counters["buckets"] += 1
     if bool((D_end != 0).any()):
         raise AssertionError("bna_decompose failed to terminate (bug)")
     plists = _steps_to_lists(ts, pieces, [s.shape[0] for s in subs])
+    if not rle:
+        return plists
     so, r, t0, t1, offs = _rle_batch(ts, pieces)
     rels = [(t0[offs[i]:offs[i + 1]], t1[offs[i]:offs[i + 1]],
              so[offs[i]:offs[i + 1]], r[offs[i]:offs[i + 1]])
@@ -178,10 +208,11 @@ def _decompose_bucket_device(subs: list[np.ndarray], w: int,
 
 
 def _decompose_bucket_py(subs: list[np.ndarray], w: int,
-                         device: torch.device):
+                         device: torch.device, counters: dict,
+                         rle: bool = True):
     """int32-overflow branch: the batched decomposition
     (``matching._bna_core_batch``) on the same device, then the python
-    RLE."""
+    RLE (unless ``rle`` is False)."""
     from .timeline import bna_pieces_to_edge_intervals
 
     global _warned_overflow
@@ -190,11 +221,72 @@ def _decompose_bucket_py(subs: list[np.ndarray], w: int,
         warnings.warn(
             "planning pipeline: bucket loads exceed int32; decomposing "
             "through the batched path", RuntimeWarning)
-    _counters["bucket_fallbacks"] += 1
+    counters["bucket_fallbacks"] += 1
+    if not rle:
+        return _bna_core_batch(subs, w, device)
     out = []
     for plist in _bna_core_batch(subs, w, device):
         ei = bna_pieces_to_edge_intervals(plist, 0)
         out.append((plist, (ei.t0, ei.t1, ei.s, ei.r)))
+    return out
+
+
+def _restrict_and_bucket(demands) -> tuple[list, dict[int, list]]:
+    """Support-restrict every demand (``bna.support_restrict``) and bucket
+    the restricted matrices by padded width: ``(restricted, buckets)``,
+    where ``restricted[i]`` is ``(sub, rows_p, cols_p, m_full)`` (``sub``
+    None for an all-zero demand) and ``buckets[w]`` lists the indices of
+    width w, in input order."""
+    restricted: list = []
+    buckets: dict[int, list] = {}
+    for i, dem in enumerate(demands):
+        d_full = np.asarray(dem, dtype=np.int64)
+        sub, rows_p, cols_p = support_restrict(d_full)
+        restricted.append((sub, rows_p, cols_p, d_full.shape[0]))
+        if sub is not None:
+            buckets.setdefault(bucket_width(sub.shape[0]), []).append(i)
+    return restricted, buckets
+
+
+def _chunks(subs: list[np.ndarray], w: int, budget: int) -> list[slice]:
+    """Split one bucket's lanes, in order, into launches whose device
+    bytes (demand stack, work copy and stored steps, as
+    :data:`LAUNCH_BUDGET_BYTES` counts them) stay within `budget`; a lane
+    alone over it is a launch of its own."""
+    out: list[slice] = []
+    lo, t_max = 0, 0
+    for i, s in enumerate(subs):
+        t = int((s > 0).sum()) + 2 * s.shape[0]
+        t_new = max(t_max, t)
+        if i > lo and 4 * (i + 1 - lo) * (2 * w * w + t_new * (w + 1)) \
+                > budget:
+            out.append(slice(lo, i))
+            lo, t_new = i, t
+        t_max = t_new
+    if lo < len(subs):
+        out.append(slice(lo, len(subs)))
+    return out
+
+
+def _run_buckets(restricted: list, buckets: dict[int, list],
+                 dev: torch.device, counters: dict, rle: bool) -> list:
+    """Decompose every bucket, chunk by chunk under
+    :data:`LAUNCH_BUDGET_BYTES`, on `dev`:
+    ``bna_decompose`` per chunk, or the batched path for a chunk whose
+    loads pass int32.  Returns per restricted item its result (pieces,
+    with rel-edges when ``rle``), None for an all-zero demand."""
+    out: list = [None] * len(restricted)
+    for w in sorted(buckets):
+        idx = buckets[w]
+        subs = [restricted[i][0] for i in idx]
+        for sl in _chunks(subs, w, LAUNCH_BUDGET_BYTES):
+            part = subs[sl]
+            try:
+                res = _decompose_bucket_device(part, w, dev, counters, rle)
+            except _BucketOverflow:
+                res = _decompose_bucket_py(part, w, dev, counters, rle)
+            for i, r in zip(idx[sl], res):
+                out[i] = r
     return out
 
 
@@ -205,36 +297,43 @@ def _plan_decompositions(demands: list[np.ndarray],
     edge intervals of the coflow's isolated schedule anchored at 0."""
     dev = resolve_device(device)
     _counters["batches"] += 1
-    out_p: list = [None] * len(demands)
-    out_e: list = [None] * len(demands)
-    buckets: dict[int, list] = {}
-    for i, dem in enumerate(demands):
-        d_full = np.asarray(dem, dtype=np.int64)
-        sub, rows_p, cols_p = support_restrict(d_full)
+    restricted, buckets = _restrict_and_bucket(demands)
+    res = _run_buckets(restricted, buckets, dev, _counters, True)
+    out_p: list = []
+    out_e: list = []
+    for (sub, rows_p, cols_p, m_full), r in zip(restricted, res):
         if sub is None:
             z = np.zeros(0, np.int64)
-            out_p[i] = []
-            out_e[i] = (z, z.copy(), z.copy(), z.copy())
+            out_p.append([])
+            out_e.append((z, z.copy(), z.copy(), z.copy()))
             continue
-        w = bucket_width(sub.shape[0])
-        buckets.setdefault(w, []).append(
-            (i, sub, rows_p, cols_p, d_full.shape[0]))
-    for w in sorted(buckets):
-        items = buckets[w]
-        subs = [it[1] for it in items]
-        try:
-            res = _decompose_bucket_device(subs, w, dev)
-        except _BucketOverflow:
-            res = _decompose_bucket_py(subs, w, dev)
-        for (i, _sub, rows_p, cols_p, m_full), (plist, rel) in zip(items, res):
-            if rows_p is None:
-                out_p[i] = plist
-                out_e[i] = rel
-            else:
-                out_p[i] = expand_pieces(plist, rows_p, cols_p, m_full)
-                t0, t1, ss, rr = rel
-                out_e[i] = (t0, t1, rows_p[ss], cols_p[rr])
+        plist, rel = r
+        if rows_p is None:
+            out_p.append(plist)
+            out_e.append(rel)
+        else:
+            out_p.append(expand_pieces(plist, rows_p, cols_p, m_full))
+            t0, t1, ss, rr = rel
+            out_e.append((t0, t1, rows_p[ss], cols_p[rr]))
     return out_p, out_e
+
+
+def decompose_pieces(subs: list[np.ndarray],
+                     device: "str | torch.device" = "cuda") -> list[list]:
+    """BNA pieces of each support-restricted k x k matrix in `subs` (its
+    loaded rows and columns first, as ``bna.support_restrict`` leaves
+    them), each bit-identical to ``bna.bna`` of the matrix: one
+    ``bna_decompose`` launch per width bucket and chunk under
+    :data:`LAUNCH_BUDGET_BYTES` on `device`, its plain version on the CPU.
+    The fix-up's entry: no RLE and no cache; counted in
+    ``cache_stats()["plan"]["fixup"]``."""
+    dev = resolve_device(device)
+    restricted, buckets = _restrict_and_bucket(subs)
+    if any(sub is None or rows_p is not None
+           for sub, rows_p, _, _ in restricted):
+        raise ValueError("decompose_pieces takes support-restricted, "
+                         "nonzero matrices")
+    return _run_buckets(restricted, buckets, dev, _fixup, False)
 
 
 # --------------------------------------------------------------------------

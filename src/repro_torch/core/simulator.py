@@ -142,18 +142,29 @@ def verify_transcript(
         moving = [e for e in transcript.entries
                   if e.units.size and e.units.sum() > 0 and e.t1 > e.t0]
         events = sorted({t for e in moving for t in (e.t0, e.t1)})
+        # sweep the event partition: the entries overlapping [a, b) are
+        # those with t0 <= a < t1 (every endpoint is an event), added in
+        # transcript order, so each port's sum is the reference's, term for
+        # term, without scanning every entry in every interval
+        starts: dict = {}
+        ends: dict = {}
+        for i, e in enumerate(moving):
+            starts.setdefault(e.t0, []).append(i)
+            ends.setdefault(e.t1, []).append(i)
+        active: set = set()
         for a, b in zip(events[:-1], events[1:]):
-            if b <= a:
+            active.difference_update(ends.get(a, ()))
+            active.update(starts.get(a, ()))
+            if not active:
                 continue
+            over = [moving[i] for i in sorted(active)]
+            amount = np.concatenate(
+                [e.units * ((min(b, e.t1) - max(a, e.t0)) / (e.t1 - e.t0))
+                 for e in over])
             sent = np.zeros(instance.m)
             recv = np.zeros(instance.m)
-            for e in moving:
-                lo, hi = max(a, e.t0), min(b, e.t1)
-                if hi <= lo:
-                    continue
-                frac = (hi - lo) / (e.t1 - e.t0)
-                np.add.at(sent, e.srcs, e.units * frac)
-                np.add.at(recv, e.dsts, e.units * frac)
+            np.add.at(sent, np.concatenate([e.srcs for e in over]), amount)
+            np.add.at(recv, np.concatenate([e.dsts for e in over]), amount)
             cap = (b - a) * (1 + 1e-9) + tol
             assert sent.max(initial=0) <= cap and recv.max(initial=0) <= cap, \
                 f"port capacity exceeded in [{a}, {b})"

@@ -263,6 +263,11 @@ class FinalSchedule:
     merged: EdgeIntervals | None = None  # pre-expansion merged edge intervals
     coflow_edges: EdgeIntervals | None = None  # expanded, (jid, cid)-attributed
     _coflow_completion: dict[tuple[int, int], float] | None = None
+    # where a lazy fix-up decomposes (coflow_intervals): the device and plan
+    # backend of the merge_and_fix that built this schedule; None for a
+    # schedule built by hand, whose fix-up runs the scalar host BNA
+    device: "torch.device | None" = None
+    plan_backend: str | None = None
 
     # --- time mapping -----------------------------------------------------
     def expand_time(self, t: np.ndarray | float) -> np.ndarray | float:
@@ -328,11 +333,7 @@ class FinalSchedule:
         `exact_completion` accounting is left untouched in that case so plan
         metrics stay order-independent."""
         if self.coflow_edges is None:
-            if self.merged is None:
-                raise ValueError("coflow_intervals requires the merged edge "
-                                 "intervals (schedule predates merge_and_fix)")
-            _, _, self.coflow_edges = _decompose(
-                self.events, self.merged, self.alphas, self.exp, self.m)
+            decompose_parts([self])
         return self.coflow_edges
 
     # --- expansion splicing (session plan repair) ---------------------------
@@ -368,6 +369,8 @@ class FinalSchedule:
             merged=self.merged,
             coflow_edges=None if self.coflow_edges is None else
                 self.coflow_edges.shifted(dt),
+            device=self.device,
+            plan_backend=self.plan_backend,
         )
 
     # --- nesting ------------------------------------------------------------
@@ -412,13 +415,18 @@ def merge_and_fix(
     delays: per-uid integer delay (Step 2); default 0.
     decompose: also produce the packet-level schedule (BNA per merged
       interval) — needed for verification and for nesting into DMA-RT.
-    device: where the alphas are computed (a kernel on a card, its plain
-      version on the CPU; the same integers either way).
+    device: where the alphas are computed and the fix-up BNA runs (kernels
+      on a card, their plain versions on the CPU; the same integers either
+      way).  The schedule records it, so a later ``coflow_intervals()``
+      decomposes there too.
     plan_backend: "pipeline" computes alphas and expanded durations in one
-      fused merge_fix call; "python" runs coflow_merge, then the product on
-      the host (default: by device, see backend.resolve_plan_backend).
+      fused merge_fix call and decomposes the fix-up through bna_decompose;
+      "python" runs coflow_merge, then the product on the host, and
+      decomposes through bna_many (default: by device, see
+      backend.resolve_plan_backend).
     """
-    from .backend import compute_alphas, fused_merge_fix
+    from .backend import (compute_alphas, fused_merge_fix,
+                          resolve_plan_backend)
 
     delays = delays or {}
     shifted: list[EdgeIntervals] = []
@@ -461,72 +469,51 @@ def merge_and_fix(
             ledger.append(MappedEntry(e.jid, e.cid, e0, e1, e.srcs, e.dsts,
                                       e.units))
 
+    dev = torch.device(device)
+    plan_backend = resolve_plan_backend(plan_backend, dev)
     decomposition = exact = coflow_edges = None
     if decompose:
-        decomposition, exact, coflow_edges = _decompose(events, edges,
-                                                        alphas, exp, m)
+        decomposition, exact, coflow_edges = _decompose(
+            events, edges, alphas, exp, m, device=dev,
+            plan_backend=plan_backend)
     return FinalSchedule(m=m, origin=origin, events=events_f, alphas=alphas,
                          exp=exp_f, ledger=ledger,
                          decomposition=decomposition,
                          exact_completion=exact, merged=edges,
-                         coflow_edges=coflow_edges)
+                         coflow_edges=coflow_edges, device=dev,
+                         plan_backend=plan_backend)
 
 
-def _decompose(
-    events: np.ndarray, edges: EdgeIntervals, alphas: np.ndarray,
-    exp: np.ndarray, m: int,
-) -> tuple[list[DecompPiece], dict[int, float], EdgeIntervals]:
-    """Packet-level fix-up: per interval, BNA(l_I x merged counts), plus
-    PACKET-EXACT per-unit completion times: within each interval, an edge's
-    merged units are attributed FIFO to the contributing units (activation
-    order), and a unit's completion is the end of the piece that serves its
-    last packet — the quantity the paper's simulator measures, much tighter
-    than the expanded-window end.
+# --------------------------------------------------------------------------
+# packet-level fix-up (Lemma 6's BNA per merged interval)
+# --------------------------------------------------------------------------
 
-    The same FIFO walk records each served stretch as an expanded-time edge
-    interval attributed to its (jid, cid) — the per-coflow timed-matching
-    decomposition (FinalSchedule.coflow_intervals).  The segments tile the
-    packet-level pieces exactly, so per coflow and edge their total length
-    equals the coflow's demand on that edge, and at any instant the active
-    segments form a matching.
+#: scalar host ``bna`` calls made by the fix-up: only a schedule that records
+#: no device (built by hand, not by merge_and_fix) takes that path, so this
+#: reads 0 for every plan.  Surfaced in ``cache_stats()["plan"]["fixup"]``.
+fixup_stats = {"scalar_bna": 0}
 
-    Fast path: alpha_I == 1 means the merged active edges already form a
-    matching — emit directly without BNA."""
-    from .bna import bna
 
-    pieces: list[DecompPiece] = []
-    completion: dict[int, float] = {}
-    seg_t0: list[int] = []
-    seg_t1: list[int] = []
-    seg_s: list[int] = []
-    seg_r: list[int] = []
-    seg_own: list[int] = []
-    seg_jid: list[int] = []
-    seg_cid: list[int] = []
+@dataclass
+class _Interval:
+    """One merged interval of the fix-up walk, recorded by the first pass:
+    its expanded start, length and alpha, its active edges and their merged
+    counts, and per edge the FIFO queue of contributing units."""
 
-    def emit_seg(t0: int, t1: int, s: int, r: int, key3) -> None:
-        if t1 > t0:
-            seg_t0.append(t0)
-            seg_t1.append(t1)
-            seg_s.append(s)
-            seg_r.append(r)
-            seg_own.append(key3[0])
-            seg_jid.append(key3[1])
-            seg_cid.append(key3[2])
+    t_exp: int
+    l: int
+    a: int
+    srcs: np.ndarray
+    dsts: np.ndarray
+    cnts: np.ndarray
+    queues: dict
 
-    def pack() -> EdgeIntervals:
-        return EdgeIntervals(
-            np.asarray(seg_t0, dtype=np.int64),
-            np.asarray(seg_t1, dtype=np.int64),
-            np.asarray(seg_s, dtype=np.int64),
-            np.asarray(seg_r, dtype=np.int64),
-            np.asarray(seg_own, dtype=np.int64),
-            np.asarray(seg_jid, dtype=np.int64),
-            np.asarray(seg_cid, dtype=np.int64),
-        )
 
-    if edges.size == 0:
-        return pieces, completion, pack()
+def _fixup_walk(events: np.ndarray, edges: EdgeIntervals,
+                alphas: np.ndarray, exp: np.ndarray) -> list[_Interval]:
+    """First pass: walk the intervals in order, maintaining the per-edge
+    activation lists, and record every interval that has active edges and
+    positive length."""
     K = alphas.size
     si = np.searchsorted(events, edges.t0)
     ei = np.searchsorted(events, edges.t1)
@@ -538,6 +525,7 @@ def _decompose(
     # per edge: ordered list of (activation_seq, (owner, jid, cid), mult)
     active: dict[tuple[int, int], list] = {}
     seq = 0
+    out: list[_Interval] = []
     for k in range(K):
         for i in rem_at[k]:
             key = (int(edges.s[i]), int(edges.r[i]))
@@ -568,8 +556,6 @@ def _decompose(
         l = int(events[k + 1] - events[k])
         if l == 0:
             continue
-        t_exp = int(round(exp[k]))
-        a = int(alphas[k])
         srcs = np.array([s for s, _ in active], dtype=np.int64)
         dsts = np.array([r for _, r in active], dtype=np.int64)
         cnts = np.array([sum(e[2] for e in lst) for lst in active.values()],
@@ -577,8 +563,112 @@ def _decompose(
         # FIFO queues for this interval: per edge, units in activation order
         queues = {key: [[k3, mult * l] for _, k3, mult in sorted(lst)]
                   for key, lst in active.items()}
-        if a <= 1:
-            pieces.append(DecompPiece(t_exp, l, srcs, dsts, np.ones_like(cnts)))
+        out.append(_Interval(int(round(exp[k])), l, int(alphas[k]), srcs,
+                             dsts, cnts, queues))
+    return out
+
+
+def _restricted_demand(iv: _Interval, m: int):
+    """``support_restrict`` of the interval's merged demand
+    ``dm[srcs, dsts] = cnts * l`` (m x m), built from the active edges
+    without the dense matrix: ``(sub, rows_p, cols_p)``, equal to
+    ``bna.support_restrict(dm)``."""
+    vals = iv.cnts * iv.l
+    rows = np.unique(iv.srcs)
+    cols = np.unique(iv.dsts)
+    k = max(rows.size, cols.size)
+    if k < m:
+        def padded(ports):   # the loaded ports, then the first idle ones
+            idle = np.ones(m, dtype=bool)
+            idle[ports] = False
+            return np.concatenate(
+                [ports, np.flatnonzero(idle)[: k - ports.size]])
+
+        rows_p, cols_p = padded(rows), padded(cols)
+        sub = np.zeros((k, k), dtype=np.int64)
+        sub[np.searchsorted(rows, iv.srcs), np.searchsorted(cols, iv.dsts)] \
+            = vals
+        return sub, rows_p, cols_p
+    sub = np.zeros((m, m), dtype=np.int64)
+    sub[iv.srcs, iv.dsts] = vals
+    return sub, None, None
+
+
+def _interval_pieces(walks: list[list[_Interval]], m: int,
+                     device: "torch.device | None",
+                     plan_backend: str | None) -> list[list[list]]:
+    """Fix-up BNA pieces of every interval with alpha > 1 in `walks` (one
+    list of intervals per schedule), as ``(duration, senders, receivers)``
+    in full port ids, each bit-identical to the scalar ``bna`` of the
+    interval's merged demand.  All lanes of all walks go through ONE
+    batched decomposition on `device` (``backend.fixup_pieces``); a
+    schedule without a device runs the scalar ``bna`` per interval."""
+    from .bna import bna
+
+    lanes = [iv for walk in walks for iv in walk if iv.a > 1]
+    if not lanes:
+        return [[] for _ in walks]
+    if device is None:
+        fixup_stats["scalar_bna"] += len(lanes)
+        per_lane = []
+        for iv in lanes:
+            dm = np.zeros((m, m), dtype=np.int64)
+            dm[iv.srcs, iv.dsts] = iv.cnts * iv.l
+            per_lane.append([(int(t), ss, match[ss]) for t, match in bna(dm)
+                             for ss in (np.flatnonzero(match >= 0),)])
+    else:
+        from .backend import fixup_pieces
+
+        restricted = [_restricted_demand(iv, m) for iv in lanes]
+        plists = fixup_pieces([r[0] for r in restricted], plan_backend,
+                              device)
+        per_lane = []
+        for (_, rows_p, cols_p), plist in zip(restricted, plists):
+            # loaded ports come first, ascending, in rows_p / cols_p and
+            # only loaded ports transmit, so mapping the restricted senders
+            # keeps bna's ascending full-id order
+            out = []
+            for t, match in plist:
+                ss = np.flatnonzero(match >= 0)
+                rr = match[ss]
+                if rows_p is not None:
+                    ss, rr = rows_p[ss], cols_p[rr]
+                out.append((int(t), ss, rr))
+            per_lane.append(out)
+    it = iter(per_lane)
+    return [[next(it) for iv in walk if iv.a > 1] for walk in walks]
+
+
+def _fixup_emit(walk: list[_Interval], lane_pieces: list[list]):
+    """Second pass: per recorded interval, in order, the packet-level pieces,
+    the packet-exact completions and the per-coflow segments, from the
+    interval's FIFO queues and (alpha > 1) its fix-up BNA pieces."""
+    pieces: list[DecompPiece] = []
+    completion: dict[int, float] = {}
+    seg_t0: list[int] = []
+    seg_t1: list[int] = []
+    seg_s: list[int] = []
+    seg_r: list[int] = []
+    seg_own: list[int] = []
+    seg_jid: list[int] = []
+    seg_cid: list[int] = []
+
+    def emit_seg(t0: int, t1: int, s: int, r: int, key3) -> None:
+        if t1 > t0:
+            seg_t0.append(t0)
+            seg_t1.append(t1)
+            seg_s.append(s)
+            seg_r.append(r)
+            seg_own.append(key3[0])
+            seg_jid.append(key3[1])
+            seg_cid.append(key3[2])
+
+    lanes = iter(lane_pieces)
+    for iv in walk:
+        t_exp, l, queues = iv.t_exp, iv.l, iv.queues
+        if iv.a <= 1:
+            pieces.append(DecompPiece(t_exp, l, iv.srcs, iv.dsts,
+                                      np.ones_like(iv.cnts)))
             end = float(t_exp + l)
             for key, q in queues.items():
                 cursor = t_exp
@@ -587,20 +677,17 @@ def _decompose(
                     cursor += amt
                     completion[k3[0]] = max(completion.get(k3[0], 0.0), end)
             continue
-        dm = np.zeros((m, m), dtype=np.int64)
-        dm[srcs, dsts] = cnts * l
         off = 0
-        for dur, match in bna(dm):
-            ss = np.flatnonzero(match >= 0)
-            pieces.append(DecompPiece(t_exp + off, int(dur), ss, match[ss],
+        for dur, ss, rr in next(lanes):
+            pieces.append(DecompPiece(t_exp + off, dur, ss, rr,
                                       np.ones(ss.size, dtype=np.int64)))
-            piece_end = float(t_exp + off + int(dur))
-            for s_ in ss:
-                key = (int(s_), int(match[s_]))
+            piece_end = float(t_exp + off + dur)
+            for s_, r_ in zip(ss.tolist(), rr.tolist()):
+                key = (s_, r_)
                 q = queues.get(key)
                 if not q:
                     continue
-                served = int(dur)
+                served = dur
                 used = 0
                 while served > 0 and q:
                     k3, rem = q[0]
@@ -616,6 +703,67 @@ def _decompose(
                         q[0][1] = rem
                     completion[k3[0]] = max(completion.get(k3[0], 0.0),
                                             piece_end)
-            off += int(dur)
-        assert off == l * a, "fix-up BNA length mismatch"
-    return pieces, completion, pack()
+            off += dur
+        assert off == l * iv.a, "fix-up BNA length mismatch"
+    segs = EdgeIntervals(
+        np.asarray(seg_t0, dtype=np.int64),
+        np.asarray(seg_t1, dtype=np.int64),
+        np.asarray(seg_s, dtype=np.int64),
+        np.asarray(seg_r, dtype=np.int64),
+        np.asarray(seg_own, dtype=np.int64),
+        np.asarray(seg_jid, dtype=np.int64),
+        np.asarray(seg_cid, dtype=np.int64),
+    )
+    return pieces, completion, segs
+
+
+def _decompose(
+    events: np.ndarray, edges: EdgeIntervals, alphas: np.ndarray,
+    exp: np.ndarray, m: int, device: "torch.device | None" = None,
+    plan_backend: str | None = None,
+) -> tuple[list[DecompPiece], dict[int, float], EdgeIntervals]:
+    """Packet-level fix-up: per interval, BNA(l_I x merged counts), plus
+    PACKET-EXACT per-unit completion times: within each interval, an edge's
+    merged units are attributed FIFO to the contributing units (activation
+    order), and a unit's completion is the end of the piece that serves its
+    last packet — the quantity the paper's simulator measures, much tighter
+    than the expanded-window end.
+
+    The same FIFO walk records each served stretch as an expanded-time edge
+    interval attributed to its (jid, cid) — the per-coflow timed-matching
+    decomposition (FinalSchedule.coflow_intervals).  The segments tile the
+    packet-level pieces exactly, so per coflow and edge their total length
+    equals the coflow's demand on that edge, and at any instant the active
+    segments form a matching.
+
+    Fast path: alpha_I == 1 means the merged active edges already form a
+    matching — emitted directly without BNA.  The intervals with
+    alpha_I > 1 are decomposed in one batch on `device` through
+    `plan_backend` (``bna_decompose`` per width bucket, or ``bna_many``),
+    between a walk that records them and a pass that emits in interval
+    order; ``device=None`` runs the scalar ``bna`` per interval."""
+    walk = _fixup_walk(events, edges, alphas, exp) if edges.size else []
+    lane_pieces = _interval_pieces([walk], m, device, plan_backend)[0]
+    return _fixup_emit(walk, lane_pieces)
+
+
+def decompose_parts(parts: list[FinalSchedule]) -> None:
+    """Build ``coflow_edges`` for every schedule in `parts` that lacks it,
+    with the fix-up intervals of all of them decomposed in one batch per
+    (device, plan backend) — equal to calling ``coflow_intervals()`` on
+    each.  The public ``decomposition`` / ``exact_completion`` accounting
+    is left untouched, as ``coflow_intervals`` leaves it."""
+    todo = [p for p in parts if p.coflow_edges is None]
+    for p in todo:
+        if p.merged is None:
+            raise ValueError("coflow_intervals requires the merged edge "
+                             "intervals (schedule predates merge_and_fix)")
+    groups: dict = {}
+    for p in todo:
+        groups.setdefault((p.device, p.plan_backend, p.m), []).append(p)
+    for (device, plan_backend, m), group in groups.items():
+        walks = [_fixup_walk(p.events, p.merged, p.alphas, p.exp)
+                 if p.merged.size else [] for p in group]
+        lanes = _interval_pieces(walks, m, device, plan_backend)
+        for p, walk, lp in zip(group, walks, lanes):
+            p.coflow_edges = _fixup_emit(walk, lp)[2]

@@ -723,3 +723,138 @@ def test_smoke_mamba2_forward_and_serve_on_card_equal_cpu():
         outs.append((stats, [r.out for r in rs]))
     assert outs[0] == outs[1]
     assert outs[0][0]["completed"] == 5
+
+
+# --------------------------------------------------------------------------
+# backfilling: the *_bf schedulers and merge_and_fix's fix-up on the card
+# --------------------------------------------------------------------------
+
+def _assert_bf_equal(got, want):
+    _assert_plans_equal(got, want)
+    assert got.schedule.coflow_completions == want.schedule.coflow_completions
+    assert got.makespan == want.makespan
+
+
+@pytest.mark.parametrize("plan_backend", ["pipeline", "python"])
+@pytest.mark.parametrize("sched,exec_", [("gdm_bf", "packet"),
+                                         ("gdm_rt_bf", "packet"),
+                                         ("om_alg_bf", "packet"),
+                                         ("gdm_bf", "ledger")])
+def test_bf_plan_on_card_equals_cpu(sched, exec_, plan_backend):
+    """The *_bf plans on the card equal the same plans on the CPU; the
+    fix-up BNA of every merged interval with alpha > 1 runs as a batch on
+    the card (bna_decompose on the pipeline, bna_step on the python path)
+    and never as the scalar host bna."""
+    _card()
+    inst = paper_workload(m=20, mu_bar=3, seed=0, scale=0.05,
+                          rooted=(sched == "gdm_rt_bf"))
+    clear_caches()
+    bna_step.launches = bna_decompose.launches = 0
+    got = plan(inst, sched, device="cuda", plan_backend=plan_backend,
+               seed=0, exec=exec_)
+    stats = cache_stats()
+    fix = stats["plan"]["fixup"]
+    assert fix["scalar_bna"] == 0
+    if exec_ == "packet" and sched != "om_alg_bf":   # om_alg: alpha 1
+        assert fix["lanes"] > 0
+    if plan_backend == "pipeline":
+        assert bna_step.launches == 0 and stats["bna"]["repairs"] == 0
+        assert fix["launches"] == fix["buckets"] > 0 or not fix["lanes"]
+    else:
+        assert bna_step.launches > 0 and fix["launches"] == 0
+    verify_transcript(inst, got.transcript(), check_capacity=True,
+                      makespan=got.makespan)
+    clear_caches()
+    want = plan(inst, sched, device="cpu", plan_backend=plan_backend, seed=0,
+                exec=exec_)
+    _assert_bf_equal(got, want)
+
+
+@pytest.mark.parametrize("plan_backend", ["pipeline", "python"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_merge_and_fix_fixup_on_card_equals_scalar_bna(seed, plan_backend):
+    """merge_and_fix(decompose=True) on random merges, on the card: the
+    batched fix-up equals the per-interval scalar bna loop."""
+    from repro_torch.core import timeline
+
+    _card()
+    rng = np.random.default_rng(seed)
+    m = int(rng.integers(3, 40))
+    units = []
+    for uid in range(6):
+        E = int(rng.integers(1, 40))
+        t0 = rng.integers(0, 200, E).astype(np.int64)
+        t1 = t0 + rng.integers(1, 40, E)
+        units.append(timeline.UnitSchedule(uid, timeline.EdgeIntervals(
+            t0, t1, rng.integers(0, m, E), rng.integers(0, m, E),
+            np.full(E, uid), np.full(E, uid), rng.integers(0, 3, E)), []))
+    clear_caches()
+    bna_decompose.launches = 0
+    got = timeline.merge_and_fix(units, m, decompose=True, device="cuda",
+                                 plan_backend=plan_backend)
+    fix = cache_stats()["plan"]["fixup"]
+    assert fix["lanes"] > 0 and fix["scalar_bna"] == 0
+    assert (bna_decompose.launches > 0) == (plan_backend == "pipeline")
+    want = timeline._decompose(np.asarray(got.events), got.merged,
+                               got.alphas, got.exp, m, device=None)
+    assert got.exact_completion == want[1]
+    assert len(got.decomposition) == len(want[0])
+    for a, b in zip(got.decomposition, want[0]):
+        assert (a.t0, a.dur) == (b.t0, b.dur)
+        assert np.array_equal(a.srcs, b.srcs)
+        assert np.array_equal(a.dsts, b.dsts)
+    for name in ("t0", "t1", "s", "r", "owner", "jid", "cid"):
+        assert np.array_equal(getattr(got.coflow_edges, name),
+                              getattr(want[2], name))
+
+
+def test_fixup_overflow_interval_on_card_takes_the_int64_step():
+    """An interval demand whose loads pass int32 leaves bna_decompose for
+    the batched path: bna_step's int64 instance on the card."""
+    import warnings
+
+    from repro_torch.core import fixup_pieces
+
+    _card()
+    L = 2**31 - 9
+    sub = np.array([[L, L], [L, 0]], np.int64)
+    clear_caches()
+    bna_step.launches = bna_decompose.launches = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        (got,) = fixup_pieces([sub], "pipeline", "cuda")
+    fix = cache_stats()["plan"]["fixup"]
+    assert fix["bucket_fallbacks"] == 1 and bna_decompose.launches == 0
+    assert bna_step.launches > 0
+    want = bna(sub)
+    assert [(t, p.tolist()) for t, p in got] == \
+        [(t, p.tolist()) for t, p in want]
+
+
+def test_fixup_bucket_past_the_budget_splits_on_card(monkeypatch):
+    """A bucket over the launch budget goes down in chunks, one
+    bna_decompose launch each, with the pieces of one launch."""
+    from repro_torch.core import pipeline
+
+    _card()
+    rng = np.random.default_rng(3)
+    subs = []
+    for _ in range(9):
+        k = int(rng.integers(5, 9))
+        x = rng.integers(0, 30, (k, k))
+        x[:, 0] += 1
+        x[0, :] += 1
+        subs.append(x.astype(np.int64))
+    clear_caches()
+    bna_decompose.launches = 0
+    whole = pipeline.decompose_pieces(subs, device="cuda")
+    assert bna_decompose.launches == 1
+    lane = 4 * (2 * 8 * 8 + (8 * 8 + 16) * 9)
+    monkeypatch.setattr(pipeline, "LAUNCH_BUDGET_BYTES", 3 * lane)
+    split = pipeline.decompose_pieces(subs, device="cuda")
+    assert bna_decompose.launches >= 4
+    cpu = pipeline.decompose_pieces(subs, device="cpu")
+    for g, w, c in zip(split, whole, cpu):
+        for x in (g, w):
+            assert [(t, p.tolist()) for t, p in x] == \
+                [(t, p.tolist()) for t, p in c]

@@ -143,7 +143,7 @@ def test_plan_without_a_card_raises(monkeypatch):
 def test_unknown_scheduler_and_option_rejected():
     inst = _port_instance(_tiny("incast").instance)
     with pytest.raises(KeyError):
-        plan(inst, "gdm_bf", device="cpu")
+        plan(inst, "sincronia", device="cpu")
     with pytest.raises(TypeError, match="unknown option"):
         plan(inst, "gdm", device="cpu", betta=2.0)
 
@@ -187,6 +187,12 @@ def test_port_imports_neither_jax_nor_repro():
         "        plan(inst, s, device='cpu', plan_backend=pb, seed=0)\n"
         "    plan(inst, 'gdm_rt', device='cpu', plan_backend=pb, seed=0,\n"
         "         require_tree=False)\n"
+        "    for s in ('gdm_bf', 'om_alg_bf'):\n"
+        "        for ex in ('packet', 'ledger'):\n"
+        "            plan(inst, s, device='cpu', plan_backend=pb, seed=0,\n"
+        "                 exec=ex)\n"
+        "import importlib\n"
+        "importlib.import_module('repro_torch.core.backfill')\n"
         "import repro_torch.models, repro_torch.serve, repro_torch.configs\n"
         "from repro_torch.launch import serve\n"
         "serve.main(['--requests', '3', '--max-new', '3', '--device', 'cpu'])\n"
