@@ -81,6 +81,35 @@ Phases; any failure exits non-zero and prints no result line:
    the plan, the prefetch, the fix-up (its walk, batch and emission; in
    the batch the ``bna_decompose`` device time by CUDA events,
    ``_steps_to_lists`` and the staging), the sweep and the rest.
+6d. The online scheduler at the paper's cluster size (run in this process
+   while 6c's workers run): ``plan_online`` of ``paper_workload(m=150,
+   mu_bar=5, seed=0, scale=0.35)`` with ``poisson_releases(theta=a *
+   theta0)``, a in {1, 10}, for the figure's pair (gdm with
+   ``nested=False, seed=0``; om_alg) on the pipeline, under the session and
+   the batch driver, each with its caches cleared and the counts set to 0
+   just before; the session must equal the batch driver (completions,
+   twct, reschedules), the path's kernels must launch with 0 host repairs,
+   and the first replan of every run goes through ``bna_decompose`` and
+   ``merge_fix`` checked against their plain versions (on CPU copies of the
+   same inputs).  After the pool, gdm at scale 1.0 (54 arrivals, a = 1)
+   under the session alone.  Per run: reschedules, the per-replan wall
+   (p50, p95, max; host clock, synced), repair and full-replan counts, the
+   bna, order, group and gkey hit rates, launches per replan, twct; and
+   the pair's gain 1 - twct(gdm)/twct(om_alg).
+6e. Card against CPU (in 6c's pool): the online runs of gdm, om_alg and
+   gdm_rt (``rooted=True``, ``nested=False``) at scale 0.1, a = 1, on both
+   plan backends, on the card and on the CPU: completions, twct and the
+   session's counters equal across all four.
+6f. The streaming harness on BENCH_serve's cells (in 6c's pool, sharing
+   the host): ``benchmarks/serve_stream.py``'s generator (m = 8, mu = 2,
+   trace_seed = 7), the 250-job cells of gdm and gdm_rt spread under
+   residual and pinned gamma, Poisson and MMPP at load 0.9, and the 60-job
+   overload cell (MMPP, load 2.0, ``AdmissionPolicy(16, 0.4, 16)``),
+   through ``StreamDriver`` on the pipeline; each row's twct, full
+   replans, repairs, deferred and rejected counts must equal
+   ``benchmarks/results/BENCH_serve.json``'s (read as data).  Prints
+   p50/p95/p99 ms per arrival and jobs/s.  The two 1000-job om_alg cells
+   are left out: 1000 full replans each, a path the other cells cover.
 7. ``flash_attention`` (K4) against its plain version on the card, float32
    (FMA path) and bfloat16 (tensor-core path, ``mma.sync``), causal and
    not, at the reference sweep's shapes (d = 24, 32, 48, 64, 128) and
@@ -96,6 +125,14 @@ Phases; any failure exits non-zero and prints no result line:
    (prompts of 512-3072 tokens, 32 new tokens each) must all complete with
    28 K4 launches per prefill.  Prints prefill seconds per request, decode
    ms per token, tokens/s and the peak device memory.
+8b. The same 8 requests served again with ``admission="coflow"``: the
+   engine's ``SchedulerSession`` plans on the card (pipeline) at every
+   arrival tick.  Its calls are logged and replayed on a CPU session; each
+   request must be admitted first, by (planned completion under the
+   frontier in force, arrival, rid), among the arrived requests still
+   waiting, and all must complete.  Prints the admission's planning ms per
+   arrival tick, and decode ms per token and tokens/s beside fifo's, read
+   in turns (fifo, coflow, fifo), before any profiler of phase 8 runs.
 9. The same full-width weights on the CPU (the plain path): one 64-token
    prefill on the card and on the CPU, last-position logits within 5% of
    the largest logit (bf16 keeps 8 bits: its unit roundoff is 2^-9, and the
@@ -216,6 +253,27 @@ BF_SCHEDS = ("gdm_bf", "gdm_rt_bf", "om_alg_bf")
 BF_SCALE = 0.1
 BF_LARGE = {"gdm_bf": 0.35, "om_alg_bf": 0.35, "gdm_rt_bf": 0.25}
 BF_WORKERS = 7                      # spawned processes for phase 6c's runs
+# phases 6d-6f: the online scheduler.  6d: the figure's pair (paper_figs.
+# fig_c: gdm with nested=False, seed=0, against om_alg) at the figure's
+# scale and arrival rates theta = a * theta0, session and batch drivers on
+# the pipeline, then gdm at scale 1.0 under the session alone; 6e: card ==
+# CPU at 0.1 on both plan backends; 6f: BENCH_serve's cells
+ONLINE_OPTS = {"gdm": {"nested": False, "seed": 0},
+               "gdm_rt": {"nested": False, "seed": 0}, "om_alg": {}}
+ONLINE_SCALE = 0.35
+ONLINE_RATES = (1, 10)              # a in theta = a * theta0
+ONLINE_FULL = ("gdm", 1.0, 1)       # (scheduler, scale, a), session alone
+ONLINE_CPU_SCALE = 0.1
+ONLINE_CPU_SCHEDS = ("gdm", "gdm_rt", "om_alg")
+# benchmarks/serve_stream.py's generator and cells, read from
+# benchmarks/results/BENCH_serve.json as data; its two 1000-job om_alg
+# cells are left out (1000 full replans each, a path the others cover)
+STREAM = {"m": 8, "mu": 2, "trace_seed": 7, "load": 0.9, "overload": 2.0}
+STREAM_JOBS = 250
+STREAM_POLICY = (16, 0.4, 16)       # AdmissionPolicy of the overload cell
+STREAM_OVERLOAD_JOBS = 60
+STREAM_KEYS = ("twct", "session_full_replans", "session_repairs",
+               "deferred", "rejected")
 LOGIT_TOL = 0.05                    # of the largest logit, bf16 card vs CPU
 LOGIT_TOL_F32 = 1e-3                # of the largest logit, float32 weights
 TF_TOL_BF16 = 0.08                  # of the largest logit, bf16 teacher forcing
@@ -514,6 +572,194 @@ def _bf_worker(job) -> dict:
 
     torch.set_num_threads(1)
     return _bf_plan(job)
+
+
+def _quantiles(xs) -> dict:
+    """p50, p95 and max of a list of seconds, in ms (None when empty)."""
+    import numpy as np
+
+    if not xs:
+        return {"p50_ms": None, "p95_ms": None, "max_ms": None}
+    a = np.asarray(xs, dtype=np.float64) * 1e3
+    return {"p50_ms": float(np.percentile(a, 50)),
+            "p95_ms": float(np.percentile(a, 95)), "max_ms": float(a.max())}
+
+
+def _online_plan(job, check=None) -> dict:
+    """Phases 6d and 6e: ``plan_online`` of ``paper_workload(m=150,
+    mu_bar=5, seed=0, scale)`` (``rooted=True`` for gdm_rt) with
+    ``poisson_releases(theta=a * theta0)``, ``job = (sched, scale, a,
+    device, plan_backend, driver)``, caches cleared and the launch counts
+    set to 0 just before.  Every replan is timed on the host clock, synced
+    on the card (the session's ``_ensure_plan``; the batch driver's plans
+    through ``plan_full``), with its kernel launches.  ``check(on)`` is
+    called with True just before the run's first replan and with False
+    after it (phase 6d installs the checked wrappers there).  Returns
+    completions, twct, reschedules, the session's counters, the per-replan
+    walls and launches, and the cache hit rates (``gkey`` from
+    ``cache_stats`` around the run, with its prefix counts).  ``check(False)``
+    returns the seconds its checks took, which are taken out of that
+    replan's wall.  Raises RuntimeError when a kernel of the path did not
+    launch on the card."""
+    import importlib
+
+    import torch
+
+    src = str(ROOT / "src")
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    from repro_torch.core import (cache_stats, clear_caches, paper_workload,
+                                  plan_online, poisson_releases, theta0)
+    from repro_torch.kernels.bna_decompose import bna_decompose
+    from repro_torch.kernels.bna_step import bna_step
+    from repro_torch.kernels.coflow_merge import coflow_merge
+    from repro_torch.kernels.merge_fix import merge_fix
+
+    wrappers = {"bna_step": bna_step, "coflow_merge": coflow_merge,
+                "bna_decompose": bna_decompose, "merge_fix": merge_fix}
+    engine = importlib.import_module("repro_torch.core.engine")
+    session = importlib.import_module("repro_torch.core.session")
+    sched, scale, a, device, plan_backend, driver = job
+    cuda = device == "cuda"
+    base = paper_workload(m=150, mu_bar=5, seed=0, scale=scale,
+                          rooted=(sched == "gdm_rt"))
+    inst = poisson_releases(base, theta=a * theta0(base), seed=0)
+    replans: list = []
+    state = {"check_s": 0.0}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def timed(fn, in_session):
+        # the session's _ensure_plan replans only when arrivals suspended
+        # its plan (reschedules counts those); every batch plan_full plans
+        def wrapped(self, *args, **kwargs):
+            before = self.stats.reschedules if in_session else None
+            n0 = {k: f.launches for k, f in wrappers.items()}
+            first = not replans
+            if first and check is not None:
+                check(True)
+            sync()
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *args, **kwargs)
+            finally:
+                sync()
+                dt = time.perf_counter() - t0
+                if first and check is not None:
+                    spent = check(False)
+                    state["check_s"] += spent
+                    dt -= spent
+                if not in_session or self.stats.reschedules > before:
+                    replans.append({"wall_s": dt, "launches": {
+                        k: f.launches - n0[k] for k, f in wrappers.items()}})
+        return wrapped
+
+    patches = [(session.SchedulerSession, "_ensure_plan",
+                timed(session.SchedulerSession._ensure_plan, True))]
+    if driver == "batch":
+        patches = [(engine._Registered, "plan_full",
+                    timed(engine._Registered.plan_full, False))]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    opts = ONLINE_OPTS[sched]
+    clear_caches()
+    for fn in wrappers.values():
+        fn.launches = 0
+    before = cache_stats()
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        sync()
+        t0 = time.perf_counter()
+        res = plan_online(inst, sched, driver=driver, device=device,
+                          plan_backend=plan_backend, **opts)
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    after = cache_stats()
+    launches = {k: f.launches for k, f in wrappers.items()}
+    g_hits = after["gkey"]["hits"] - before["gkey"]["hits"]
+    g_miss = after["gkey"]["misses"] - before["gkey"]["misses"]
+    hit = {c: res.stats[c]["hit_rate"] for c in ("bna", "order", "group")}
+    hit["gkey"] = g_hits / (g_hits + g_miss) if g_hits + g_miss else 0.0
+    gkey_prefix = {k: after["gkey"]["prefix"][k] - before["gkey"]["prefix"][k]
+                   for k in after["gkey"]["prefix"]}
+    n = max(len(replans), 1)
+    out = {"job": list(job), "jobs": len(inst.jobs),
+           "coflows": sum(j.mu for j in inst.jobs), "twct": res.twct(),
+           "job_completions": res.job_completions,
+           "reschedules": res.reschedules, "wall_s": wall,
+           "session": res.stats.get("session"), "hit_rates": hit,
+           "cache": {c: res.stats[c] for c in ("bna", "order", "group")},
+           "gkey_prefix": gkey_prefix, "check_s": state["check_s"],
+           "replans": len(replans),
+           "replan_wall": _quantiles([r["wall_s"] for r in replans]),
+           "replan_wall_s": [r["wall_s"] for r in replans],
+           "launches": launches,
+           "launches_per_replan": {k: v / n for k, v in launches.items()},
+           "host_repairs": after["bna"]["repairs"] - before["bna"]["repairs"]}
+    path = ("bna_decompose", "merge_fix") if plan_backend == "pipeline" \
+        else ("bna_step", "coflow_merge")
+    if cuda and not all(launches[k] for k in path):
+        raise RuntimeError(f"{job}: a kernel of the path was not launched: "
+                           f"{launches}")
+    if cuda and plan_backend == "pipeline" and out["host_repairs"]:
+        raise RuntimeError(f"{job}: {out['host_repairs']} host repairs on "
+                           "the pipeline")
+    return out
+
+
+def _online_worker(job) -> dict:
+    """_online_plan in a spawned process, one intra-op thread."""
+    import torch
+
+    torch.set_num_threads(1)
+    return _online_plan(job)
+
+
+def _stream_cell(job) -> dict:
+    """Phase 6f: one cell of BENCH_serve's streaming harness, ``job =
+    (cell, sched, process, gamma, n_jobs, load, policy)`` on BENCH_serve's
+    generator (``stream_jobs(8, n_jobs, 7, process, load, mu=2)``), fed
+    through a ``StreamDriver`` on the card's pipeline (``delays="spread",
+    seed=0``; ``policy`` the overload cell's ``AdmissionPolicy`` arguments
+    or None), the launch counts set to 0 just before.  Returns the
+    ``StreamResult.as_dict()`` row and the launches; raises RuntimeError
+    when a kernel of the path did not launch."""
+    import torch
+
+    src = str(ROOT / "src")
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    from repro_torch.core import AdmissionPolicy, clear_caches, stream_jobs
+    from repro_torch.core.stream import StreamDriver
+    from repro_torch.kernels.bna_decompose import bna_decompose
+    from repro_torch.kernels.merge_fix import merge_fix
+
+    torch.set_num_threads(1)
+    cell, sched, process, gamma, n_jobs, load, policy = job
+    jobs = stream_jobs(STREAM["m"], n_jobs, STREAM["trace_seed"],
+                       process=process, load=load, mu=STREAM["mu"])
+    clear_caches()
+    bna_decompose.launches = merge_fix.launches = 0
+    drv = StreamDriver(STREAM["m"], sched, gamma=gamma, device="cuda",
+                       plan_backend="pipeline",
+                       admission=AdmissionPolicy(*policy) if policy else None,
+                       delays="spread", seed=0)
+    for j in jobs:
+        drv.feed(j)
+    res = drv.result()
+    torch.cuda.synchronize()
+    launches = {"bna_decompose": bna_decompose.launches,
+                "merge_fix": merge_fix.launches}
+    if not all(launches.values()):
+        raise RuntimeError(f"{cell}: a kernel of the path was not launched: "
+                           f"{launches}")
+    return {"cell": cell, "n_jobs": n_jobs, "launches": launches,
+            **res.as_dict()}
 
 
 def main() -> int:
@@ -1183,6 +1429,88 @@ def main() -> int:
     print(f"bna_many on the card equals the scalar BNA on {len(small)} "
           "coflows")
 
+    # 6d. the online scheduler at the paper's cluster size: the figure's
+    # pair at scale 0.35, session and batch drivers on the pipeline, the
+    # first replan of every run through checked bna_decompose and merge_fix
+    # (plain versions on CPU copies of the same inputs).  Run in this
+    # process while phase 6c's workers run (defined here, called there)
+    online_checked = {"bna_decompose": 0, "merge_fix": 0}
+    online_check_s = [0.0]
+
+    def online_decompose(d, ks, T_cap, t_store=None):
+        out = orig_decompose(d, ks, T_cap, t_store=t_store)
+        t0 = time.perf_counter()
+        want = bna_decompose_ref(d.cpu(), ks.cpu(), T_cap)
+        got = [x.cpu() for x in out]
+        note("bna_decompose", abs_err(zip(got, want))
+             if got[1].shape == want[1].shape else 1 << 30,
+             f"an online replan's bucket (B={d.shape[0]}, w={d.shape[1]})")
+        online_checked["bna_decompose"] += 1
+        online_check_s[0] += time.perf_counter() - t0
+        return out
+
+    def online_merge_fix(events, t0, t1, s, r, m, *, device):
+        got = orig_merge_fix_step(events, t0, t1, s, r, m, device=device)
+        t_check = time.perf_counter()
+        args = [torch.as_tensor(np.asarray(a, dtype=np.int64))
+                for a in (events, t0, t1, s, r)]
+        want = merge_fix_ref(*args, m)
+        note("merge_fix", abs_err([(torch.as_tensor(g), w)
+                                   for g, w in zip(got, want)]),
+             f"an online replan's merge (K={args[0].numel() - 1})")
+        online_checked["merge_fix"] += 1
+        online_check_s[0] += time.perf_counter() - t_check
+        return got
+
+    def online_check(on: bool) -> float:
+        """Install (on) or remove the checked wrappers; removing returns
+        the seconds the checks took since they were installed."""
+        pipeline.bna_decompose = online_decompose if on else orig_decompose
+        backend.merge_fix_step = online_merge_fix if on \
+            else orig_merge_fix_step
+        spent, online_check_s[0] = online_check_s[0], 0.0
+        return 0.0 if on else spent
+
+    def online_line(r) -> str:
+        ss = r["session"]
+        counts = "" if ss is None else (
+            f"repairs {ss['repairs']}, full replans {ss['full_replans']}, ")
+        lp = r["launches_per_replan"]
+        return (f"{r['jobs']} jobs, {r['coflows']} coflows: reschedules "
+                f"{r['reschedules']}, {counts}per-replan wall ms "
+                f"{json.dumps({k: round(v, 3) if v is not None else v for k, v in r['replan_wall'].items()})}, "
+                f"run {r['wall_s']:.2f} s (checks {r['check_s']:.2f} s); "
+                f"gkey prefix {json.dumps(r['gkey_prefix'])}; hit rates "
+                f"{json.dumps({k: round(v, 4) for k, v in r['hit_rates'].items()})}; "
+                f"launches per replan bna_decompose "
+                f"{lp['bna_decompose']:.2f}, merge_fix {lp['merge_fix']:.2f}; "
+                f"twct {r['twct']}")
+
+    def online_pair() -> dict:
+        out = {}
+        for sched in ("gdm", "om_alg"):
+            for a in ONLINE_RATES:
+                for driver in ("session", "batch"):
+                    job = (sched, ONLINE_SCALE, a, "cuda", "pipeline", driver)
+                    n0 = dict(online_checked)
+                    try:
+                        out[job] = _online_plan(job, check=online_check)
+                    except RuntimeError as err:
+                        _fail(str(err))
+                    torch.cuda.synchronize()
+                    if not all(online_checked[k] > n0[k] for k in n0):
+                        _fail(f"{job}: the first replan reached no checked "
+                              f"bna_decompose or merge_fix call")
+                a_, b_ = (out[(sched, ONLINE_SCALE, a, "cuda", "pipeline", d)]
+                          for d in ("session", "batch"))
+                if not (a_["job_completions"] == b_["job_completions"]
+                        and a_["twct"] == b_["twct"]
+                        and a_["reschedules"] == b_["reschedules"]):
+                    _fail(f"online {sched} a={a}: the session driver differs "
+                          f"from the batch driver on the card (twct "
+                          f"{a_['twct']} vs {b_['twct']})")
+        return out
+
     # 6c. backfilling: the *_bf schedulers --------------------------------
     # (a) at scale 0.1 on both plan backends on the card, each equal to the
     # same plan on the CPU, and (c) the larger scales through the pipeline.
@@ -1231,11 +1559,30 @@ def main() -> int:
     worker_jobs = large_jobs + [(*j, "cpu", "python") for j in bf_jobs] \
         + [(*j, "cuda", "python") for j in bf_jobs] \
         + [(*j, "cpu", "pipeline") for j in bf_jobs]
+    # phase 6e's online runs at 0.1 (card and CPU, both plan backends) and
+    # phase 6f's streaming cells go to the same pool
+    online_jobs = [(s_, ONLINE_CPU_SCALE, 1, dv, pb, "session")
+                   for pb in ("python", "pipeline") for s_ in ONLINE_CPU_SCHEDS
+                   for dv in ("cuda", "cpu")]
+    stream_jobs_ = [
+        (f"{proc}_{s_}_spread" + ("_pinned" if g == "pinned" else ""), s_,
+         proc, g, STREAM_JOBS, STREAM["load"], None)
+        for proc in ("poisson", "mmpp") for s_ in ("gdm", "gdm_rt")
+        for g in ("residual", "pinned")] + [
+        ("overload_mmpp_gdm_spread", "gdm", "mmpp", "residual",
+         STREAM_OVERLOAD_JOBS, STREAM["overload"], STREAM_POLICY)]
+    submissions = [(_bf_worker, j) for j in worker_jobs[:len(large_jobs)
+                                                       + 2 * len(bf_jobs)]] \
+        + [(_online_worker, j) for j in online_jobs[:6]] \
+        + [(_stream_cell, j) for j in stream_jobs_] \
+        + [(_bf_worker, j) for j in worker_jobs[len(large_jobs)
+                                                + 2 * len(bf_jobs):]] \
+        + [(_online_worker, j) for j in online_jobs[6:]]
     t_bf = time.perf_counter()
     pool = ProcessPoolExecutor(max_workers=BF_WORKERS,
                                mp_context=multiprocessing.get_context("spawn"))
     try:
-        futures = {job: pool.submit(_bf_worker, job) for job in worker_jobs}
+        futures = {job: pool.submit(fn, job) for fn, job in submissions}
         bf_runs: dict = {}
         for j in bf_jobs:
             job = (*j, "cuda", "pipeline")
@@ -1247,14 +1594,19 @@ def main() -> int:
             torch.cuda.synchronize()
         if not bf_check["buckets"]:
             _fail("gdm_rt_bf: no fix-up bucket reached bna_decompose")
+        t_online = time.perf_counter()
+        online_runs = online_pair()     # phase 6d, while the workers run
+        online_pair_s = time.perf_counter() - t_online
+        pool_runs: dict = {}
         for job, fut in futures.items():
             try:
-                bf_runs[job] = fut.result()
+                pool_runs[job] = fut.result()
             except RuntimeError as err:
                 _fail(str(err))
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     bf_s = time.perf_counter() - t_bf
+    bf_runs.update({j: pool_runs.pop(j) for j in worker_jobs})
     for j in bf_jobs:
         for pb in backends:
             card, cpu = bf_runs[(*j, "cuda", pb)], bf_runs[(*j, "cpu", pb)]
@@ -1286,6 +1638,97 @@ def main() -> int:
     record["bf_plans"] = [{k: r[k] for k in keep} for r in bf_runs.values()]
     record["bf_large"] = {s_: {k: r[k] for k in keep}
                           for s_, r in bf_large.items()}
+
+    # 6d (cont.): the pair's record, then gdm at scale 1.0 alone ----------
+    def online_keep(r) -> dict:
+        return {k: v for k, v in r.items() if k != "job_completions"}
+
+    gains = {}
+    for a in ONLINE_RATES:
+        for sched in ("gdm", "om_alg"):
+            r = online_runs[(sched, ONLINE_SCALE, a, "cuda", "pipeline",
+                             "session")]
+            print(f"online {sched} (pipeline, scale {ONLINE_SCALE}, theta = "
+                  f"{a} theta0, session): {online_line(r)}; equal to the "
+                  "batch driver")
+        g_, o_ = (online_runs[(s_, ONLINE_SCALE, a, "cuda", "pipeline",
+                               "session")]["twct"] for s_ in ("gdm", "om_alg"))
+        gains[a] = 1 - g_ / o_
+    print(f"online pair gain 1 - twct(gdm)/twct(om_alg) at scale "
+          f"{ONLINE_SCALE}: {json.dumps(gains)}; checked online calls "
+          f"{json.dumps(online_checked)}; the pair took {online_pair_s:.1f} s "
+          f"beside phase 6c's workers")
+    sched, scale, a = ONLINE_FULL
+    try:
+        full_online = _online_plan((sched, scale, a, "cuda", "pipeline",
+                                    "session"))
+    except RuntimeError as err:
+        _fail(str(err))
+    print(f"online {sched} (pipeline, scale {scale}, theta = {a} theta0, "
+          f"session, alone): {online_line(full_online)}")
+    record["online"] = {
+        "pair": [online_keep(r) for r in online_runs.values()],
+        "gain": gains, "checked": dict(online_checked),
+        "pair_s": online_pair_s, "full": online_keep(full_online)}
+
+    # 6e. card against CPU at 0.1, both plan backends (phase 6c's pool) ----
+    counts_keys = ("reschedules", "repairs", "full_replans", "repair_rejects",
+                   "groups_reused", "groups_replanned")
+    for sched in ONLINE_CPU_SCHEDS:
+        rs = [pool_runs[(sched, ONLINE_CPU_SCALE, 1, dv, pb, "session")]
+              for pb in ("python", "pipeline") for dv in ("cuda", "cpu")]
+        ref_ = rs[0]
+        for r in rs[1:]:
+            if not (r["job_completions"] == ref_["job_completions"]
+                    and r["twct"] == ref_["twct"]
+                    and {k: r["session"][k] for k in counts_keys}
+                    == {k: ref_["session"][k] for k in counts_keys}):
+                _fail(f"online {sched} at {ONLINE_CPU_SCALE}: {r['job'][3:5]}"
+                      f" differs from {ref_['job'][3:5]} (twct {r['twct']} vs "
+                      f"{ref_['twct']})")
+        print(f"online {sched} at scale {ONLINE_CPU_SCALE}: card == CPU on "
+              f"both plan backends (twct {ref_['twct']}, reschedules "
+              f"{ref_['reschedules']}); card python path "
+              f"{rs[0]['wall_s']:.2f} s, launches {rs[0]['launches']}; card "
+              f"pipeline {rs[2]['wall_s']:.2f} s, launches "
+              f"{rs[2]['launches']}")
+    record["online_card_cpu"] = [online_keep(pool_runs.pop(j))
+                                 for j in online_jobs]
+
+    # 6f. BENCH_serve's cells through the streaming harness (the pool) ----
+    bench_rows = {r["cell"]: r for r in json.loads(
+        (ROOT / "benchmarks" / "results" / "BENCH_serve.json").read_text()
+    )["rows"]}
+    stream_rows = []
+    for job in stream_jobs_:
+        row = pool_runs.pop(job)
+        want = bench_rows[job[0]]
+        if any(row[k] != want[k] for k in STREAM_KEYS):
+            _fail(f"stream {job[0]}: "
+                  f"{ {k: row[k] for k in STREAM_KEYS} } != BENCH_serve.json "
+                  f"{ {k: want[k] for k in STREAM_KEYS} }")
+        stream_rows.append(row)
+        print(f"stream {job[0]} ({row['n_jobs']} jobs, pipeline): p50 "
+              f"{row['p50_ms']:.2f} ms, p95 {row['p95_ms']:.2f} ms, p99 "
+              f"{row['p99_ms']:.2f} ms, {row['jobs_per_sec']:.2f} jobs/s; "
+              f"repairs {row['session_repairs']}, full replans "
+              f"{row['session_full_replans']} (hit rate "
+              f"{row['session_repair_hit_rate']}), deferred "
+              f"{row['deferred']}, rejected {row['rejected']}, twct "
+              f"{row['twct']}, launches {row['launches']}; equal to "
+              "BENCH_serve.json")
+    record["stream"] = {"rows": stream_rows, "left_out": [
+        "poisson_om_alg", "mmpp_om_alg"], "workers": BF_WORKERS}
+
+    def online_per_replan(name: str) -> dict:
+        """A kernel's launches per replan in this slice's session runs on
+        the card (6d's pair and scale-1.0 run; 6e's card runs)."""
+        rs = [r for r in [*record["online"]["pair"], record["online"]["full"],
+                          *record["online_card_cpu"]]
+              if r["job"][3] == "cuda" and r["job"][5] == "session"]
+        return {f"{r['job'][0]}@{r['job'][1]} a={r['job'][2]} "
+                f"{r['job'][4]}": r["launches_per_replan"][name]
+                for r in rs if r["launches"][name]}
 
     # 7. flash_attention (K4) against its plain version --------------------
     from repro_torch.configs import get_config
@@ -1380,11 +1823,11 @@ def main() -> int:
         return sum(e.self_device_time_total for e in events
                    if e.device_type == DeviceType.CUDA)
 
-    def serve_run(cfg_, params_, reqs):
-        """Serve `reqs` with 4 slots of 4096 tokens (fifo), every prefill
-        and decode_step timed (synced), the counts set to 0 just before.
-        Fails unless every request completes with its tokens in the
-        vocabulary.  Returns (engine, record)."""
+    def serve_run(cfg_, params_, reqs, admission="fifo"):
+        """Serve `reqs` with 4 slots of 4096 tokens (``admission``), every
+        prefill and decode_step timed (synced), the counts set to 0 just
+        before.  Fails unless every request completes with its tokens in
+        the vocabulary.  Returns (engine, record)."""
         serve_t = {"prefill_s": [], "decode_s": []}
 
         def timed(fn, key):
@@ -1398,7 +1841,7 @@ def main() -> int:
             return wrapped
 
         eng_ = ServingEngine(cfg_, params_, ServeConfig(
-            slots=4, capacity=4096, admission="fifo"))
+            slots=4, capacity=4096, admission=admission))
         orig = (serve_engine.prefill, serve_engine.decode_step)
         serve_engine.prefill = timed(orig[0], "prefill_s")
         serve_engine.decode_step = timed(orig[1], "decode_s")
@@ -1490,6 +1933,119 @@ def main() -> int:
           f"{run['decode_ms_per_token']:.2f}; peak memory "
           f"{run['max_memory_allocated'] / 2**30:.2f} GiB; launches "
           f"{serve_launches}")
+    # 8b. the same serve with coflow admission, before any profiler runs
+    # (decode is host-bound: both serves run under the same conditions):
+    # the engine's session plans on the card at every arrival tick.  Its submits, advances and
+    # frontier reads are logged and replayed on a CPU session; each request
+    # admitted at step s must be the first, by (planned completion under
+    # the replayed frontier in force at s, arrival, rid), of the arrived
+    # requests not yet admitted
+    import math
+
+    from repro_torch.core import SchedulerSession
+
+    co_reqs = [Request(rid=r.rid, tokens=r.tokens, max_new=r.max_new,
+                       weight=r.weight, arrival=r.arrival)
+               for r in serve_reqs]
+    by_prompt = {tuple(int(t) for t in r.tokens[:16]): r for r in co_reqs}
+    admitted: list = []          # (rid, step)
+    ops: list = []               # the run's session calls, in order
+    step_now = [0]
+    orig_prefill = serve_engine.prefill
+    orig_order = ServingEngine._admission_order
+    orig_new = ServingEngine._new_session
+
+    def noting_prefill(cfg_, params_, toks):
+        r = by_prompt[tuple(int(t) for t in toks[0, :16].tolist())]
+        admitted.append((r.rid, step_now[0]))
+        return orig_prefill(cfg_, params_, toks)
+
+    def noting_order(self, pending, step=0):
+        step_now[0] = step
+        return orig_order(self, pending, step)
+
+    def logged_session(self):
+        sess = orig_new(self)
+        sub, adv, fr = sess.submit, sess.advance, sess.frontier
+
+        def submit(job):
+            ops.append(("submit", job))
+            return sub(job)
+
+        def advance(until=None):
+            ops.append(("advance", until))
+            return adv(until)
+
+        def frontier():
+            ops.append(("frontier", step_now[0]))
+            return fr()
+
+        sess.submit, sess.advance, sess.frontier = submit, advance, frontier
+        return sess
+
+    serve_engine.prefill = noting_prefill
+    ServingEngine._admission_order = noting_order
+    ServingEngine._new_session = logged_session
+    try:
+        co_eng, co_run = serve_run(cfg, params, co_reqs, admission="coflow")
+    finally:
+        serve_engine.prefill = orig_prefill
+        ServingEngine._admission_order = orig_order
+        ServingEngine._new_session = orig_new
+    if co_eng._session.device.type != "cuda" or \
+            co_eng._session.plan_backend != "pipeline":
+        _fail(f"coflow serve: the session plans on "
+              f"{co_eng._session.device} / {co_eng._session.plan_backend}")
+    if co_run["launches"]["bna_decompose"] == 0 or \
+            co_run["launches"]["merge_fix"] == 0:
+        _fail(f"coflow serve: the session launched no pipeline kernel "
+              f"({co_run['launches']})")
+    replay = SchedulerSession(co_eng.sc.ports, "om_alg", device="cpu")
+    frontier_at: dict = {}
+    for op, arg in ops:
+        if op == "submit":
+            replay.submit(arg)
+        elif op == "advance":
+            replay.advance(until=arg)
+        else:
+            frontier_at[arg] = replay.frontier()
+    if not frontier_at or len(admitted) != len(co_reqs):
+        _fail(f"coflow serve: {len(frontier_at)} frontier reads, "
+              f"{len(admitted)} admissions of {len(co_reqs)} requests")
+    left = {r.rid: r for r in co_reqs}
+    for rid, step in admitted:
+        read = [t for t in frontier_at if t <= step]
+        f = frontier_at[max(read)] if read else None
+        best = min((x for x in left.values() if x.arrival <= step),
+                   key=lambda x: (f.completion(x.rid) if f else math.inf,
+                                  x.arrival, x.rid))
+        if best.rid != rid:
+            _fail(f"coflow serve: request {rid} admitted at step {step}, "
+                  f"the session's frontier puts {best.rid} first "
+                  f"(admitted {admitted})")
+        del left[rid]
+    # fifo once more, so the two admissions are read in turns (fifo,
+    # coflow, fifo) on this host: decode is host-bound
+    _, fifo_again = serve_run(cfg, params, [
+        Request(rid=r.rid, tokens=r.tokens, max_new=r.max_new,
+                weight=r.weight, arrival=r.arrival) for r in serve_reqs])
+    plan_ms = [x * 1e3 for x in co_eng.admission_plan_s]
+    record["serve_coflow"] = {**co_run, "admitted": admitted,
+                              "admission_plan_ms": plan_ms,
+                              "fifo_weighted_finish":
+                                  run["stats"]["weighted_finish"],
+                              "fifo_again": fifo_again}
+    print(f"serve {cfg.name} coflow admission: {co_run['stats']} "
+          f"(fifo {run['stats']}), admitted (rid, step) {admitted}, "
+          f"following the session's frontier (replayed on the CPU); "
+          f"admission planning ms per arrival tick "
+          f"{[round(x, 3) for x in plan_ms]}; decode ms per token (median) "
+          f"{co_run['decode_ms_per_token']:.2f}, tokens/s "
+          f"{co_run['tokens_per_s']:.2f} (fifo before: "
+          f"{run['decode_ms_per_token']:.2f}, {run['tokens_per_s']:.2f}; fifo "
+          f"after: {fifo_again['decode_ms_per_token']:.2f}, "
+          f"{fifo_again['tokens_per_s']:.2f}); launches {co_run['launches']}")
+
     record["serve_profile"] = serve_profile(
         cfg, params, eng, serve_reqs, run,
         {"flash_attention": ("flash_attention",)})
@@ -1813,6 +2369,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/bna_step/csrc/bna_step.cu",
         "replaces": "src/repro/kernels/bna_step/bna_step.py:79",
         "launches": runs["gdm"]["launches"]["bna_step"],
+        "online_launches_per_replan": online_per_replan("bna_step"),
         "max_abs_err": max_err["bna_step"],
         "ms": _cuda_ms(lambda: bna_step(*work)),
         "plain_ms": _cuda_ms(lambda: bna_step_ref(*plain)),
@@ -1827,6 +2384,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/coflow_merge/csrc/coflow_merge.cu",
         "replaces": "src/repro/kernels/coflow_merge/coflow_merge.py:43",
         "launches": runs["gdm"]["launches"]["coflow_merge"],
+        "online_launches_per_replan": online_per_replan("coflow_merge"),
         "max_abs_err": max_err["coflow_merge"],
         "ms": _cuda_ms(lambda: coflow_merge(delta)),
         "plain_ms": _cuda_ms(lambda: alphas_ref(delta)),
@@ -1887,6 +2445,7 @@ def main() -> int:
                   "bna_decompose.cu",
         "replaces": "src/repro/core/pipeline.py:114",
         "launches": pipe_runs["gdm"]["launches"]["bna_decompose"],
+        "online_launches_per_replan": online_per_replan("bna_decompose"),
         "max_abs_err": max_err["bna_decompose"],
         "ms": dec_ms, "plain_ms": dec_plain_ms,
         "bound_ms": k_dec_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
@@ -1941,6 +2500,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/merge_fix/csrc/merge_fix.cu",
         "replaces": "src/repro/kernels/merge_fix/ops.py:28",
         "launches": pipe_runs["gdm"]["launches"]["merge_fix"],
+        "online_launches_per_replan": online_per_replan("merge_fix"),
         "max_abs_err": max_err["merge_fix"],
         "ms": _cuda_ms(lambda: merge_fix(*mf_args, mf_m)),
         "plain_ms": _cuda_ms(lambda: merge_fix_ref(*mf_args, mf_m)),
@@ -2121,6 +2681,12 @@ def main() -> int:
          **{k: record["mamba2_serve"][k] for k in (
              "prefill_s", "decode_ms_per_token", "tokens_per_s",
              "max_memory_allocated")}}))
+    print("online (pipeline, card): " + json.dumps(
+        {f"{r['job'][0]}@{r['job'][1]} a={r['job'][2]}": {
+            "reschedules": r["reschedules"], "twct": r["twct"],
+            **r["replan_wall"], "run_s": r["wall_s"]}
+         for r in [*record["online"]["pair"], record["online"]["full"]]
+         if r["job"][5] == "session"}))
     print(f"total {record['total_s']:.1f} s")
     print(smi.stdout.strip())
     print(json.dumps({"kernels": kernels_line}))

@@ -40,6 +40,11 @@ Every plan runs on a device and a plan backend:
 combination gives the same plan, bit for bit.  Asking for ``cuda``
 without a card raises.
 
+The online protocol (§VII-C.2) runs through :func:`plan_online`, a
+driver over ``core/session.py``'s ``SchedulerSession`` that replans every
+arrival's residual instance on the same device and plan backend; the
+session threads its pinned gamma through ``plan_full(instance, gamma=)``.
+
 Adding a scheduler is one decorator::
 
     @register_scheduler("my_sched", "one-line description",
@@ -50,6 +55,7 @@ Adding a scheduler is one decorator::
 from __future__ import annotations
 
 import inspect
+import time
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -71,6 +77,7 @@ __all__ = [
     "available_schedulers",
     "scheduler_options",
     "plan",
+    "plan_online",
 ]
 
 
@@ -189,18 +196,31 @@ class _Registered:
     plan_backend: str
     opts: dict = field(default_factory=dict)
 
-    def plan_full(self, instance: Instance) -> PlanResult:
+    def plan_full(self, instance: Instance, **overrides) -> PlanResult:
         # instance-level prefetch: one batched decomposition on the device
         # (the pipeline's bucket sweep, or bna_many) warms the caches for
         # every coflow BEFORE the factory walks the jobs one at a time
-        # (results-identical either way)
+        # (results-identical either way).  `overrides` are per-plan option
+        # overrides validated against the registry exactly like
+        # make_scheduler's — the session threads its pinned gamma through
+        # here, one value per planning event.
+        opts = self.opts
+        if overrides:
+            unknown = sorted(set(overrides)
+                             - set(_REGISTRY[self.name].options))
+            if unknown:
+                raise TypeError(
+                    f"unknown plan override(s) {unknown} for scheduler "
+                    f"{self.name!r}; valid options: "
+                    f"{sorted(_REGISTRY[self.name].options)}")
+            opts = {**self.opts, **overrides}
         backend.prefetch_plan((c.demand for j in instance.jobs
                                for c in j.coflows),
                               plan_backend=self.plan_backend,
                               device=self.device)
         return PlanResult(self.name, _REGISTRY[self.name].factory(
             instance, device=self.device, plan_backend=self.plan_backend,
-            **self.opts))
+            **opts))
 
     def plan(self, instance: Instance) -> Transcript:
         return self.plan_full(instance).transcript()
@@ -312,3 +332,66 @@ def _om_alg_bf(instance: Instance, *, device, plan_backend,
                exec: str = "packet", **opts) -> BackfillResult:
     return backfill(_om_alg(instance, device=device,
                             plan_backend=plan_backend, **opts), exec=exec)
+
+
+# --------------------------------------------------------------------------
+# incremental online path
+# --------------------------------------------------------------------------
+
+def plan_online(instance: Instance, scheduler: "str | _Registered",
+                incremental: bool = True, driver: str = "session",
+                repair: bool = True, gamma="residual",
+                device: "str | torch.device" = "cuda",
+                plan_backend: "str | None" = None, **opts):
+    """Run the §VII-C.2 online protocol with a registered scheduler on
+    `device` through `plan_backend` — a thin, results-identical driver over
+    a :class:`~repro_torch.core.session.SchedulerSession`
+    (``driver="batch"`` selects the historical closed batch loop, the
+    reference comparator).  A prebuilt scheduler (:func:`make_scheduler`)
+    brings its own device and plan backend.
+
+    incremental=True (default) replans through the engine caches —
+    results-identical to a cold run, measurably faster when reschedules
+    share untouched coflows.  incremental=False disables and clears the
+    caches for the duration (the from-scratch comparator).
+
+    Returns the driver's OnlineResult with `stats` filled in: wall-clock
+    seconds, reschedule count, per-cache hits/misses/hit-rate deltas
+    attributable to this run, and (session driver) the session's
+    repair/replan counters under ``stats["session"]``.
+    """
+    from .online import simulate_online
+
+    if isinstance(scheduler, str):
+        scheduler = make_scheduler(scheduler, device=device,
+                                   plan_backend=plan_backend, **opts)
+    elif opts:
+        raise TypeError("scheduler options are only accepted with a "
+                        "scheduler name, not a prebuilt scheduler")
+
+    def _run():
+        before = backend.cache_stats()
+        t0 = time.perf_counter()
+        res = simulate_online(instance, scheduler, driver=driver,
+                              repair=repair, gamma=gamma,
+                              device=scheduler.device,
+                              plan_backend=scheduler.plan_backend)
+        wall = time.perf_counter() - t0
+        after = backend.cache_stats()
+        stats: dict = {"wall_s": wall, "reschedules": res.reschedules,
+                       "incremental": incremental, "driver": driver}
+        if "session" in res.stats:
+            stats["session"] = res.stats["session"]
+        for cache in ("bna", "order", "group"):
+            hits = after[cache]["hits"] - before[cache]["hits"]
+            misses = after[cache]["misses"] - before[cache]["misses"]
+            total = hits + misses
+            stats[cache] = {"hits": hits, "misses": misses,
+                            "hit_rate": (hits / total) if total else 0.0}
+        res.stats = stats
+        return res
+
+    if incremental:
+        return _run()
+    with backend.no_caches():
+        return _run()

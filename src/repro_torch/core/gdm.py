@@ -13,9 +13,27 @@
 Approximation: O(mu g(m)) for general DAGs (Theorem 5);
 O(sqrt(mu) g(m) h(m, mu)) for rooted trees (Corollary 1).
 
-``gdm(..., gamma=...)`` accepts an externally pinned gamma, as in the
-reference; the session-side pinning policy (``GammaEpoch``) comes with the
-port of the session.
+Pinned gamma (session-stable grouping)
+--------------------------------------
+The paper's gamma is the min positive flow size of the *instance*; in the
+online protocol the residual instance changes on every arrival, so the
+bucket boundaries — and with them group memberships — drift on nearly
+every replan, defeating the session's block-granular plan reuse.
+``group_jobs(..., gamma=...)`` therefore accepts an externally pinned
+gamma, and :class:`GammaEpoch` is the session-side policy that owns it:
+pin to the first residual's natural gamma, then rescale **monotonically
+downward by powers of two** only when a later residual's natural gamma
+drops below the pin (natural >= pinned keeps the pin — the factor-2 band
+is one-sided because residual minima only matter downward: a gamma
+*smaller* than natural just splits the geometric intervals finer, which
+preserves the grouping analysis up to the bounded ratio, while a gamma
+above natural would break the (gamma 2^{b-1}, gamma 2^b] covering).
+Under heavy-tail traces the natural residual gamma oscillates between 1
+and the smallest undrained flow; the monotone pin converges (typically to
+1) and then never moves, making group membership a stable function of the
+residual jobs — the lever that turns most replans into reassemblies of
+cached group blocks (``backend.group_block``).  Rescale counts surface in
+``SessionStats.gamma_rescales``.
 """
 from __future__ import annotations
 
@@ -30,7 +48,79 @@ from .ordering import cached_job_order
 from .result import CompositeSchedule
 from .types import Instance
 
-__all__ = ["gdm", "group_jobs", "geometric_bucket"]
+__all__ = ["gdm", "group_jobs", "GammaEpoch", "geometric_bucket"]
+
+
+class GammaEpoch:
+    """The session's pinned gamma (module docstring): power-of-two
+    monotone-downward rescales, exact ``Fraction`` arithmetic (halving an
+    odd natural gamma leaves the integers — the bucket computation stays
+    exact on rationals).  ``fixed=True`` freezes the pin (an explicit
+    numeric ``gamma=`` on the session).  ``state()`` round-trips through
+    :class:`~repro_torch.core.session.SessionSnapshot` for kill-and-resume."""
+
+    def __init__(self, pinned: "Fraction | None" = None, rescales: int = 0,
+                 fixed: bool = False):
+        if pinned is not None:
+            pinned = Fraction(pinned)
+            if pinned <= 0:
+                raise ValueError(f"pinned gamma must be positive, "
+                                 f"got {pinned}")
+        self.pinned = pinned
+        self.rescales = int(rescales)
+        self.fixed = bool(fixed)
+
+    def observe(self, natural: int) -> Fraction:
+        """Fold one planning event's natural residual gamma into the pin
+        and return the gamma to plan with."""
+        if natural <= 0:
+            raise ValueError(f"natural gamma must be positive, "
+                             f"got {natural}")
+        if self.fixed:
+            return self.pinned
+        if self.pinned is None:
+            self.pinned = Fraction(natural)
+            return self.pinned
+        while self.pinned > natural:
+            self.pinned /= 2
+            self.rescales += 1
+        return self.pinned
+
+    def state(self) -> tuple:
+        """(numerator, denominator, rescales, fixed) — or None-pinned as
+        (0, 1, rescales, fixed)."""
+        num = self.pinned.numerator if self.pinned is not None else 0
+        den = self.pinned.denominator if self.pinned is not None else 1
+        return (num, den, self.rescales, self.fixed)
+
+    @classmethod
+    def from_state(cls, state: tuple) -> "GammaEpoch":
+        num, den, rescales, fixed = state
+        pinned = Fraction(num, den) if num else None
+        return cls(pinned=pinned, rescales=rescales, fixed=fixed)
+
+    @classmethod
+    def from_policy(cls, gamma) -> "GammaEpoch | None":
+        """Map the session-level ``gamma=`` policy value to an epoch:
+        ``"residual"`` -> None (the paper's per-plan natural gamma),
+        ``"pinned"`` -> fresh adaptive epoch, positive int/Fraction ->
+        fixed pin.  Shared by
+        :class:`~repro_torch.core.session.SchedulerSession` and
+        ``simulate_online``'s batch driver so the two validate — and pin —
+        identically."""
+        if gamma == "residual":
+            return None
+        if gamma == "pinned":
+            return cls()
+        if isinstance(gamma, (int, Fraction)) \
+                and not isinstance(gamma, bool) and gamma > 0:
+            return cls(pinned=Fraction(gamma), fixed=True)
+        raise ValueError(f"gamma must be 'residual', 'pinned', or a "
+                         f"positive int/Fraction, got {gamma!r}")
+
+    def __repr__(self) -> str:
+        return (f"GammaEpoch(pinned={self.pinned}, "
+                f"rescales={self.rescales}, fixed={self.fixed})")
 
 
 def geometric_bucket(key: int, gamma) -> int:

@@ -373,6 +373,87 @@ class FinalSchedule:
             plan_backend=self.plan_backend,
         )
 
+    def spliced(self, tau: float, keep: set, cid_remap: dict) -> "FinalSchedule":
+        """The suffix of this expansion from expanded time ``tau`` on,
+        restricted to the coflows in ``keep`` (a set of ``(jid, cid)``) and
+        re-labelled via ``cid_remap`` (``(jid, cid) -> new cid``) — the
+        retained half of the session's frontier-append plan repair.
+
+        Only expansion-free suffixes can be spliced: every kept coflow must
+        lie entirely at or after ``tau`` and every surviving interval must
+        have alpha <= 1 (the suffix is its own packet-level schedule, so the
+        spliced ledger windows stay exact).  The repair path guarantees both
+        by construction; a violation raises ValueError and the caller falls
+        back to a full replan.  The suffix keeps this schedule's device and
+        plan backend, so its lazy fix-up runs where the plan ran."""
+        led: list[MappedEntry] = []
+        for e in self.ledger:
+            if (e.jid, e.cid) not in keep:
+                continue
+            if e.e0 < tau - 1e-6:
+                raise ValueError("kept coflow starts before the splice point")
+            led.append(MappedEntry(e.jid, cid_remap[(e.jid, e.cid)],
+                                   e.e0 - tau, e.e1 - tau,
+                                   e.srcs, e.dsts, e.units))
+        merged = None
+        events = np.zeros(0, dtype=np.float64)
+        alphas = np.zeros(0, dtype=np.int64)
+        exp = np.zeros(0, dtype=np.float64)
+        if self.merged is not None and self.merged.size:
+            mk = np.array([(int(j), int(c)) in keep
+                           for j, c in zip(self.merged.jid, self.merged.cid)])
+            if mk.any():
+                m_ = self.merged
+                # merged edges live in pre-expansion local time; map them
+                # through the expansion (exact at event boundaries) so the
+                # splice point — which is expanded/absolute — compares
+                # correctly for parts with a non-zero origin too (G-DM
+                # group parts; om_alg's single part has the identity map)
+                et0 = np.round(np.asarray(self.expand_time(m_.t0[mk]),
+                                          dtype=np.float64)).astype(np.int64)
+                et1 = np.round(np.asarray(self.expand_time(m_.t1[mk]),
+                                          dtype=np.float64)).astype(np.int64)
+                if int(et0.min()) < tau - 1e-6:
+                    raise ValueError("kept merged edge precedes splice point")
+                itau = int(round(tau))
+                cid_new = np.array(
+                    [cid_remap[(int(j), int(c))]
+                     for j, c in zip(m_.jid[mk], m_.cid[mk])], dtype=np.int64)
+                merged = EdgeIntervals(et0 - itau, et1 - itau,
+                                       m_.s[mk], m_.r[mk], m_.owner[mk],
+                                       m_.jid[mk], cid_new)
+                events, alphas, exp = _expansion_free(merged, self.m,
+                                                      "spliced suffix")
+        return FinalSchedule(m=self.m, origin=0, events=events, alphas=alphas,
+                             exp=exp, ledger=led, merged=merged,
+                             device=self.device,
+                             plan_backend=self.plan_backend)
+
+    @staticmethod
+    def concat_expansion_free(parts: list["FinalSchedule"],
+                              m: int) -> "FinalSchedule":
+        """Merge already-expanded, expansion-free schedules on a shared
+        clock into one (the session's repair path compacts its retained
+        suffix with this, so consecutive frontier appends stay O(parts)=2
+        instead of accumulating one part per repair).  Raises ValueError if
+        the union is not expansion-free — the parts were not actually
+        time-disjoint per port.  The parts come from one plan: the result
+        keeps the first part's device and plan backend."""
+        ledger = [e for p in parts for e in p.ledger]
+        ms = [p.merged for p in parts if p.merged is not None and p.merged.size]
+        merged = EdgeIntervals.concat(ms) if ms else None
+        events = np.zeros(0, dtype=np.float64)
+        alphas = np.zeros(0, dtype=np.int64)
+        exp = np.zeros(0, dtype=np.float64)
+        if merged is not None:
+            events, alphas, exp = _expansion_free(merged, m,
+                                                  "concatenated parts")
+        home = parts[0] if parts else None
+        return FinalSchedule(m=m, origin=0, events=events, alphas=alphas,
+                             exp=exp, ledger=ledger, merged=merged,
+                             device=home.device if home else None,
+                             plan_backend=home.plan_backend if home else None)
+
     # --- nesting ------------------------------------------------------------
     def to_unit(self, uid: int) -> UnitSchedule:
         """Re-package as a UnitSchedule for use at an outer merge level
@@ -399,6 +480,22 @@ def _expand_time(t, events: np.ndarray, exp: np.ndarray,
     out = np.where(t < lo, exp[0] - (lo - t), out)
     out = np.where(t > hi, exp[-1] + (t - hi), out)
     return out if out.ndim else float(out)
+
+
+def _expansion_free(merged: EdgeIntervals, m: int, what: str):
+    """(events, alphas, exp) of an already-expanded edge set whose every
+    interval must have alpha <= 1 (a spliced or concatenated schedule);
+    raises ValueError otherwise.  The alphas come from coflow_merge's plain
+    version on the host, as the reference checks with its numpy oracle: a
+    cheap self-check, not a step of the plan."""
+    from .backend import compute_alphas
+
+    ev = np.unique(np.concatenate([merged.t0, merged.t1]))
+    alphas = compute_alphas(ev, merged, m, device="cpu")
+    if (alphas > 1).any():
+        raise ValueError(f"{what} is not expansion-free")
+    events = ev.astype(np.float64)
+    return events, alphas, events.copy()
 
 
 def merge_and_fix(

@@ -1,5 +1,6 @@
 """Workload generation (paper §VII) — the part of ``repro.core.traces``
-that ``paper_workload`` needs.
+that ``paper_workload``, the online drivers and the streaming harness
+need (``workload_stats`` is not ported yet).
 
 The paper evaluates on a Facebook Hive/MapReduce trace (150 racks, 267
 coflows, flow sizes in [1, 2472], coflow effective sizes in [5, 232145],
@@ -15,9 +16,15 @@ with probability 0.5; rooted-tree jobs keep one out-edge per non-root node
 to a random higher-indexed node.  Every draw comes from an explicitly
 seeded ``np.random.default_rng``, in the reference's order, so the port
 builds the same instances as the reference from the same seed.
+
+The generalized primitives (``sample_width``, ``sample_sizes``,
+``port_skew``, ``sample_coflows``) draw the reference's numpy streams
+exactly, and ``poisson_releases`` / ``theta0`` give the paper's online
+arrivals (§VII-B.2).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -29,6 +36,12 @@ __all__ = [
     "dag_edges",
     "build_jobs",
     "paper_workload",
+    "poisson_releases",
+    "theta0",
+    "sample_width",
+    "sample_sizes",
+    "port_skew",
+    "sample_coflows",
 ]
 
 def fb_like_coflows(
@@ -60,6 +73,106 @@ def fb_like_coflows(
         r = rng.integers(0, m, size=width)
         bad = s == r
         r[bad] = (r[bad] + 1 + rng.integers(0, m - 1, size=int(bad.sum()))) % m
+        np.add.at(d, (s, r), sizes)
+        demands.append(d)
+    return demands
+
+
+# --------------------------------------------------------------------------
+# generalized primitives (scenario registry building blocks)
+# --------------------------------------------------------------------------
+
+def sample_width(rng: np.random.Generator, dist: tuple, cap: int) -> int:
+    """One coflow width from a parameterized distribution, capped at `cap`.
+
+    dist forms: ("loguniform", lo, hi) | ("uniform", lo, hi) | ("fixed", k).
+    """
+    kind = dist[0]
+    if kind == "loguniform":
+        lo, hi = int(dist[1]), max(int(dist[2]), int(dist[1]) + 1)
+        w = int(round(10 ** rng.uniform(math.log10(max(lo, 1)),
+                                        math.log10(hi))))
+    elif kind == "uniform":
+        w = int(rng.integers(int(dist[1]), int(dist[2]) + 1))
+    elif kind == "fixed":
+        w = int(dist[1])
+    else:
+        raise ValueError(f"unknown width distribution {kind!r}")
+    return max(1, min(w, cap))
+
+
+def sample_sizes(
+    rng: np.random.Generator, n: int, dist: tuple,
+    clip: tuple[int, int] = (1, 2472),
+) -> np.ndarray:
+    """`n` flow sizes from a parameterized distribution, clipped to `clip`.
+
+    dist forms: ("lognormal", mean, sigma) | ("uniform", lo, hi) |
+    ("pareto", shape, scale) | ("fixed", v).
+    """
+    kind = dist[0]
+    if kind == "lognormal":
+        raw = rng.lognormal(mean=float(dist[1]), sigma=float(dist[2]), size=n)
+    elif kind == "uniform":
+        raw = rng.uniform(float(dist[1]), float(dist[2]), size=n)
+    elif kind == "pareto":
+        raw = float(dist[2]) * (1.0 + rng.pareto(float(dist[1]), size=n))
+    elif kind == "fixed":
+        raw = np.full(n, float(dist[1]))
+    else:
+        raise ValueError(f"unknown size distribution {kind!r}")
+    return np.clip(np.round(raw), clip[0], clip[1]).astype(np.int64)
+
+
+def port_skew(m: int, kind: str = "uniform", *, hot: int = 1,
+              hot_mass: float = 0.9, a: float = 1.2) -> np.ndarray | None:
+    """Port-popularity map: probability vector over the m ports (or None
+    for uniform).
+
+    kinds: "uniform"; "hotspot" — `hot` ports share `hot_mass` of the
+    traffic (incast/alibaba fan-in); "zipf" — p(rank) ∝ 1/rank^a.
+    """
+    if kind == "uniform":
+        return None
+    if kind == "hotspot":
+        hot = max(1, min(int(hot), m))
+        p = np.full(m, (1.0 - hot_mass) / max(m - hot, 1))
+        p[:hot] = hot_mass / hot
+        if hot == m:
+            p[:] = 1.0 / m
+        return p / p.sum()
+    if kind == "zipf":
+        p = 1.0 / np.arange(1, m + 1, dtype=np.float64) ** a
+        return p / p.sum()
+    raise ValueError(f"unknown port skew {kind!r}")
+
+
+def sample_coflows(
+    m: int,
+    n_coflows: int,
+    seed: int = 0,
+    *,
+    width_dist: tuple = ("loguniform", 10, 21170),
+    size_dist: tuple = ("lognormal", 3.0, 1.6),
+    size_clip: tuple[int, int] = (1, 2472),
+    src_skew: np.ndarray | None = None,
+    dst_skew: np.ndarray | None = None,
+) -> list[np.ndarray]:
+    """Generalized coflow sampler: `fb_like_coflows` with parameterized
+    width/size distributions and per-port popularity maps.
+
+    Flows landing on the same (src, dst) pair accumulate, exactly like the
+    FB sampler; self-loops are remapped to a uniformly-random other port."""
+    rng = np.random.default_rng(seed)
+    demands: list[np.ndarray] = []
+    for _ in range(max(1, n_coflows)):
+        width = sample_width(rng, width_dist, cap=m * (m - 1))
+        sizes = sample_sizes(rng, width, size_dist, size_clip)
+        s = rng.choice(m, size=width, p=src_skew)
+        r = rng.choice(m, size=width, p=dst_skew)
+        bad = s == r
+        r[bad] = (r[bad] + 1 + rng.integers(0, m - 1, size=int(bad.sum()))) % m
+        d = np.zeros((m, m), dtype=np.int64)
         np.add.at(d, (s, r), sizes)
         demands.append(d)
     return demands
@@ -141,3 +254,27 @@ def paper_workload(
     """One line to the paper's §VII setup (synthetic-calibrated)."""
     demands = fb_like_coflows(m=m, seed=seed, scale=scale)
     return build_jobs(demands, mu_bar=mu_bar, seed=seed, rooted=rooted, weights=weights)
+
+
+def theta0(instance: Instance) -> float:
+    """Base arrival rate (paper §VII-B.2): total #coflows / sum of coflow
+    effective sizes."""
+    n_cf = sum(j.mu for j in instance.jobs)
+    tot = sum(c.D for j in instance.jobs for c in j.coflows)
+    return n_cf / max(tot, 1)
+
+
+def poisson_releases(instance: Instance, theta: float, seed: int = 0) -> Instance:
+    """Return a copy of the instance with Poisson(theta) arrival times."""
+    rng = np.random.default_rng(seed + 2)
+    gaps = rng.exponential(1.0 / theta, size=len(instance.jobs))
+    cum = np.cumsum(gaps)
+    if cum.size and cum[-1] >= 2.0**53:
+        # float64 integer exactness ends at 2^53; see stream.arrival_times
+        raise ValueError(
+            f"cumulative release time {cum[-1]:.3g} exceeds the float64 "
+            "integer-exact range (2^53); raise theta or shrink the instance")
+    times = np.floor(cum).astype(np.int64)
+    jobs = [dataclasses.replace(j, release=int(t))
+            for j, t in zip(instance.jobs, times)]
+    return Instance(instance.m, jobs)

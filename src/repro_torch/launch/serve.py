@@ -1,14 +1,16 @@
 """Serving launcher (smoke-scale), the port of ``repro.launch.serve``:
-batched requests through the continuous-batching engine.
+batched requests through the continuous-batching engine with
+coflow-ordered admission.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
       --requests 8 --device cpu
 
 ``--device`` defaults to ``cuda`` (a card; there the prefill attention runs
-the flash_attention kernel).  ``--arch`` takes the dense and mamba configs
+the flash_attention kernel, and the admission's scheduling session plans
+through the card's kernels).  ``--arch`` takes the dense and mamba configs
 (``--arch mamba2-2.7b``); a MoE config raises until models/moe is ported.
-``--admission`` takes only ``fifo`` until the scheduling session is ported
-(ROADMAP Queue 1 item 6).
+``--admission`` takes ``coflow`` (the default: order by the live
+``SchedulerSession``'s frontier) and ``fifo``.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ def main(argv: "list[str] | None" = None) -> None:
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=12)
-    ap.add_argument("--admission", choices=("fifo",), default="fifo")
+    ap.add_argument("--admission", choices=("coflow", "fifo"),
+                    default="coflow")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 

@@ -858,3 +858,132 @@ def test_fixup_bucket_past_the_budget_splits_on_card(monkeypatch):
         for x in (g, w):
             assert [(t, p.tolist()) for t, p in x] == \
                 [(t, p.tolist()) for t, p in c]
+
+
+# --------------------------------------------------------------------------
+# the online scheduler: the session, its drivers and coflow admission
+# --------------------------------------------------------------------------
+
+def _stream(n=24):
+    from repro_torch.core import stream_jobs
+
+    return stream_jobs(8, n, 7, process="mmpp", load=0.9, mu=2)
+
+
+def _online_equal(got, want):
+    assert got.job_completions == want.job_completions
+    assert got.twct() == want.twct()
+    keys = ("reschedules", "repairs", "full_replans", "groups_reused",
+            "groups_replanned", "gamma_rescales")
+    assert {k: got.stats["session"][k] for k in keys} == \
+        {k: want.stats["session"][k] for k in keys}
+
+
+@pytest.mark.parametrize("plan_backend", ["pipeline", "python"])
+@pytest.mark.parametrize("sched,opts", [
+    ("om_alg", {}), ("gdm", {"delays": "spread", "gamma": "pinned"}),
+    ("gdm_rt", {"delays": "spread"})])
+def test_session_stream_on_card_equals_cpu(sched, opts, plan_backend):
+    """A stream through a session on the card equals the same stream on
+    the CPU, counters included, and launches the plan backend's kernels."""
+    from repro_torch.core import run_stream
+
+    _card()
+    jobs = _stream()
+    clear_caches()
+    for fn in (bna_step, coflow_merge, bna_decompose, merge_fix):
+        fn.launches = 0
+    got = run_stream(jobs, 8, sched, device="cuda", plan_backend=plan_backend,
+                     seed=0, **opts)
+    path = (bna_decompose, merge_fix) if plan_backend == "pipeline" \
+        else (bna_step, coflow_merge)
+    assert all(fn.launches > 0 for fn in path)
+    clear_caches()
+    want = run_stream(jobs, 8, sched, device="cpu", plan_backend=plan_backend,
+                      seed=0, **opts)
+    _online_equal(got.online, want.online)
+
+
+@pytest.mark.parametrize("first,then", [("cuda", "cpu"), ("cpu", "cuda")])
+def test_session_snapshot_moves_between_card_and_cpu(first, then):
+    """A snapshot taken on one device restores on the other and carries on
+    bit-identically (the ledger is host data)."""
+    from repro_torch.core import SchedulerSession, run_stream
+    from repro_torch.core.stream import StreamDriver
+
+    _card()
+    jobs = _stream()
+    opts = {"delays": "spread", "seed": 0, "gamma": "pinned"}
+    want = run_stream(jobs, 8, "gdm", device=first, **opts)
+    drv = StreamDriver(8, "gdm", device=first, **opts)
+    for j in jobs[:9]:
+        drv.feed(j)
+    resumed = SchedulerSession.restore(drv.session.snapshot(), jobs[:9],
+                                       "gdm", device=then, **opts)
+    assert resumed.device.type == then
+    for j in jobs[9:]:
+        resumed.submit(j)
+    resumed.advance()
+    out = resumed.result()
+    assert out.job_completions == want.online.job_completions
+    assert out.twct() == want.online.twct()
+
+
+def test_pinned_spread_replans_on_card_hit_group_and_gkey_caches():
+    """Spread-mode gdm under a pinned gamma on the card: the replans
+    reassemble cached group blocks and extend the cached grouping prefix
+    (the LRUs the one-shot plan path leaves idle), and every repaired part
+    records the card."""
+    from repro_torch.core import SchedulerSession, stream_jobs
+
+    _card()
+    jobs = stream_jobs(8, 40, 7, process="poisson", load=0.9, mu=2)
+    clear_caches()
+    s = SchedulerSession(8, "gdm", device="cuda", delays="spread", seed=0,
+                         gamma="pinned")
+    for j in jobs:
+        s.advance(until=j.release)
+        s.submit(j)
+        s.frontier()
+        plan_ = s.last_plan
+        if plan_ is not None and plan_.schedule.meta.get("repaired"):
+            assert all(p.device.type == "cuda"
+                       for p in plan_.schedule.parts)
+    s.advance()
+    st = cache_stats()
+    assert s.stats.repairs > 0
+    assert st["group"]["hits"] > 0 and st["gkey"]["hits"] > 0
+    assert st["gkey"]["prefix"]["extended"] + st["gkey"]["prefix"]["exact"] > 0
+
+
+def test_coflow_admission_serve_on_card_equals_cpu():
+    """The serving engine with coflow admission (the default) on the card:
+    its session plans on the card, and the run equals the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+    from repro_torch.models.lm import tree_map
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+
+    dev = _card()
+    cfg = get_config("qwen3-1.7b").smoke()
+    cpu = init_lm(cfg, torch.Generator().manual_seed(0))
+    card = tree_map(lambda x: x.to(dev), cpu)
+
+    def reqs():
+        rng = np.random.default_rng(3)
+        return [Request(rid=i, tokens=rng.integers(1, cfg.vocab,
+                                                   size=int(rng.integers(4, 17))),
+                        max_new=5, weight=float(rng.uniform(0.5, 2.0)),
+                        arrival=float(i // 2))
+                for i in range(7)]
+
+    outs = []
+    for params in (card, cpu):
+        eng = ServingEngine(cfg, params, ServeConfig(slots=3, capacity=32))
+        rs = reqs()
+        stats = eng.run(rs)
+        outs.append((stats, [r.out for r in rs], [r.finish_step for r in rs]))
+        assert eng._session.device.type == params["embed"].device.type
+        assert len(eng.admission_plan_s) == 4    # one per arrival tick
+    assert outs[0] == outs[1]
+    assert outs[0][0]["completed"] == 7

@@ -192,7 +192,15 @@ def test_port_imports_neither_jax_nor_repro():
         "            plan(inst, s, device='cpu', plan_backend=pb, seed=0,\n"
         "                 exec=ex)\n"
         "import importlib\n"
-        "importlib.import_module('repro_torch.core.backfill')\n"
+        "for mod in ('backfill', 'session', 'online', 'stream'):\n"
+        "    importlib.import_module('repro_torch.core.' + mod)\n"
+        "from repro_torch.core import (plan_online, poisson_releases,\n"
+        "                              run_stream, stream_jobs, theta0)\n"
+        "on = poisson_releases(inst, theta=3 * theta0(inst), seed=0)\n"
+        "for pb in ('python', 'pipeline'):\n"
+        "    plan_online(on, 'gdm', device='cpu', plan_backend=pb, seed=0)\n"
+        "    run_stream(stream_jobs(8, 6, 0), 8, 'gdm', gamma='pinned',\n"
+        "               delays='spread', device='cpu', plan_backend=pb)\n"
         "import repro_torch.models, repro_torch.serve, repro_torch.configs\n"
         "from repro_torch.launch import serve\n"
         "serve.main(['--requests', '3', '--max-new', '3', '--device', 'cpu'])\n"
