@@ -110,6 +110,42 @@ Phases; any failure exits non-zero and prints no result line:
    ``benchmarks/results/BENCH_serve.json``'s (read as data).  Prints
    p50/p95/p99 ms per arrival and jobs/s.  The two 1000-job om_alg cells
    are left out: 1000 full replans each, a path the other cells cover.
+6g. The zoo: instances from the port's own ``repro_torch.scenarios`` and
+   the paper's constructions, through the pipeline on the card, caches
+   cleared and the counts set to 0 before each run (``_zoo_run``).  The
+   CPU side runs in 6c's pool (its plain versions take minutes on the
+   FB-calibrated scenarios' gdm_rt); the card side in this process while
+   the pool works.  Card == CPU means equal twct, job completions,
+   makespan and transcript sha256.
+   a. Every scenario at its builder's defaults (seed 0; online_poisson
+      through ``strip_releases``) x gdm, gdm_rt, om_alg with
+      ``scheduler_opts``: card == CPU; ``verify_transcript`` and the
+      replay of the transcript's completions on both.
+   b. After the pool, on the card alone: every scenario at m = 150, scale
+      1.0 (dist_collectives on its 2 x 75 fabric) x gdm, om_alg, with
+      phase 5's stage split, ``verify_schedule`` and ``verify_transcript``;
+      then, for each plan whose merges take at most ``ZOO_PACKET_EDGES``
+      edges, cheapest first while ``ZOO_FABRIC_BUDGET_S`` lasts, the same
+      plan with ``decompose=True`` under the packet-level
+      ``verify_schedule``.
+   c. At tests/test_scenarios.py's MID sizes: gdm_bf, gdm_rt_bf, om_alg_bf
+      (exec ``packet``) on all 9 scenarios (capacity-feasible, no worse
+      than the plan), and ``plan_online`` of online_poisson (session) for
+      gdm and om_alg with each replan timed; card == CPU, the session's
+      counters too.
+   d. Lemma 2: ``gap_instance(K, d=1)`` for K in {2, 4, 8} x gdm, gdm_rt
+      (``require_tree=False``), om_alg, card == CPU, each makespan at or
+      above (2K+1)Kd; Theorem 1: ``fsp_to_coflow_job`` of an 8 x 32 flow
+      shop (integers 1-100 from seed 0) through gdm_rt, card == CPU,
+      ``verify_schedule``.
+   e. The collective planner: ``coflows_from_step(synthetic_collective_ops(
+      n_ops=128, seed, max_mb=8), 8, 8, 32)`` for seeds 0, 1, 2, planned
+      as three phases on one session on the card; each phase's order and
+      makespans equal to the CPU's.
+   Each run on the card must launch ``bna_decompose`` and ``merge_fix``
+   with 0 host repairs, 0 overflow buckets and 0 scalar BNA.  Prints each
+   cell's wall, launches and widest bucket, beside the card's name and
+   power limit.
 7. ``flash_attention`` (K4) against its plain version on the card, float32
    (FMA path) and bfloat16 (tensor-core path, ``mma.sync``), causal and
    not, at the reference sweep's shapes (d = 24, 32, 48, 64, 128) and
@@ -274,6 +310,42 @@ STREAM_POLICY = (16, 0.4, 16)       # AdmissionPolicy of the overload cell
 STREAM_OVERLOAD_JOBS = 60
 STREAM_KEYS = ("twct", "session_full_replans", "session_repairs",
                "deferred", "rejected")
+# phase 6g, the zoo: the port's own scenario registry (repro_torch.scenarios)
+# and the paper's constructions.  (a) every scenario at its builder's
+# defaults x ZOO_SCHEDS, card == CPU; (b) every scenario at m = ZOO_M,
+# scale 1.0 (dist_collectives on its 2 x 75 fabric) x ZOO_FABRIC on the card
+# alone, with a packet-level check; (c) the
+# *_bf schedulers and the online session at tests/test_scenarios.py's MID
+# sizes, card == CPU; (d) Lemma 2's gap instance for ZOO_GAP_K and Theorem
+# 1's reduction of a ZOO_FSP flow shop (integers 1-100 from seed 0), card ==
+# CPU; (e) the collective planner on an 8 x 8 pod (benchmarks/planner_ab.py's
+# fabric), three phases on one session, card == CPU
+ZOO_SCHEDS = ("gdm", "gdm_rt", "om_alg")
+ZOO_FABRIC = ("gdm", "om_alg")
+ZOO_M = 150
+# (b)'s packet-level check runs on a plan whose merges take at most
+# ZOO_PACKET_EDGES edges, while ZOO_FABRIC_BUDGET_S lasts: decompose=True
+# took 108-112 s a plan on shuffle_heavy's 6.4 M merged edges at m = 150
+ZOO_PACKET_EDGES = 1_000_000
+ZOO_FABRIC_BUDGET_S = 60.0
+ZOO_MID = {
+    "fb_like": dict(m=14, scale=0.06),
+    "fb_like_rt": dict(m=14, scale=0.06),
+    "alibaba_sparse": dict(m=14, scale=0.3),
+    "incast": dict(m=14, scale=0.25),
+    "shuffle_heavy": dict(m=12, scale=0.35),
+    "wide_shallow": dict(m=14, scale=0.3),
+    "deep_chain": dict(m=12, scale=0.4),
+    "online_poisson": dict(m=14, scale=0.06),
+    "dist_collectives": dict(m=12, scale=1.0),
+}
+ZOO_BF = ("gdm_bf", "gdm_rt_bf", "om_alg_bf")
+ZOO_ONLINE = ("gdm", "om_alg")
+ZOO_GAP_K = (2, 4, 8)
+ZOO_FSP = (8, 32)                   # machines x jobs
+ZOO_PLANNER = dict(n_ops=128, max_mb=8, rows=8, cols=8, n_buckets=32,
+                   seeds=(0, 1, 2))  # one phase per seed, one session
+ZOO_KEYS = ("twct", "job_completions", "makespan", "digest", "entries")
 LOGIT_TOL = 0.05                    # of the largest logit, bf16 card vs CPU
 LOGIT_TOL_F32 = 1e-3                # of the largest logit, float32 weights
 TF_TOL_BF16 = 0.08                  # of the largest logit, bf16 teacher forcing
@@ -347,6 +419,17 @@ def alloc_bytes(fn) -> int:
     peak = torch.cuda.max_memory_allocated() - base
     del out
     return peak
+
+
+def _nvidia_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reads them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0:
+        _fail(f"nvidia-smi exited {smi.returncode}: {smi.stderr.strip()}")
+    return smi.stdout.strip()
 
 
 def _host_cpu() -> str:
@@ -760,6 +843,260 @@ def _stream_cell(job) -> dict:
                            f"{launches}")
     return {"cell": cell, "n_jobs": n_jobs, "launches": launches,
             **res.as_dict()}
+
+
+def _zoo_run(job) -> dict:
+    """Phase 6g: one run of the zoo, ``job = (kind, what, sched, device)``,
+    through the pipeline on ``device``, caches cleared and the launch counts
+    set to 0 just before; the run's wall is on the host clock, synced, and
+    leaves the checks out.  Kinds:
+
+    * ``defaults``: scenario ``what`` at its builder's defaults (seed 0;
+      ``strip_releases`` for an online scenario) planned with ``sched`` and
+      ``scheduler_opts``;
+    * ``bf``: scenario ``what`` at ``ZOO_MID``'s size, ``sched`` a ``*_bf``
+      scheduler with exec ``packet``;
+    * ``online``: ``plan_online`` of online_poisson at ``ZOO_MID``'s size
+      (session driver), each replan timed;
+    * ``gap``: ``gap_instance(what, d=1)`` (``require_tree=False`` for
+      gdm_rt);
+    * ``fsp``: ``fsp_to_coflow_job`` of a ``ZOO_FSP`` flow shop, integers
+      1-100 from ``default_rng(0)``;
+    * ``planner``: ``dist.planner.plan`` of ``ZOO_PLANNER``'s step, then
+      its next phases on the same session.
+
+    Returns what card and CPU runs compare (``ZOO_KEYS``: twct,
+    completions, makespan, the transcript's sha256 and entry count; the
+    session counters; each planner phase's order and makespans) and the
+    run's launches, wall and widest ``bna_decompose`` bucket.  Raises
+    RuntimeError when a check fails: ``verify_transcript`` (capacity too
+    for ``*_bf``), the replay of the transcript's completions, a backfill
+    no worse than its plan, ``verify_schedule`` (fsp), a makespan below
+    Lemma 2's optimum, and on the card the path's kernels launched with 0
+    host repairs, 0 int32-overflow buckets and 0 scalar BNA."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    src = str(ROOT / "src")
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    from repro_torch import scenarios
+    from repro_torch.core import (cache_stats, clear_caches,
+                                  fsp_to_coflow_job, gap_bounds, gap_instance,
+                                  gap_optimal_schedule_length, plan,
+                                  plan_online, verify_schedule,
+                                  verify_transcript)
+    from repro_torch.dist import planner
+    from repro_torch.kernels.bna_decompose import bna_decompose
+    from repro_torch.kernels.merge_fix import merge_fix
+
+    pipeline = importlib.import_module("repro_torch.core.pipeline")
+    session = importlib.import_module("repro_torch.core.session")
+    kind, what, sched, device = job
+    cuda = device == "cuda"
+    widest = {"calls": 0, "shape": None}
+    replans: list = []
+    out: dict = {"job": list(job)}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    orig_dec = pipeline.bna_decompose
+    orig_ensure = session.SchedulerSession._ensure_plan
+
+    def decompose(d, ks, T_cap, t_store=None):
+        widest["calls"] += 1
+        B, w = int(d.shape[0]), int(d.shape[1])
+        if widest["shape"] is None or (w, B) > widest["shape"][::-1]:
+            widest["shape"] = (B, w)
+        return orig_dec(d, ks, T_cap, t_store=t_store)
+
+    def ensure(self, *args, **kwargs):
+        before = self.stats.reschedules
+        sync()
+        t0 = time.perf_counter()
+        try:
+            return orig_ensure(self, *args, **kwargs)
+        finally:
+            sync()
+            if self.stats.reschedules > before:
+                replans.append(time.perf_counter() - t0)
+
+    def ran(fn):
+        clear_caches()
+        bna_decompose.launches = merge_fix.launches = 0
+        pipeline.bna_decompose = decompose
+        session.SchedulerSession._ensure_plan = ensure
+        try:
+            sync()
+            t0 = time.perf_counter()
+            res = fn()
+            sync()
+            out["wall_s"] = time.perf_counter() - t0
+        finally:
+            pipeline.bna_decompose = orig_dec
+            session.SchedulerSession._ensure_plan = orig_ensure
+        st = cache_stats()
+        out["launches"] = {"bna_decompose": bna_decompose.launches,
+                           "merge_fix": merge_fix.launches}
+        out["widest_bucket"] = widest["shape"]
+        out["host_repairs"] = st["bna"]["repairs"]
+        out["bucket_fallbacks"] = (st["plan"]["decompose"]["bucket_fallbacks"]
+                                   + st["plan"]["fixup"]["bucket_fallbacks"])
+        out["scalar_bna"] = st["plan"]["fixup"]["scalar_bna"]
+        return res
+
+    def keep_plan(inst, got, capacity=False):
+        tr = got.transcript()
+        out.update(twct=got.twct(), job_completions=got.job_completions(),
+                   makespan=got.makespan, digest=_bf_digest(tr),
+                   entries=len(tr.entries), m=inst.m,
+                   coflows=sum(j.mu for j in inst.jobs))
+        try:
+            verify_transcript(inst, tr, check_capacity=capacity,
+                              makespan=got.makespan if capacity else None)
+        except AssertionError as err:
+            raise RuntimeError(f"{job}: transcript check failed: {err}") \
+                from err
+        replay = tr.job_completions()
+        bad = {j: (t, replay.get(j)) for j, t in got.job_completions().items()
+               if replay.get(j) is None or abs(replay[j] - t) > 1e-6}
+        if bad:
+            raise RuntimeError(f"{job}: the transcript replays other "
+                               f"completions: {bad}")
+
+    opts: dict = {}
+    if kind in ("defaults", "bf", "online"):
+        built = scenarios.build(what, seed=0, **({} if kind == "defaults"
+                                                 else ZOO_MID[what]))
+        inst = built.instance
+        if kind != "online" and built.meta.arrival != "offline":
+            inst = scenarios.strip_releases(inst)
+        opts = scenarios.scheduler_opts(sched, built.meta)
+    if kind == "defaults":
+        keep_plan(inst, ran(lambda: plan(inst, sched, device=device,
+                                         plan_backend="pipeline", seed=0,
+                                         **opts)))
+    elif kind == "bf":
+        got = ran(lambda: plan(inst, sched, device=device,
+                               plan_backend="pipeline", seed=0,
+                               exec="packet", **opts))
+        keep_plan(inst, got, capacity=True)
+        base = plan(inst, sched[:-3], device=device, plan_backend="pipeline",
+                    seed=0, **opts).twct()
+        out["plan_twct"] = base
+        if not got.twct() <= base * (1 + 1e-9) + 1e-9:
+            raise RuntimeError(f"{job}: twct {got.twct()} > the plan's "
+                               f"{base}")
+    elif kind == "online":
+        res = ran(lambda: plan_online(inst, sched, driver="session",
+                                      device=device, plan_backend="pipeline",
+                                      seed=0, **opts))
+        ss = res.stats["session"]
+        out.update(twct=res.twct(), job_completions=res.job_completions,
+                   reschedules=res.reschedules, jobs=len(inst.jobs),
+                   session={k: ss[k] for k in (
+                       "reschedules", "repairs", "full_replans",
+                       "repair_rejects", "groups_reused",
+                       "groups_replanned")},
+                   replan_ms=[t * 1e3 for t in replans],
+                   replan_wall=_quantiles(replans))
+    elif kind == "gap":
+        inst = gap_instance(what, d=1)
+        opts = {"require_tree": False} if sched == "gdm_rt" else {}
+        got = ran(lambda: plan(inst, sched, device=device,
+                               plan_backend="pipeline", seed=0, **opts))
+        keep_plan(inst, got)
+        delta, T = gap_bounds(inst)
+        opt = gap_optimal_schedule_length(what, 1)
+        out.update(delta=delta, T=T, optimum=opt)
+        if not (delta == T == 2 * what and got.makespan >= opt):
+            raise RuntimeError(f"{job}: Delta {delta}, T {T}, makespan "
+                               f"{got.makespan} against the optimum {opt}")
+    elif kind == "fsp":
+        p = np.random.default_rng(0).integers(1, 101, size=ZOO_FSP)
+        inst = fsp_to_coflow_job(p)
+        got = ran(lambda: plan(inst, sched, device=device,
+                               plan_backend="pipeline", seed=0))
+        keep_plan(inst, got)
+        try:
+            verify_schedule(inst, got.schedule)
+        except AssertionError as err:
+            raise RuntimeError(f"{job}: verify_schedule failed: {err}") \
+                from err
+    elif kind == "planner":
+        cfg = ZOO_PLANNER
+
+        def phases():
+            rows, shared = [], None
+            for seed in cfg["seeds"]:
+                ops = planner.synthetic_collective_ops(
+                    n_ops=cfg["n_ops"], seed=seed, max_mb=cfg["max_mb"])
+                step = planner.coflows_from_step(ops, cfg["rows"],
+                                                 cfg["cols"],
+                                                 cfg["n_buckets"])
+                res = planner.plan(step, device=device,
+                                   plan_backend="pipeline") \
+                    if shared is None else planner.plan(step, session=shared)
+                shared = res.session
+                rows.append({"order": res.order,
+                             "planner_makespan": res.planner_makespan,
+                             "naive_makespan": res.naive_makespan,
+                             "makespan_gain": res.makespan_gain,
+                             "jobs": step.n,
+                             "coflows": sum(j.mu for j in step.jobs)})
+            return rows, shared
+
+        rows, shared = ran(phases)
+        out["phases"] = rows
+        out["session"] = {k: getattr(shared.stats, k) for k in (
+            "reschedules", "repairs", "full_replans")}
+        out["m"] = ZOO_PLANNER["rows"] * ZOO_PLANNER["cols"]
+    else:
+        raise ValueError(f"unknown zoo run {kind!r}")
+    if cuda:
+        bad = [k for k, v in out["launches"].items() if not v]
+        if bad or out["host_repairs"] or out["bucket_fallbacks"] \
+                or out["scalar_bna"]:
+            raise RuntimeError(
+                f"{job}: launches {out['launches']}, {out['host_repairs']} "
+                f"host repairs, {out['bucket_fallbacks']} overflow buckets, "
+                f"{out['scalar_bna']} scalar bna")
+    return out
+
+
+def _zoo_worker(job) -> dict:
+    """_zoo_run in a spawned process, one intra-op thread."""
+    import torch
+
+    torch.set_num_threads(1)
+    return _zoo_run(job)
+
+
+def _zoo_jobs(device: str) -> list:
+    """Phase 6g's card = CPU runs, longest first (the CPU's plain versions
+    take minutes on the FB-calibrated scenarios' gdm_rt)."""
+    import importlib
+
+    src = str(ROOT / "src")
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    names = importlib.import_module("repro_torch.scenarios").names()
+    fb = [n for n in names if n in ("fb_like", "fb_like_rt",
+                                    "online_poisson")]
+    rest = [n for n in names if n not in fb]
+    return [("defaults", n, "gdm_rt", device) for n in fb] \
+        + [("defaults", n, s, device) for s in ("gdm", "om_alg")
+           for n in fb] \
+        + [("gap", k, s, device) for k in ZOO_GAP_K[::-1]
+           for s in ZOO_SCHEDS] \
+        + [("defaults", n, s, device) for n in rest for s in ZOO_SCHEDS] \
+        + [("bf", n, s, device) for n in names for s in ZOO_BF] \
+        + [("online", "online_poisson", s, device) for s in ZOO_ONLINE] \
+        + [("fsp", None, "gdm_rt", device), ("planner", None, "gdm", device)]
 
 
 def main() -> int:
@@ -1571,13 +1908,19 @@ def main() -> int:
         for g in ("residual", "pinned")] + [
         ("overload_mmpp_gdm_spread", "gdm", "mmpp", "residual",
          STREAM_OVERLOAD_JOBS, STREAM["overload"], STREAM_POLICY)]
-    submissions = [(_bf_worker, j) for j in worker_jobs[:len(large_jobs)
-                                                       + 2 * len(bf_jobs)]] \
+    # phase 6g's CPU side (the zoo) goes to the same pool: its three
+    # longest runs right after the larger scales, the rest at the end
+    zoo_cpu = _zoo_jobs("cpu")
+    submissions = [(_bf_worker, j) for j in worker_jobs[:len(large_jobs)]] \
+        + [(_zoo_worker, j) for j in zoo_cpu[:3]] \
+        + [(_bf_worker, j) for j in worker_jobs[len(large_jobs):len(
+            large_jobs) + 2 * len(bf_jobs)]] \
         + [(_online_worker, j) for j in online_jobs[:6]] \
         + [(_stream_cell, j) for j in stream_jobs_] \
         + [(_bf_worker, j) for j in worker_jobs[len(large_jobs)
                                                 + 2 * len(bf_jobs):]] \
-        + [(_online_worker, j) for j in online_jobs[6:]]
+        + [(_online_worker, j) for j in online_jobs[6:]] \
+        + [(_zoo_worker, j) for j in zoo_cpu[3:]]
     t_bf = time.perf_counter()
     pool = ProcessPoolExecutor(max_workers=BF_WORKERS,
                                mp_context=multiprocessing.get_context("spawn"))
@@ -1597,6 +1940,14 @@ def main() -> int:
         t_online = time.perf_counter()
         online_runs = online_pair()     # phase 6d, while the workers run
         online_pair_s = time.perf_counter() - t_online
+        t_zoo = time.perf_counter()
+        zoo_card: dict = {}
+        for job in _zoo_jobs("cuda"):     # phase 6g's card side, meanwhile
+            try:
+                zoo_card[job[:3]] = _zoo_run(job)
+            except RuntimeError as err:
+                _fail(str(err))
+        zoo_card_s = time.perf_counter() - t_zoo
         pool_runs: dict = {}
         for job, fut in futures.items():
             try:
@@ -1719,6 +2070,162 @@ def main() -> int:
               "BENCH_serve.json")
     record["stream"] = {"rows": stream_rows, "left_out": [
         "poisson_om_alg", "mmpp_om_alg"], "workers": BF_WORKERS}
+
+    # 6g. the zoo: (a), (c)-(e) card == CPU (the CPU side in the pool) ----
+    from repro_torch import scenarios
+
+    smi_zoo = _nvidia_smi()
+    zoo_rows = []
+    for job in zoo_cpu:
+        cpu, card = pool_runs.pop(job), zoo_card[job[:3]]
+        kind = job[0]
+        keys = {"online": ("twct", "job_completions", "reschedules",
+                           "session"),
+                "planner": ("phases",)}.get(kind, ZOO_KEYS)
+        if any(card[k] != cpu[k] for k in keys):
+            diff = [k for k in keys if card[k] != cpu[k]]
+            _fail(f"zoo {job[:3]}: the card differs from the CPU in {diff}")
+        zoo_rows.append({**{k: v for k, v in card.items()
+                            if k != "job_completions"},
+                         "cpu_wall_s": cpu["wall_s"]})
+    rows_by = {tuple(r["job"][:3]): r for r in zoo_rows}
+
+    def zoo_cell(r) -> str:
+        return (f"wall {r['wall_s']:.3f} s (CPU {r['cpu_wall_s']:.2f} s), "
+                f"launches bna_decompose {r['launches']['bna_decompose']}, "
+                f"merge_fix {r['launches']['merge_fix']}, widest bucket "
+                f"(B, w) {r['widest_bucket']}")
+
+    print(f"zoo (phase 6g) on {smi_zoo}; card runs {zoo_card_s:.1f} s in "
+          "this process beside the pool; every card run equal to the CPU's")
+    for (kind, what, sched), r in rows_by.items():
+        if kind == "defaults":
+            print(f"zoo {what} (defaults, m={r['m']}, {r['coflows']} "
+                  f"coflows) {sched}: twct {r['twct']}, {zoo_cell(r)}")
+        elif kind == "bf":
+            print(f"zoo {what} (MID) {sched}: twct {r['twct']} (plan "
+                  f"{r['plan_twct']}), {zoo_cell(r)}")
+        elif kind == "online":
+            w = r["replan_wall"]
+            print(f"zoo online_poisson (MID, session) {sched}: "
+                  f"{r['jobs']} jobs, reschedules {r['reschedules']}, "
+                  f"counters {json.dumps(r['session'])}, per-replan ms "
+                  f"p50 {w['p50_ms']:.2f} p95 {w['p95_ms']:.2f} max "
+                  f"{w['max_ms']:.2f} ({[round(x, 2) for x in r['replan_ms']]}), "
+                  f"twct {r['twct']}, {zoo_cell(r)}")
+        elif kind == "gap":
+            print(f"zoo Lemma 2 gap_instance(K={what}, d=1) ({r['coflows']} "
+                  f"coflows, m={r['m']}) {sched}: makespan {r['makespan']}, "
+                  f"Delta = T = {r['delta']}, (2K+1)Kd = {r['optimum']}, "
+                  f"{zoo_cell(r)}")
+        elif kind == "fsp":
+            print(f"zoo Theorem 1 fsp_to_coflow_job({ZOO_FSP[0]} x "
+                  f"{ZOO_FSP[1]}) {sched}: makespan {r['makespan']}, "
+                  f"verify_schedule holds, {zoo_cell(r)}")
+        else:
+            print(f"zoo planner ({ZOO_PLANNER['rows']} x "
+                  f"{ZOO_PLANNER['cols']} pod, {ZOO_PLANNER['n_ops']} ops in "
+                  f"{ZOO_PLANNER['n_buckets']} buckets, "
+                  f"{len(r['phases'])} phases on one session): "
+                  + "; ".join(
+                      f"phase {i}: makespan {ph['planner_makespan']} vs "
+                      f"naive {ph['naive_makespan']}, gain "
+                      f"{ph['makespan_gain']:.4f}"
+                      for i, ph in enumerate(r["phases"]))
+                  + f"; session {json.dumps(r['session'])}, {zoo_cell(r)}")
+
+    # (b) the paper's fabric, m = ZOO_M, scale 1.0, on the card alone: the
+    # pipeline with phase 5's stage split; then packet-level plans
+    # (decompose=True) under verify_schedule while the budget lasts
+    t_fab = time.perf_counter()
+    zoo_widest: dict = {}
+    zoo_edges = [0]
+    key, mkey = (pipeline, "bna_decompose"), (backend, "merge_fix_step")
+
+    def zoo_count_edges(fn):
+        def wrapped(events, t0, t1, s, r, m, *, device):
+            zoo_edges[0] += len(s)
+            return fn(events, t0, t1, s, r, m, device=device)
+        return wrapped
+
+    def zoo_keep_widest(fn):
+        def wrapped(d, ks, T_cap, t_store=None):
+            B, w = int(d.shape[0]), int(d.shape[1])
+            if (w, B) > zoo_widest.get("wB", (0, 0)):
+                zoo_widest["wB"] = (w, B)
+            return fn(d, ks, T_cap, t_store=t_store)
+        return wrapped
+
+    cheap_first = ("dist_collectives", "deep_chain", "wide_shallow",
+                   "incast", "alibaba_sparse", "shuffle_heavy", "fb_like",
+                   "fb_like_rt", "online_poisson")
+    if sorted(cheap_first) != scenarios.names():
+        _fail(f"the zoo's scenarios changed: {scenarios.names()}")
+    fabric = {}
+    for name in cheap_first:
+        built = scenarios.build(name, m=ZOO_M, seed=0, scale=1.0)
+        inst = scenarios.strip_releases(built.instance)
+        for sched in ZOO_FABRIC:
+            zoo_widest.clear()
+            zoo_edges[0] = 0
+            saved_stages[key] = zoo_keep_widest(orig_decompose)
+            saved_stages[mkey] = zoo_count_edges(orig_merge_fix_step)
+            try:
+                _, prun = pipeline_plan(inst, sched)
+            finally:
+                saved_stages[key] = orig_decompose
+                saved_stages[mkey] = orig_merge_fix_step
+            fabric[(name, sched)] = {
+                "scenario": name, "sched": sched, "m": inst.m,
+                "coflows": sum(j.mu for j in inst.jobs),
+                "merged_edges": zoo_edges[0],
+                "widest_bucket": zoo_widest["wB"][::-1], **prun}
+            print(f"zoo fabric {name} (m={inst.m}, scale 1.0, "
+                  f"{fabric[(name, sched)]['coflows']} coflows) {sched}: "
+                  f"wall {prun['plan_s_cuda']:.3f} s, launches "
+                  f"bna_decompose {prun['launches']['bna_decompose']}, "
+                  f"merge_fix {prun['launches']['merge_fix']}, widest "
+                  f"bucket (B, w) {fabric[(name, sched)]['widest_bucket']}, "
+                  f"{zoo_edges[0]} merged edges, stage s "
+                  f"{json.dumps(prun['stage_s'])}; feasible")
+    for (name, sched), row in fabric.items():
+        if row["merged_edges"] > ZOO_PACKET_EDGES or \
+                time.perf_counter() - t_fab > ZOO_FABRIC_BUDGET_S:
+            row["packet_check"] = None
+            continue
+        built = scenarios.build(name, m=ZOO_M, seed=0, scale=1.0)
+        inst = scenarios.strip_releases(built.instance)
+        clear_caches()
+        t0 = time.perf_counter()
+        pd = plan(inst, sched, device="cuda", seed=0, decompose=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        verify_schedule(inst, pd.schedule, check_packets=True)
+        row["packet_check"] = {"plan_s_cuda": wall,
+                               "total_s": time.perf_counter() - t0}
+    fabric_s = time.perf_counter() - t_fab
+    checked_pk = [f"{n}/{s_}" for (n, s_), r in fabric.items()
+                  if r["packet_check"]]
+    print(f"zoo fabric: {len(checked_pk)} of {len(fabric)} plans also "
+          f"planned with decompose=True and held by verify_schedule at the "
+          f"packet level ({', '.join(checked_pk)}); the rest left out (more "
+          f"than {ZOO_PACKET_EDGES} merged edges, or past the "
+          f"{ZOO_FABRIC_BUDGET_S:.0f} s budget); (b) took {fabric_s:.1f} s "
+          f"on {smi_zoo}")
+    record["zoo"] = {"rows": zoo_rows, "card_s": zoo_card_s,
+                     "fabric": list(fabric.values()), "fabric_s": fabric_s,
+                     "nvidia_smi": smi_zoo}
+
+    def zoo_launches(name: str) -> dict:
+        """A kernel's launches per plan in the zoo's card runs."""
+        label = {"defaults": "{}", "gap": "gap K={}", "fsp": "fsp {}"}
+        out_ = {label[r["job"][0]].format(
+            r["job"][1] if r["job"][0] != "fsp" else "x".join(
+                map(str, ZOO_FSP))) + f"/{r['job'][2]}": r["launches"][name]
+                for r in zoo_rows if r["job"][0] in label}
+        out_.update({f"{r['scenario']}@{ZOO_M}/{r['sched']}":
+                     r["launches"][name] for r in fabric.values()})
+        return out_
 
     def online_per_replan(name: str) -> dict:
         """A kernel's launches per replan in this slice's session runs on
@@ -2446,6 +2953,7 @@ def main() -> int:
         "replaces": "src/repro/core/pipeline.py:114",
         "launches": pipe_runs["gdm"]["launches"]["bna_decompose"],
         "online_launches_per_replan": online_per_replan("bna_decompose"),
+        "zoo_launches_per_plan": zoo_launches("bna_decompose"),
         "max_abs_err": max_err["bna_decompose"],
         "ms": dec_ms, "plain_ms": dec_plain_ms,
         "bound_ms": k_dec_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
@@ -2501,6 +3009,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/merge_fix/ops.py:28",
         "launches": pipe_runs["gdm"]["launches"]["merge_fix"],
         "online_launches_per_replan": online_per_replan("merge_fix"),
+        "zoo_launches_per_plan": zoo_launches("merge_fix"),
         "max_abs_err": max_err["merge_fix"],
         "ms": _cuda_ms(lambda: merge_fix(*mf_args, mf_m)),
         "plain_ms": _cuda_ms(lambda: merge_fix_ref(*mf_args, mf_m)),
@@ -2645,13 +3154,8 @@ def main() -> int:
         for k in kernels_line}
     record["kernels"] = kernels_line
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if smi.returncode != 0:
-        _fail(f"nvidia-smi exited {smi.returncode}: {smi.stderr.strip()}")
-    record["nvidia_smi"] = smi.stdout.strip()
+    smi = _nvidia_smi()
+    record["nvidia_smi"] = smi
     record["total_s"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2688,7 +3192,7 @@ def main() -> int:
          for r in [*record["online"]["pair"], record["online"]["full"]]
          if r["job"][5] == "session"}))
     print(f"total {record['total_s']:.1f} s")
-    print(smi.stdout.strip())
+    print(smi)
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""Workload generation (paper §VII) — the part of ``repro.core.traces``
-that ``paper_workload``, the online drivers and the streaming harness
-need (``workload_stats`` is not ported yet).
+"""Workload generation (paper §VII), as ``repro.core.traces``: the
+calibrated trace behind ``paper_workload``, the generalized primitives the
+scenario registry (``repro_torch.scenarios``) and the streaming harness
+are built on, and ``workload_stats``.
 
 The paper evaluates on a Facebook Hive/MapReduce trace (150 racks, 267
 coflows, flow sizes in [1, 2472], coflow effective sizes in [5, 232145],
@@ -29,9 +30,11 @@ import math
 
 import numpy as np
 
-from .types import Coflow, Instance, Job
+from .types import (Coflow, Instance, Job, children_of, coflow_layers,
+                    is_rooted_tree, parents_of)
 
 __all__ = [
+    "PAPER_STATS",
     "fb_like_coflows",
     "dag_edges",
     "build_jobs",
@@ -42,7 +45,12 @@ __all__ = [
     "sample_sizes",
     "port_skew",
     "sample_coflows",
+    "workload_stats",
 ]
+
+# Published trace statistics (paper §VII "Workload")
+PAPER_STATS = dict(m=150, n_coflows=267, min_flow=1, max_flow=2472,
+                   min_width=10, max_width=21170, delta=440419)
 
 def fb_like_coflows(
     m: int = 150,
@@ -278,3 +286,38 @@ def poisson_releases(instance: Instance, theta: float, seed: int = 0) -> Instanc
     jobs = [dataclasses.replace(j, release=int(t))
             for j, t in zip(instance.jobs, times)]
     return Instance(instance.m, jobs)
+
+
+def workload_stats(instance: Instance) -> dict:
+    """The trace statistics the paper reports (``PAPER_STATS``'s keys) plus
+    effective sizes and the DAG shape: depth is the longest Starts-After
+    path (edges), fan-in / fan-out the most parents / children of any
+    coflow, tree fraction the share of jobs whose graph is a rooted tree."""
+    sizes = [int(c.demand[c.demand > 0].min()) for j in instance.jobs
+             for c in j.coflows if (c.demand > 0).any()]
+    sizes_max = [int(c.demand.max()) for j in instance.jobs for c in j.coflows]
+    eff = [c.D for j in instance.jobs for c in j.coflows]
+    widths = [int((c.demand > 0).sum()) for j in instance.jobs for c in j.coflows]
+    depths = [max(len(coflow_layers(j)) - 1, 0) for j in instance.jobs]
+    fan_in = [max((len(p) for p in parents_of(j.mu, j.edges)), default=0)
+              for j in instance.jobs]
+    fan_out = [max((len(c) for c in children_of(j.mu, j.edges)), default=0)
+               for j in instance.jobs]
+    trees = [is_rooted_tree(j) for j in instance.jobs]
+    return dict(
+        m=instance.m,
+        n_jobs=instance.n,
+        n_coflows=sum(j.mu for j in instance.jobs),
+        min_flow=min(sizes, default=0),
+        max_flow=max(sizes_max, default=0),
+        min_width=min(widths, default=0),
+        max_width=max(widths, default=0),
+        min_eff=min(eff, default=0),
+        max_eff=max(eff, default=0),
+        delta=instance.delta(),
+        dag_depth_max=max(depths, default=0),
+        dag_depth_mean=float(np.mean(depths)) if depths else 0.0,
+        max_fan_in=max(fan_in, default=0),
+        max_fan_out=max(fan_out, default=0),
+        tree_fraction=float(np.mean(trees)) if trees else 0.0,
+    )

@@ -987,3 +987,116 @@ def test_coflow_admission_serve_on_card_equals_cpu():
         assert len(eng.admission_plan_s) == 4    # one per arrival tick
     assert outs[0] == outs[1]
     assert outs[0][0]["completed"] == 7
+
+
+# the zoo (repro_torch.scenarios) at tests/test_scenarios.py's MID sizes
+_ZOO_MID = {
+    "fb_like": dict(m=14, scale=0.06),
+    "fb_like_rt": dict(m=14, scale=0.06),
+    "alibaba_sparse": dict(m=14, scale=0.3),
+    "incast": dict(m=14, scale=0.25),
+    "shuffle_heavy": dict(m=12, scale=0.35),
+    "wide_shallow": dict(m=14, scale=0.3),
+    "deep_chain": dict(m=12, scale=0.4),
+    "online_poisson": dict(m=14, scale=0.06),
+    "dist_collectives": dict(m=12, scale=1.0),
+}
+
+
+def _plan_card_and_cpu(inst, sched, plan_backend, **opts):
+    """``sched``'s plan of ``inst`` on the card, which must launch the plan
+    backend's kernels, and the same plan on the CPU."""
+    clear_caches()
+    for fn in (bna_step, coflow_merge, bna_decompose, merge_fix):
+        fn.launches = 0
+    got = plan(inst, sched, device="cuda", plan_backend=plan_backend, seed=0,
+               **opts)
+    torch.cuda.synchronize()
+    path = (bna_decompose, merge_fix) if plan_backend == "pipeline" \
+        else (bna_step, coflow_merge)
+    assert all(fn.launches > 0 for fn in path)
+    clear_caches()
+    want = plan(inst, sched, device="cpu", plan_backend=plan_backend, seed=0,
+                **opts)
+    return got, want
+
+
+@pytest.mark.parametrize("plan_backend", ["pipeline", "python"])
+@pytest.mark.parametrize("sched", ["gdm", "gdm_rt", "om_alg"])
+@pytest.mark.parametrize("scen", sorted(_ZOO_MID))
+def test_zoo_mid_plan_on_card_equals_cpu(scen, sched, plan_backend):
+    """Every scenario of the port's registry at MID size, planned on the
+    card through either plan backend, equals the CPU's plan."""
+    from repro_torch import scenarios
+
+    _card()
+    built = scenarios.build(scen, seed=0, **_ZOO_MID[scen])
+    inst = scenarios.strip_releases(built.instance)
+    got, want = _plan_card_and_cpu(
+        inst, sched, plan_backend,
+        **scenarios.scheduler_opts(sched, built.meta))
+    verify_transcript(inst, got.transcript())
+    _assert_plans_equal(got, want)
+    assert got.makespan == want.makespan
+
+
+@pytest.mark.parametrize("plan_backend", ["pipeline", "python"])
+@pytest.mark.parametrize("sched", ["gdm", "gdm_rt", "om_alg"])
+def test_gap_instance_plan_on_card_equals_cpu(sched, plan_backend):
+    """Lemma 2's gap instance (K = 4: 64 one-flow coflows under a dense
+    DAG, every bucket of width 1) on the card equals the CPU's plan, and no
+    plan beats the optimum (2K+1)K."""
+    from repro_torch.core import gap_instance, gap_optimal_schedule_length
+
+    _card()
+    inst = gap_instance(4, d=1)
+    opts = {"require_tree": False} if sched == "gdm_rt" else {}
+    got, want = _plan_card_and_cpu(inst, sched, plan_backend, **opts)
+    _assert_plans_equal(got, want)
+    assert got.makespan == want.makespan
+    assert got.makespan >= gap_optimal_schedule_length(4, 1)
+
+
+@pytest.mark.parametrize("plan_backend", ["pipeline", "python"])
+def test_fsp_reduction_plan_on_card_equals_cpu(plan_backend):
+    """Theorem 1's coflow job of an 8 x 32 flow shop through gdm_rt on the
+    card equals the CPU's plan and passes verify_schedule."""
+    from repro_torch.core import fsp_to_coflow_job, verify_schedule
+
+    _card()
+    p = np.random.default_rng(0).integers(1, 101, size=(8, 32))
+    inst = fsp_to_coflow_job(p)
+    got, want = _plan_card_and_cpu(inst, "gdm_rt", plan_backend)
+    _assert_plans_equal(got, want)
+    verify_schedule(inst, got.schedule)
+
+
+@pytest.mark.parametrize("plan_backend", ["pipeline", "python"])
+def test_planner_shared_session_on_card_equals_cpu(plan_backend):
+    """The collective planner on an 8 x 8 pod: three phases on one session
+    on the card, each phase's order and makespans equal to the CPU's."""
+    from repro_torch.dist import planner
+
+    _card()
+    outs = []
+    for device in ("cuda", "cpu"):
+        clear_caches()
+        bna_decompose.launches = merge_fix.launches = 0
+        bna_step.launches = coflow_merge.launches = 0
+        rows, shared = [], None
+        for seed in (0, 1, 2):
+            step = planner.coflows_from_step(
+                planner.synthetic_collective_ops(n_ops=32, seed=seed),
+                8, 8, 8)
+            res = planner.plan(step, device=device, plan_backend=plan_backend) \
+                if shared is None else planner.plan(step, session=shared)
+            shared = res.session
+            assert sorted(res.order) == list(range(step.n))
+            rows.append((res.order, res.planner_makespan, res.naive_makespan))
+        assert shared.device.type == device
+        if device == "cuda":
+            path = (bna_decompose, merge_fix) if plan_backend == "pipeline" \
+                else (bna_step, coflow_merge)
+            assert all(fn.launches > 0 for fn in path)
+        outs.append((rows, shared.result().job_completions))
+    assert outs[0] == outs[1]

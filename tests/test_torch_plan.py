@@ -201,6 +201,22 @@ def test_port_imports_neither_jax_nor_repro():
         "    plan_online(on, 'gdm', device='cpu', plan_backend=pb, seed=0)\n"
         "    run_stream(stream_jobs(8, 6, 0), 8, 'gdm', gamma='pinned',\n"
         "               delays='spread', device='cpu', plan_backend=pb)\n"
+        "from repro_torch import scenarios\n"
+        "from repro_torch.core import (fsp_to_coflow_job, gap_instance,\n"
+        "                              workload_stats)\n"
+        "from repro_torch.dist import planner\n"
+        "import repro_torch.core.fsp_reduction, repro_torch.core.gap_instance\n"
+        "for name in scenarios.names():\n"
+        "    b = scenarios.build(name, seed=0, scale=0.05,\n"
+        "                        m=8 if name == 'dist_collectives' else 6)\n"
+        "    scenarios.check_bounds(b)\n"
+        "    workload_stats(b.instance)\n"
+        "plan(gap_instance(2), 'gdm', device='cpu', seed=0)\n"
+        "plan(fsp_to_coflow_job([[3, 1], [2, 4]]), 'gdm_rt', device='cpu',\n"
+        "     seed=0)\n"
+        "planner.plan(planner.coflows_from_step(\n"
+        "    planner.synthetic_collective_ops(8, seed=0), 2, 2, 4),\n"
+        "    device='cpu')\n"
         "import repro_torch.models, repro_torch.serve, repro_torch.configs\n"
         "from repro_torch.launch import serve\n"
         "serve.main(['--requests', '3', '--max-new', '3', '--device', 'cpu'])\n"
