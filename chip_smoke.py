@@ -148,11 +148,15 @@ Phases; any failure exits non-zero and prints no result line:
    power limit.
 7. ``flash_attention`` (K4) against its plain version on the card, float32
    (FMA path) and bfloat16 (tensor-core path, ``mma.sync``), causal and
-   not, at the reference sweep's shapes (d = 24, 32, 48, 64, 128) and
+   not, at the reference sweep's shapes (d = 24, 32, 48, 64, 128),
    qwen3-1.7b's prefill shapes (B=1, Hq=16, Hkv=8, d=128, S in {1, 127,
-   2048}).  Tolerances: 2e-5 in float32 (the reference's test; the sums
-   run in another order), 4e-2 in bfloat16 (both round a float32 result to
-   bfloat16, so they may differ by an ulp of values up to a few units).
+   2048}) and the families' of phase 14b (``FAMILY_ATTN``: whisper's
+   encoder, 20 heads of d = 64 over 1500 frames, and its cross-attention,
+   Sq = 64 over Sk = 1500; granite's 24:8 at d = 64, S = 3072; qwen3-moe's
+   64:4 at S = 2048; llava's 32:8 at S = 3008).  Tolerances: 2e-5 in
+   float32 (the reference's test; the sums run in another order), 4e-2 in
+   bfloat16 (both round a float32 result to bfloat16, so they may differ
+   by an ulp of values up to a few units).
 8. Serve qwen3-1.7b at its published full width (28 layers, d_model 2048,
    vocab 151936, bf16; 2.03 B parameters from seed 0) with
    ``ServingEngine(ServeConfig(slots=4, capacity=4096, admission="fifo"))``:
@@ -208,6 +212,38 @@ Phases; any failure exits non-zero and prints no result line:
    ``_pad_cache`` cannot serve); all must complete.  Prints prefill seconds
    per request, decode ms per token, tokens/s, peak memory and a profile
    of one prefill and 8 decode ticks.
+14b. The MoE, encoder-decoder and VLM families, each at its published width
+   with weights from seed 0 (a ``torch.Generator`` on the card), each
+   freed before the next (``_families``):
+   a. granite-moe-3b (32 layers, 40 experts top-8, bf16; 3.4 B
+      parameters), the slice's path: a checked prefill (every K4 launch
+      against the plain version), then phase 8's 8 requests served
+      (``_serve_run``, fifo, the counts set to 0 just before), 32 K4
+      launches per prefill; a 2048-token prompt's routing (pairs dropped
+      per layer) with layer 16's MoE input through ``moe_route`` and
+      ``moe_ffn`` on the card and on the CPU (equal experts and kept pairs
+      on at least 99% of them, outputs within 5% where a token routes
+      alike); ``lm_loss`` at S = 2048; a 64-token prefill card vs CPU.
+   b. qwen3-moe-235b at full width (128 experts top-8) with its depth cut
+      to 2 of 94 layers: ``lm_forward`` (checked K4) and ``lm_loss`` at
+      B = 1, S = 2048.
+   c. jamba-1.5-large's smoke config (float32; attention, mamba through K5
+      and MoE in one period): ``lm_forward`` card vs CPU (0.1% of the
+      largest logit), its aux and ``lm_loss`` within 1e-4, and prefill +
+      decode against the card's ``lm_forward`` (2e-3, the reference's
+      test).
+   d. whisper-large-v3 (32 + 32 layers, bf16): 1500 frames of seeded
+      normal embeddings and a 64-token prompt through ``encdec_prefill``
+      (checked: 96 K4 launches, 32 encoder, 32 decoder self, 32 cross),
+      32 ``encdec_decode_step``s, ``encdec_loss`` on 448 tokens; card vs
+      CPU on the weights cut to 2 + 2 layers.
+   e. llava-next-mistral-7b (32 layers, bf16, 7.2 B parameters): 2880
+      seeded patch embeddings and 128 tokens through ``vlm_prefill``
+      (checked, 32 K4 launches), 16 ``decode_step``s on its cache,
+      ``vlm_loss``; card vs CPU on the weights cut to 2 layers (576
+      patches and 64 tokens).
+   Bf16 card vs CPU logits within 5% of the largest.  Prints each model's
+   walls, decode ms per token, peak memory and K4 launches per prefill.
 15. Time each kernel at the largest shapes the main path gave it (CUDA
    events for the asynchronous ones; host clock around the call for
    ``bna_decompose``, whose wrapper reads the step counts back), beside
@@ -224,8 +260,9 @@ Phases; any failure exits non-zero and prints no result line:
    shared-memory round trips at 30 cycles each, over the SM clock that
    ``nvidia-smi`` reads while it runs), and its lanes and shared memory
    per block; K4 also at S=32768 (the ``prefill_32k`` sequence length)
-   and beside
-   ``scaled_dot_product_attention``; K5 at mamba2's B=2, S=4096 (no
+   and at the families' shapes as their paths run them, each beside
+   ``scaled_dot_product_attention``, its launches on granite's serve (this
+   slice's path) and per prefill of each family; K5 at mamba2's B=2, S=4096 (no
    PyTorch call computes the SSD scan, so its library time is null).  K4's
    and K5's rows add their design, TFLOP/s, and the registers, local
    memory (spills) and dynamic shared memory of each kernel as the loaded
@@ -270,6 +307,32 @@ KERNELS = ("bna_step", "coflow_merge", "bna_decompose", "merge_fix",
            "flash_attention", "ssd_scan")
 SERVE_ARCH = "qwen3-1.7b"
 SSM_ARCH = "mamba2-2.7b"
+# phase 14b, the MoE, encoder-decoder and VLM families at full width:
+# granite-moe-3b served (the slice's path), qwen3-moe-235b at full width
+# with its depth cut (one 128-expert layer is 2.42 B parameters: 94 do not
+# fit one card), jamba-1.5-large's smoke config (one full-width period of
+# 4 MoE layers is about 77 GB in bf16), whisper-large-v3 and
+# llava-next-mistral-7b
+MOE_ARCH = "granite-moe-3b"
+WIDE_MOE = ("qwen3-moe-235b", 2)    # (arch, periods kept)
+HYBRID_ARCH = "jamba-1.5-large"
+ENCDEC_ARCH = "whisper-large-v3"
+VLM_ARCH = "llava-next-mistral-7b"
+LOSS_S = 2048                       # lm_loss's and the routing check's S
+ENCDEC_PROMPT, ENCDEC_DECODE, ENCDEC_LOSS = 64, 32, 448
+VLM_TEXT, VLM_DECODE = 128, 16
+VLM_CPU = (576, 64)                 # patches, text tokens of the CPU compare
+TF_ABS_TOL = 2e-3                   # the reference's teacher-forcing test
+# K4 at the families' shapes (B, Hq, Hkv, Sq, Sk, d) -> causal on their
+# path: whisper's encoder and its cross-attention (a 64-token decoder
+# prompt over 1500 frames), granite's longest prompt, qwen3-moe's 64:4 GQA
+# at S = 2048, llava's 2880 patches + 128 tokens; phase 7 checks each,
+# causal and not, and phase 15 times each as its path runs it
+FAMILY_ATTN = {(1, 20, 20, 1500, 1500, 64): False,
+               (1, 20, 20, 64, 1500, 64): False,
+               (1, 24, 8, 3072, 3072, 64): True,
+               (1, 64, 4, 2048, 2048, 128): True,
+               (1, 32, 8, 3008, 3008, 128): True}
 K5_NAMES = ("ssd_state_", "ssd_pass", "ssd_out_")   # K5's three kernels
 K2_NAMES = ("carry_clear", "merge_pass")              # K2's two kernels
 K3_NAMES = ("bucket_index", "bin_sort", "tile_scan")  # K3's three kernels
@@ -1097,6 +1160,521 @@ def _zoo_jobs(device: str) -> list:
         + [("bf", n, s, device) for n in names for s in ZOO_BF] \
         + [("online", "online_poisson", s, device) for s in ZOO_ONLINE] \
         + [("fsp", None, "gdm_rt", device), ("planner", None, "gdm", device)]
+
+
+def _serve_run(cfg_, params_, reqs, counts, admission="fifo"):
+    """Serve `reqs` with 4 slots of 4096 tokens (``admission``), every
+    prefill and decode_step timed (synced), the counts set to 0 just
+    before (``counts`` = (zero_counts, read_counts)).  Fails unless every
+    request completes with its tokens in the vocabulary.  Returns (engine,
+    record)."""
+    import torch
+
+    from repro_torch.serve import ServeConfig, ServingEngine
+    from repro_torch.serve import engine as serve_engine
+
+    zero_counts, read_counts = counts
+    serve_t = {"prefill_s": [], "decode_s": []}
+
+    def timed(fn, key):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            serve_t[key].append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    eng_ = ServingEngine(cfg_, params_, ServeConfig(
+        slots=4, capacity=4096, admission=admission))
+    orig = (serve_engine.prefill, serve_engine.decode_step)
+    serve_engine.prefill = timed(orig[0], "prefill_s")
+    serve_engine.decode_step = timed(orig[1], "decode_s")
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = eng_.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        serve_engine.prefill, serve_engine.decode_step = orig
+    n_tokens = sum(len(r.out) for r in reqs)
+    if stats["completed"] != len(reqs) or any(
+            len(r.out) != r.max_new or not all(0 <= t < cfg_.vocab
+                                               for t in r.out)
+            for r in reqs):
+        _fail(f"serve {cfg_.name}: {stats} (every request must "
+              "complete with its max_new tokens in the vocabulary)")
+    decode_s = serve_t["decode_s"]
+    return eng_, {
+        "arch": cfg_.name, "requests": len(reqs),
+        "prompt_lens": [len(r.tokens) for r in reqs],
+        "max_new": reqs[0].max_new, "stats": stats, "wall_s": wall,
+        "prefill_s": serve_t["prefill_s"],
+        "decode_ms_per_token": statistics.median(decode_s) * 1e3,
+        "decode_ms_per_token_mean": sum(decode_s) / len(decode_s) * 1e3,
+        "decode_steps": len(decode_s), "tokens": n_tokens,
+        "tokens_per_s": n_tokens / wall,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": launches}
+
+
+def _families(dev, note_attn, counts) -> dict:
+    """Phase 14b: the MoE, encoder-decoder and VLM families at full width,
+    each model freed before the next.  `note_attn(err, dtype, what)` holds
+    a K4 launch's difference from its plain version to ``ATTN_TOL``;
+    ``counts`` = (zero_counts, read_counts).  Returns the record."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import (decode_step, encdec_decode_step,
+                                    encdec_loss, encdec_prefill,
+                                    init_decode_cache, init_encdec, init_lm,
+                                    init_vlm, layers, lm_forward, lm_loss,
+                                    moe, prefill, vlm_loss, vlm_prefill)
+    from repro_torch.models.lm import tree_leaves, tree_map
+    from repro_torch.serve import Request
+
+    zero_counts, read_counts = counts
+    bf16 = torch.bfloat16
+    out: dict = {"k4_launches_per_prefill": {}}
+    t_phase = time.perf_counter()
+
+    check_peaks: dict = {}
+
+    def checked(fn, expect: int, what: str):
+        """fn() under inference mode with every K4 launch held against the
+        plain version on the same q, k, v; fails unless it made `expect`.
+        Its peak memory (the plain version's float32 scores included) goes
+        to ``check_peaks``, and the peak is reset after it."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        orig = layers.flash_attention
+        n = [0]
+
+        def check(q, k, v, *, causal=True, scale=None):
+            o = orig(q, k, v, causal=causal, scale=scale)
+            want = attention_ref(q, k, v, causal=causal, scale=scale)
+            note_attn(float((o.float() - want.float()).abs().max()), q.dtype,
+                      f"{what} (Sq={q.shape[2]}, Sk={k.shape[2]}, "
+                      f"causal={causal})")
+            n[0] += 1
+            return o
+
+        layers.flash_attention = check
+        try:
+            with torch.inference_mode():
+                res = fn()
+            torch.cuda.synchronize()
+        finally:
+            layers.flash_attention = orig
+        if n[0] != expect:
+            _fail(f"{what}: {n[0]} flash_attention launches, expected "
+                  f"{expect}")
+        check_peaks[what] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return res
+
+    def counted(fn):
+        """fn() under inference mode, the counts set to 0 just before and
+        read just after -> (result, wall s, counts)."""
+        with torch.inference_mode():
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return res, wall, read_counts()
+
+    def routed(fn, keep_input_of: int = -1):
+        """fn() with every MoE routing noted: per layer, the pairs dropped,
+        the tokens with a dropped pair and the capacity; and the input of
+        MoE layer `keep_input_of` (counted from 0)."""
+        orig_route, orig_ffn = moe.moe_route, moe.moe_ffn
+        drops: list = []
+        kept: dict = {}
+
+        def route(cfg_, router, xt):
+            r = orig_route(cfg_, router, xt)
+            lost = (r["pair_slot"] == cfg_.moe.n_experts * r["C"]) \
+                .view(-1, cfg_.moe.top_k)
+            drops.append({"pairs": int(lost.sum()),
+                          "tokens": int(lost.any(1).sum()), "C": r["C"]})
+            return r
+
+        def ffn(cfg_, p, x):
+            if len(drops) == keep_input_of:
+                kept["x"] = x.clone()
+            return orig_ffn(cfg_, p, x)
+
+        moe.moe_route, moe.moe_ffn = route, ffn
+        try:
+            res = fn()
+        finally:
+            moe.moe_route, moe.moe_ffn = orig_route, orig_ffn
+        return res, drops, kept.get("x")
+
+    def versus_cpu(what: str, fn, params, args, tol=LOGIT_TOL) -> dict:
+        """fn(params, *args) -> logits (B, V) on the card and on CPU copies
+        of the same weights and inputs: within `tol` of the largest."""
+        with torch.inference_mode():
+            card = fn(params, *args).float().cpu()
+            p_cpu = tree_map(lambda x: x.cpu(), params)
+            a_cpu = [a.cpu() for a in args]
+            t0 = time.perf_counter()
+            host = fn(p_cpu, *a_cpu).float()
+            cpu_s = time.perf_counter() - t0
+        del p_cpu, a_cpu
+        diff = float((card - host).abs().max())
+        top = float(host.abs().max())
+        row = {"max_abs_diff": diff, "max_abs_logit": top, "tol": tol,
+               "argmax_agrees": bool((card.argmax(-1)
+                                      == host.argmax(-1)).all()),
+               "cpu_s": cpu_s}
+        if not (np.isfinite(diff) and diff <= tol * top):
+            _fail(f"{what}, card vs CPU: max |diff| {diff} > {tol} x {top}")
+        return row
+
+    def finite(what: str, t) -> None:
+        if not bool(torch.isfinite(t).all()):
+            _fail(f"{what}: not all finite")
+
+    def init(fn, cfg):
+        """fn(cfg, generator) with a fresh seed-0 generator on the card,
+        the previous model freed -> (params, record: parameters, init s,
+        its peak memory).  The peak is reset after it: each model's peak
+        counts its run, not its float32 draws."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = fn(cfg, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        rec = {"params": sum(x.numel() for x in tree_leaves(params)),
+               "init_s": time.perf_counter() - t0,
+               "init_peak": torch.cuda.max_memory_allocated()}
+        torch.cuda.reset_peak_memory_stats()
+        return params, rec
+
+    def tokens(rng, cfg, shape):
+        return torch.as_tensor(rng.integers(1, cfg.vocab, size=shape),
+                               device=dev)
+
+    def shifted(t):
+        labels = t.roll(-1, dims=1)
+        labels[:, -1] = -1
+        return labels
+
+    def pad_kv(cache, cap: int) -> dict:
+        return {"layers": {n: {k: F.pad(t, (0, 0, 0, 0, 0,
+                                            cap - t.shape[2]))
+                               if k in ("k", "v") else t
+                               for k, t in leaves.items()}
+                           for n, leaves in cache["layers"].items()},
+                "length": cache["length"]}
+
+    def decode(step, cache, first, n: int):
+        """n greedy decode steps from token `first`, each timed (synced):
+        -> (ms per step, median; the logits of the last)."""
+        times = []
+        tok = first
+        with torch.inference_mode():
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, cache = step(cache, tok)
+                tok = torch.argmax(lg, dim=-1, keepdim=True)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        finite("decode", lg)
+        return statistics.median(times) * 1e3, times
+
+    # (a) granite-moe-3b served at full width: the slice's path ------------
+    t_a = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    params, rec = init(init_lm, cfg)
+    srng = np.random.default_rng(0)
+    reqs = [Request(rid=i, tokens=srng.integers(
+        1, cfg.vocab, size=int(srng.integers(512, 3073))), max_new=32,
+        weight=float(srng.uniform(0.5, 2.0)), arrival=float(i // 2))
+        for i in range(8)]
+    first = torch.as_tensor(reqs[0].tokens, device=dev)[None]
+    checked(lambda: prefill(cfg, params, first), cfg.n_layers,
+            f"{cfg.name} prefill")
+    _, pre_s, c = counted(lambda: prefill(cfg, params, first))
+    out["k4_launches_per_prefill"][cfg.name] = c["flash_attention"]
+    _, run = _serve_run(cfg, params, reqs, counts)
+    if run["launches"]["flash_attention"] != cfg.n_layers * len(reqs):
+        _fail(f"serve {cfg.name}: {run['launches']} launches, expected "
+              f"{cfg.n_layers} flash_attention launches per prefill")
+    # the routing of a 2048-token prompt: pairs dropped per layer, and one
+    # layer's input through moe_ffn on the card and on the CPU
+    rng = np.random.default_rng(21)
+    long = tokens(rng, cfg, (1, LOSS_S))
+    L = cfg.n_layers // 2
+    with torch.inference_mode():
+        _, drops, x_l = routed(lambda: prefill(cfg, params, long), L)
+        p_l = tree_map(lambda t: t[L], params["stack"]["l0"]["moe"])
+        xt = x_l.reshape(-1, cfg.d_model)
+        r_card = moe.moe_route(cfg, p_l["router"], xt)
+        y_card = moe.moe_ffn(cfg, p_l, x_l)[0].float().cpu()
+        p_cpu = tree_map(lambda t: t.cpu(), p_l)
+        r_cpu = moe.moe_route(cfg, p_cpu["router"], xt.cpu())
+        y_cpu = moe.moe_ffn(cfg, p_cpu, x_l.cpu())[0].float()
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    idx_c, idx_h = r_card["idx"].cpu(), r_cpu["idx"]
+    kept_c = (r_card["pair_slot"].cpu() != E * r_card["C"]).view(-1, k)
+    kept_h = (r_cpu["pair_slot"] != E * r_cpu["C"]).view(-1, k)
+    same = (idx_c == idx_h).all(1) & (kept_c == kept_h).all(1)
+    y_rel = float((y_card[0][same] - y_cpu[0][same]).abs().max()) \
+        / float(y_cpu.abs().max())
+    layer_check = {
+        "layer": L, "tokens": int(xt.shape[0]), "C": r_card["C"],
+        "equal_expert_share": float((idx_c == idx_h).float().mean()),
+        "equal_kept_share": float((kept_c == kept_h).float().mean()),
+        "tokens_routed_alike": int(same.sum()),
+        "y_max_rel_diff_where_routed_alike": y_rel,
+        "pairs_dropped": int((~kept_c).sum())}
+    if layer_check["equal_expert_share"] < 0.99 or \
+            layer_check["equal_kept_share"] < 0.99 or \
+            not y_rel <= LOGIT_TOL:
+        _fail(f"{cfg.name} layer {L}'s MoE, card vs CPU: {layer_check}")
+    del p_cpu, x_l, xt
+    loss, loss_s, c = counted(lambda: lm_loss(cfg, params, long,
+                                              shifted(long)))
+    finite(f"{cfg.name} lm_loss", loss)
+    if c["flash_attention"] != cfg.n_layers:
+        _fail(f"{cfg.name} lm_loss: {c} launches")
+    cmp = versus_cpu(f"{cfg.name} 64-token prefill",
+                     lambda p, t: prefill(cfg, p, t)[0], params,
+                     [tokens(np.random.default_rng(9), cfg, (1, 64))])
+    out["granite"] = {
+        "arch": cfg.name, **rec, "serve": run, "prefill_s": pre_s,
+        "layer_check": layer_check, "drops_2048": drops,
+        "loss": float(loss), "loss_s": loss_s,
+        "peak": torch.cuda.max_memory_allocated(), "cpu_compare": cmp,
+        "wall_s": time.perf_counter() - t_a}
+    print(f"14b(a) serve {cfg.name} (full width, "
+          f"{out['granite']['params']} parameters, bf16; init "
+          f"{rec['init_s']:.2f} s): {run['stats']}, "
+          f"{run['tokens']} tokens in {run['wall_s']:.2f} s "
+          f"({run['tokens_per_s']:.1f} tokens/s); prefill s per request "
+          f"{[round(x, 4) for x in run['prefill_s']]} for prompts "
+          f"{run['prompt_lens']}; decode ms per token (median) "
+          f"{run['decode_ms_per_token']:.2f}; peak memory "
+          f"{run['max_memory_allocated'] / 2**30:.2f} GiB; launches "
+          f"{run['launches']}; MoE layer {L} card vs CPU {layer_check}; "
+          f"pairs dropped per layer at S={LOSS_S} "
+          f"{[d['pairs'] for d in drops]} (C={drops[0]['C']}); lm_loss "
+          f"{float(loss):.4f} in {loss_s:.3f} s; 64-token logits card vs "
+          f"CPU {cmp}")
+    del params, loss, long
+    # (b) qwen3-moe-235b, full width, depth cut ----------------------------
+    t_b = time.perf_counter()
+    arch, depth = WIDE_MOE
+    full = get_config(arch)
+    cfg = full.replace(n_periods=depth)
+    params, rec = init(init_lm, cfg)
+    t = tokens(np.random.default_rng(22), cfg, (1, LOSS_S))
+    (lg, aux), drops, _ = checked(lambda: routed(
+        lambda: lm_forward(cfg, params, t)), cfg.n_layers,
+        f"{cfg.name} lm_forward")
+    if tuple(lg.shape) != (1, LOSS_S, cfg.padded_vocab):
+        _fail(f"{cfg.name} lm_forward: logits {tuple(lg.shape)}")
+    finite(f"{cfg.name} lm_forward", lg)
+    del lg
+    _, fwd_s, fwd_c = counted(lambda: float(lm_forward(cfg, params, t)[1]))
+    loss, loss_s, loss_c = counted(lambda: lm_loss(cfg, params, t,
+                                                   shifted(t)))
+    finite(f"{cfg.name} lm_loss", loss)
+    out["qwen3_moe"] = {
+        "arch": cfg.name, "n_layers": cfg.n_layers,
+        "full_n_layers": full.n_layers, **rec,
+        "full_params": full.param_count(), "forward_s": fwd_s,
+        "forward_launches": fwd_c, "aux": float(aux), "loss": float(loss),
+        "loss_s": loss_s, "loss_launches": loss_c, "drops_2048": drops,
+        "peak": torch.cuda.max_memory_allocated(),
+        "wall_s": time.perf_counter() - t_b}
+    print(f"14b(b) {cfg.name} at full width, depth cut to {cfg.n_layers} "
+          f"of {full.n_layers} layers ({out['qwen3_moe']['params']} of "
+          f"{out['qwen3_moe']['full_params']} parameters, bf16), B=1, "
+          f"S={LOSS_S}: lm_forward {fwd_s:.3f} s, lm_loss "
+          f"{float(loss):.4f} in {loss_s:.3f} s, aux {float(aux):.4f}, "
+          f"pairs dropped per layer {[d['pairs'] for d in drops]} "
+          f"(C={drops[0]['C']}), peak memory "
+          f"{out['qwen3_moe']['peak'] / 2**30:.2f} GiB (init "
+          f"{rec['init_peak'] / 2**30:.2f} GiB, checked lm_forward "
+          f"{check_peaks[f'{cfg.name} lm_forward'] / 2**30:.2f} GiB)")
+    del params, loss, aux, t
+    # (c) jamba-1.5-large's smoke config: card vs CPU, teacher forcing -----
+    t_c = time.perf_counter()
+    cfg = get_config(HYBRID_ARCH).smoke()
+    params, _ = init(init_lm, cfg)
+    t = tokens(np.random.default_rng(23), cfg, (2, 64))
+    n_attn = cfg.n_periods * sum(s.kind == "attn" for s in cfg.period)
+    (lg, aux), _, c = counted(lambda: lm_forward(cfg, params, t))
+    if (c["flash_attention"], c["ssd_scan"]) != \
+            (n_attn, cfg.n_layers - n_attn):
+        _fail(f"{cfg.name} lm_forward: {c} launches, expected {n_attn} "
+              f"flash_attention and {cfg.n_layers - n_attn} ssd_scan")
+    V = cfg.vocab
+    jcmp = versus_cpu(f"{cfg.name} lm_forward",
+                      lambda p, x: lm_forward(cfg, p, x)[0][:, -1, :V],
+                      params, [t], tol=LOGIT_TOL_F32)
+    with torch.inference_mode():
+        p_cpu = tree_map(lambda x: x.cpu(), params)
+        aux_cpu = lm_forward(cfg, p_cpu, t.cpu())[1]
+        loss_pair = [float(lm_loss(cfg, p, x, shifted(x)))
+                     for p, x in ((params, t), (p_cpu, t.cpu()))]
+        del p_cpu
+        P = 48
+        plg, pc = prefill(cfg, params, t[:, :P])
+        cache = init_decode_cache(cfg, 2, t.shape[1], device=dev)
+        for name, leaves in pc["layers"].items():
+            for key, x in leaves.items():
+                if key in ("k", "v"):
+                    cache["layers"][name][key][:, :, :P] = x
+                else:
+                    cache["layers"][name][key].copy_(x)
+        cache = {"layers": cache["layers"], "length": pc["length"]}
+        errs = [float((plg - lg[:, P - 1, :V]).abs().max())]
+        for i in range(P, t.shape[1]):
+            plg, cache = decode_step(cfg, params, cache, t[:, i:i + 1])
+            errs.append(float((plg - lg[:, i, :V]).abs().max()))
+    aux_diff = abs(float(aux) - float(aux_cpu))
+    loss_diff = abs(loss_pair[0] - loss_pair[1])
+    if not (max(errs) < TF_ABS_TOL and aux_diff < 1e-4 and loss_diff < 1e-4):
+        _fail(f"{cfg.name}: teacher forcing max |diff| {max(errs)} (< "
+              f"{TF_ABS_TOL}), aux card vs CPU {aux_diff}, lm_loss "
+              f"{loss_pair} (< 1e-4)")
+    out["jamba"] = {"arch": cfg.name, "launches": c, "cpu_compare": jcmp,
+                    "aux_diff": aux_diff, "loss": loss_pair,
+                    "teacher_forcing_max_abs_diff": max(errs),
+                    "positions": len(errs),
+                    "wall_s": time.perf_counter() - t_c}
+    print(f"14b(c) {cfg.name} (float32): lm_forward launches {c}; "
+          f"last-position logits card vs CPU {jcmp}; aux |diff| "
+          f"{aux_diff:.3g}; lm_loss card, CPU {loss_pair}; teacher forcing "
+          f"(prefill {P}, decode {len(errs) - 1}) max |diff| "
+          f"{max(errs):.3g} (< {TF_ABS_TOL})")
+    del params, lg, cache, pc
+    # (d) whisper-large-v3 at full width -----------------------------------
+    t_d = time.perf_counter()
+    cfg = get_config(ENCDEC_ARCH)
+    params, rec = init(init_encdec, cfg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    frames = torch.randn((1, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device=dev).to(bf16)
+    rng = np.random.default_rng(24)
+    prompt = tokens(rng, cfg, (1, ENCDEC_PROMPT))
+    cap = ENCDEC_PROMPT + ENCDEC_DECODE
+    n_k4 = cfg.n_encoder_layers + 2 * cfg.n_periods
+    checked(lambda: encdec_prefill(cfg, params, frames, prompt,
+                                   capacity=cap), n_k4,
+            f"{cfg.name} encdec_prefill")
+    (lg, cache), pre_s, c = counted(lambda: encdec_prefill(
+        cfg, params, frames, prompt, capacity=cap))
+    out["k4_launches_per_prefill"][cfg.name] = c["flash_attention"]
+    if c["flash_attention"] != n_k4:
+        _fail(f"{cfg.name} encdec_prefill: {c} launches, expected {n_k4}")
+    dec_ms, _ = decode(lambda ca, x: encdec_decode_step(cfg, params, ca, x),
+                       cache, torch.argmax(lg, -1, keepdim=True),
+                       ENCDEC_DECODE)
+    del cache
+    t_loss = tokens(rng, cfg, (1, ENCDEC_LOSS))
+    loss, loss_s, loss_c = counted(lambda: encdec_loss(
+        cfg, params, frames, t_loss, shifted(t_loss)))
+    finite(f"{cfg.name} encdec_loss", loss)
+    cut = cfg.replace(n_encoder_layers=2, n_periods=2)
+    pcut = dict(params, **{s: tree_map(lambda x: x[:2], params[s])
+                           for s in ("enc_stack", "dec_stack")})
+    wcmp = versus_cpu(f"{cut.name} cut to 2 + 2 layers, prefill",
+                      lambda p, f, x: encdec_prefill(cut, p, f, x,
+                                                     capacity=cap)[0],
+                      pcut, [frames, prompt])
+    out["whisper"] = {
+        "arch": cfg.name, **rec, "prefill_s": pre_s,
+        "prefill_launches": c, "decode_ms_per_token": dec_ms,
+        "decode_steps": ENCDEC_DECODE, "loss": float(loss),
+        "loss_s": loss_s, "loss_tokens": ENCDEC_LOSS,
+        "loss_launches": loss_c, "cpu_compare_cut": wcmp,
+        "peak": torch.cuda.max_memory_allocated(),
+        "wall_s": time.perf_counter() - t_d}
+    print(f"14b(d) {cfg.name} (full width, {out['whisper']['params']} "
+          f"parameters, bf16): encdec_prefill of {cfg.encoder_seq} frames "
+          f"and {ENCDEC_PROMPT} tokens {pre_s:.3f} s ({c['flash_attention']}"
+          f" flash_attention launches), decode ms per token (median of "
+          f"{ENCDEC_DECODE}) {dec_ms:.2f}, encdec_loss on {ENCDEC_LOSS} "
+          f"tokens {float(loss):.4f} in {loss_s:.3f} s; cut to 2 + 2 "
+          f"layers, card vs CPU {wcmp}; peak memory "
+          f"{out['whisper']['peak'] / 2**30:.2f} GiB (init "
+          f"{rec['init_peak'] / 2**30:.2f} GiB, checked prefill "
+          f"{check_peaks[f'{cfg.name} encdec_prefill'] / 2**30:.2f} GiB)")
+    del params, pcut, frames, loss, lg
+    # (e) llava-next-mistral-7b at full width ------------------------------
+    t_e = time.perf_counter()
+    cfg = get_config(VLM_ARCH)
+    params, rec = init(init_vlm, cfg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    patches = torch.randn((1, cfg.n_image_tokens, cfg.d_model),
+                          generator=gen, device=dev).to(bf16)
+    text = tokens(np.random.default_rng(25), cfg, (1, VLM_TEXT))
+    checked(lambda: vlm_prefill(cfg, params, patches, text), cfg.n_layers,
+            f"{cfg.name} vlm_prefill")
+    (lg, cache), pre_s, c = counted(lambda: vlm_prefill(cfg, params,
+                                                        patches, text))
+    out["k4_launches_per_prefill"][cfg.name] = c["flash_attention"]
+    n_seq = cfg.n_image_tokens + VLM_TEXT
+    if c["flash_attention"] != cfg.n_layers or cache["length"] != n_seq:
+        _fail(f"{cfg.name} vlm_prefill: {c} launches, cache length "
+              f"{cache['length']}")
+    dec_ms, _ = decode(lambda ca, x: decode_step(cfg, params, ca, x),
+                       pad_kv(cache, n_seq + VLM_DECODE),
+                       torch.argmax(lg, -1, keepdim=True), VLM_DECODE)
+    del cache
+    loss, loss_s, loss_c = counted(lambda: vlm_loss(
+        cfg, params, patches, text, shifted(text)))
+    finite(f"{cfg.name} vlm_loss", loss)
+    cut = cfg.replace(n_periods=2)
+    pcut = dict(params, stack=tree_map(lambda x: x[:2], params["stack"]))
+    vcmp = versus_cpu(
+        f"{cut.name} cut to 2 layers, prefill",
+        lambda p, pa, x: vlm_prefill(cut, p, pa, x)[0], pcut,
+        [patches[:, :VLM_CPU[0]], text[:, :VLM_CPU[1]]])
+    out["llava"] = {
+        "arch": cfg.name, **rec, "prefill_s": pre_s,
+        "prefill_launches": c, "sequence": n_seq,
+        "decode_ms_per_token": dec_ms, "decode_steps": VLM_DECODE,
+        "loss": float(loss), "loss_s": loss_s, "loss_launches": loss_c,
+        "cpu_compare_cut": {**vcmp, "inputs": list(VLM_CPU)},
+        "peak": torch.cuda.max_memory_allocated(),
+        "wall_s": time.perf_counter() - t_e}
+    print(f"14b(e) {cfg.name} (full width, {out['llava']['params']} "
+          f"parameters, bf16): vlm_prefill of {cfg.n_image_tokens} patches "
+          f"and {VLM_TEXT} tokens {pre_s:.3f} s ({c['flash_attention']} "
+          f"flash_attention launches), decode ms per token (median of "
+          f"{VLM_DECODE}) {dec_ms:.2f}, vlm_loss {float(loss):.4f} in "
+          f"{loss_s:.3f} s; cut to 2 layers ({VLM_CPU[0]} patches, "
+          f"{VLM_CPU[1]} tokens), card vs CPU {vcmp}; peak memory "
+          f"{out['llava']['peak'] / 2**30:.2f} GiB (init "
+          f"{rec['init_peak'] / 2**30:.2f} GiB, checked prefill "
+          f"{check_peaks[f'{cfg.name} vlm_prefill'] / 2**30:.2f} GiB)")
+    del params, pcut, patches, loss, lg
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["check_peaks"] = check_peaks
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"14b: (a)-(e) took {out['wall_s']:.1f} s; K4 launches per "
+          f"prefill {out['k4_launches_per_prefill']}")
+    return out
 
 
 def main() -> int:
@@ -2262,7 +2840,7 @@ def main() -> int:
     attn_shapes = [(1, 2, 2, 16, 16, 32), (2, 4, 2, 33, 33, 24),
                    (1, 8, 2, 64, 128, 48), (1, 4, 1, 1, 96, 64),
                    (1, 4, 4, 48, 48, 128)] + \
-        [(1, 16, 8, S, S, 128) for S in (1, 127, 2048)]
+        [(1, 16, 8, S, S, 128) for S in (1, 127, 2048)] + list(FAMILY_ATTN)
     arng = np.random.default_rng(7)
     for shape in attn_shapes:
         B, Hq, Hkv, Sq, Sk, d = shape
@@ -2275,7 +2853,8 @@ def main() -> int:
                           f"shape {shape}, causal={causal}")
     torch.cuda.synchronize()
     print(f"flash_attention: within tolerance of the plain version on "
-          f"{checked['flash_attention']} cases (8 shapes x f32/bf16 x "
+          f"{checked['flash_attention']} cases ({len(attn_shapes)} shapes x "
+          f"f32/bf16 x "
           f"causal or not; max |diff| {max_err['flash_attention']:.3g})")
 
     # 8. serve qwen3-1.7b at full width -------------------------------------
@@ -2331,57 +2910,8 @@ def main() -> int:
                    if e.device_type == DeviceType.CUDA)
 
     def serve_run(cfg_, params_, reqs, admission="fifo"):
-        """Serve `reqs` with 4 slots of 4096 tokens (``admission``), every
-        prefill and decode_step timed (synced), the counts set to 0 just
-        before.  Fails unless every request completes with its tokens in
-        the vocabulary.  Returns (engine, record)."""
-        serve_t = {"prefill_s": [], "decode_s": []}
-
-        def timed(fn, key):
-            def wrapped(*args, **kwargs):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = fn(*args, **kwargs)
-                torch.cuda.synchronize()
-                serve_t[key].append(time.perf_counter() - t0)
-                return out
-            return wrapped
-
-        eng_ = ServingEngine(cfg_, params_, ServeConfig(
-            slots=4, capacity=4096, admission=admission))
-        orig = (serve_engine.prefill, serve_engine.decode_step)
-        serve_engine.prefill = timed(orig[0], "prefill_s")
-        serve_engine.decode_step = timed(orig[1], "decode_s")
-        torch.cuda.reset_peak_memory_stats()
-        try:
-            zero_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            stats = eng_.run(reqs)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = read_counts()
-        finally:
-            serve_engine.prefill, serve_engine.decode_step = orig
-        n_tokens = sum(len(r.out) for r in reqs)
-        if stats["completed"] != len(reqs) or any(
-                len(r.out) != r.max_new or not all(0 <= t < cfg_.vocab
-                                                   for t in r.out)
-                for r in reqs):
-            _fail(f"serve {cfg_.name}: {stats} (every request must "
-                  "complete with its max_new tokens in the vocabulary)")
-        decode_s = serve_t["decode_s"]
-        return eng_, {
-            "arch": cfg_.name, "requests": len(reqs),
-            "prompt_lens": [len(r.tokens) for r in reqs],
-            "max_new": reqs[0].max_new, "stats": stats, "wall_s": wall,
-            "prefill_s": serve_t["prefill_s"],
-            "decode_ms_per_token": statistics.median(decode_s) * 1e3,
-            "decode_ms_per_token_mean": sum(decode_s) / len(decode_s) * 1e3,
-            "decode_steps": len(decode_s), "tokens": n_tokens,
-            "tokens_per_s": n_tokens / wall,
-            "max_memory_allocated": torch.cuda.max_memory_allocated(),
-            "launches": launches}
+        return _serve_run(cfg_, params_, reqs, (zero_counts, read_counts),
+                          admission)
 
     def serve_profile(cfg_, params_, eng_, reqs, run, kernel_keys) -> dict:
         """Device time of one prefill of the longest prompt of `reqs` and of
@@ -2693,30 +3223,46 @@ def main() -> int:
         _fail(f"mamba2 lm_forward: {fwd_launches['ssd_scan']} ssd_scan "
               f"launches, expected {scfg.n_layers}")
     gemm_keys = ("gemm", "nvjet", "cutlass", "xmma")
+
     with torch.inference_mode():
-        zero_counts()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # spin kernels and a sync before the counted pass: this late in
+            # the process the profiler dropped the first device events of
+            # its window (the first K5 call's three kernels, 3 ms in; with
+            # a 10 ms spin kernel first, the spin and the 44 kernels after
+            # it; with 256 short spins and a 0.2 s one, all 257 of them),
+            # while scripts/profiler_window_probe.py's passes record every
+            # one; 1024 short spins and a 1 s one cover a loss by count or
+            # by time
+            for _ in range(1024):
+                torch.cuda._sleep(1000)
+            torch.cuda._sleep(2_000_000_000)
+            torch.cuda.synchronize()
+            zero_counts()
             t0 = time.perf_counter()
             lm_forward(scfg, sparams, ftoks)
             torch.cuda.synchronize()
             prof_wall_us = (time.perf_counter() - t0) * 1e6
         prof_calls = ssd_scan.launches
     ka = prof.key_averages()
-    total = device_us(ka)
-    k5 = device_us([e for e in ka if any(n in e.key for n in K5_NAMES)])
     # K5's CUDA launches in the profiled pass, by kernel: each of the three
     # must run once a call
     k5_cuda = {n: sum(e.count for e in ka if n in e.key
                       and e.device_type == DeviceType.CUDA)
                for n in K5_NAMES}
+    spin = sum(e.count for e in ka if "spin" in e.key.lower()
+               and e.device_type == DeviceType.CUDA)
     k5_per_call = sum(k5_cuda.values()) / prof_calls if prof_calls else 0
     if any(c != prof_calls for c in k5_cuda.values()) \
             or k5_per_call != SSD_CUDA_LAUNCHES:
         _fail(f"mamba2 lm_forward (profiled): {prof_calls} ssd_scan calls "
               f"launched {k5_cuda}, expected each kernel once a call "
-              f"({SSD_CUDA_LAUNCHES} a call)")
+              f"({SSD_CUDA_LAUNCHES} a call; the spin kernel before them "
+              f"recorded {spin} times)")
+    total = device_us(ka)
+    k5 = device_us([e for e in ka if any(n in e.key for n in K5_NAMES)])
     gemm = device_us([e for e in ka if any(g in e.key.lower()
                                            for g in gemm_keys)])
     top = sorted(ka, key=lambda e: -device_us([e]))[:6]
@@ -2726,7 +3272,8 @@ def main() -> int:
         "max_memory_allocated": fwd_peak, "launches": fwd_launches,
         "checked_k5_calls": n_layer_checks,
         "k5_cuda_launches": {"calls": prof_calls, "by_kernel": k5_cuda,
-                             "per_call": k5_per_call},
+                             "per_call": k5_per_call,
+                             "spin_kernel_recorded": spin},
         "profile": {"wall_ms": prof_wall_us / 1e3, "device_ms": total / 1e3,
                     "busy_share": total / prof_wall_us if total else None,
                     "ssd_scan_ms": k5 / 1e3, "gemm_ms": gemm / 1e3,
@@ -2850,6 +3397,12 @@ def main() -> int:
     print("mamba2 serve profile (one prefill at S="
           f"{record['mamba2_serve_profile']['prompt_len']}; 8 decode ticks "
           "of one slot): " + json.dumps(record["mamba2_serve_profile"]))
+
+    # 14b. the MoE, encoder-decoder and VLM families at full width ---------
+    # free the earlier models: mamba2's weights (sparams, and p_card and
+    # meng that hold them) and qwen3's (held by the coflow serve's engine)
+    del sparams, meng, p_card, co_eng
+    record["families"] = _families(dev, note_attn, (zero_counts, read_counts))
 
     # 15. timings -----------------------------------------------------------
     kernels_line = []
@@ -3070,12 +3623,53 @@ def main() -> int:
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), True,
             sc, cfg.attn_chunk))
     record["flash_attention_32k"] = attn_32k
+
+    def family_attn_timing(shape, causal) -> dict:
+        """K4 at a family's shape, bf16, beside its plain version and SDPA
+        (causal only where Sq = Sk: SDPA aligns the mask to the top)."""
+        B, Hq, Hkv, Sq, Sk, d = shape
+        g = torch.Generator(device=dev).manual_seed(Sq + Sk)
+        q, k, v = (torch.randn(sz, generator=g, device=dev)
+                   .to(torch.bfloat16) for sz in
+                   ((B, Hq, Sq, d), (B, Hkv, Sk, d), (B, Hkv, Sk, d)))
+        scale = d ** -0.5
+        # the (query, key) pairs the mask keeps
+        pairs = Sq * Sk - (Sq * (Sq - 1) // 2 if causal else 0)
+        bound = {"operations": 4 * B * Hq * pairs * d / BF16_FLOPS * 1e3,
+                 "bytes": 2 * d * B * (2 * Hq * Sq + 2 * Hkv * Sk)
+                 / HBM_BYTES_PER_S * 1e3}
+        by = max(bound, key=bound.get)
+        row = {"shape": list(shape), "dtype": "bfloat16", "causal": causal,
+               "ms": _cuda_ms(lambda: flash_attention(
+                   q, k, v, causal=causal, scale=scale), reps=10, rounds=3),
+               "plain_ms": _cuda_ms(lambda: attention_ref(
+                   q, k, v, causal=causal, scale=scale), reps=2, rounds=3),
+               "library_ms": _cuda_ms(
+                   lambda: F.scaled_dot_product_attention(
+                       q, k, v, is_causal=causal, scale=scale,
+                       enable_gqa=True), reps=10, rounds=3),
+               "bound_ms": bound[by], "bound_by": by}
+        row["tflops"] = 4 * B * Hq * pairs * d / row["ms"] / 1e9
+        return row
+
+    attn_families = [family_attn_timing(sh, causal)
+                     for sh, causal in FAMILY_ATTN.items()]
+    record["flash_attention_families"] = attn_families
+    families = record["families"]
     kernels_line.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:79",
-        "launches": serve_launches["flash_attention"],
+        "launches": families["granite"]["serve"]["launches"][
+            "flash_attention"],
+        "launches_by_path": {
+            f"serve {cfg.name}": serve_launches["flash_attention"],
+            f"serve {MOE_ARCH}": families["granite"]["serve"]["launches"][
+                "flash_attention"]},
+        "launches_per_prefill": {cfg.name: cfg.n_layers,
+                                 **families["k4_launches_per_prefill"]},
+        "family_shapes": attn_families,
         "max_abs_err": max_err["flash_attention"],
         "ms": attn_main["ms"], "plain_ms": attn_main["plain_ms"],
         "bound_ms": attn_main["bound_ms"], "bound_by": "operations",
@@ -3091,6 +3685,9 @@ def main() -> int:
                       .flash_attention_attributes, 1, cfg.d_head)})
     print(f"flash_attention at S={S_main}: {json.dumps(attn_main)}")
     print(f"flash_attention at S=32768: {json.dumps(attn_32k)}")
+    for row in attn_families:
+        print(f"flash_attention at {row['shape']} (causal={row['causal']}): "
+              f"{json.dumps(row)}")
 
     # K5 at lm_forward's shapes: B=2, S=4096, H=80, G=1, N=128, P=64, bf16
     s_ssm = scfg.ssm

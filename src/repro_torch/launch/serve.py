@@ -7,8 +7,10 @@ coflow-ordered admission.
 
 ``--device`` defaults to ``cuda`` (a card; there the prefill attention runs
 the flash_attention kernel, and the admission's scheduling session plans
-through the card's kernels).  ``--arch`` takes the dense and mamba configs
-(``--arch mamba2-2.7b``); a MoE config raises until models/moe is ported.
+through the card's kernels).  ``--arch`` takes every decoder-only config
+at its smoke size (``--arch mamba2-2.7b``, ``--arch granite-moe-3b`` and
+the other MoE configs); an encoder-decoder or VLM config serves
+qwen3-1.7b's smoke config instead, as the reference's launcher does.
 ``--admission`` takes ``coflow`` (the default: order by the live
 ``SchedulerSession``'s frontier) and ``fifo``.
 """

@@ -1,11 +1,16 @@
 """Parameters between the reference's pytree and the port, as plain arrays.
 
-``lm_params_from_numpy`` takes the reference's ``init_lm`` parameters as
-numpy arrays (``jax.tree.map(np.asarray, params)``: nested dicts, the stack
-stacked per period) and returns the port's parameter dict on `device`,
-checked leaf by leaf against the port's own shapes.  ``lm_params_to_numpy``
-goes the other way, for the tests.  Neither imports the reference: the
-arrays are the interface.
+``lm_params_from_numpy`` takes the reference's ``init_lm`` (or
+``init_vlm``) parameters as numpy arrays (``jax.tree.map(np.asarray,
+params)``: nested dicts, the stack stacked per period; a MoE layer's
+``norm``, float32 ``router``, ``w_gate``, ``w_up`` and ``w_down``) and
+returns the port's parameter dict on `device`, checked leaf by leaf against
+the port's own shapes and types.  ``encdec_params_from_numpy`` does the
+same for ``init_encdec``'s tree (``enc_stack``, ``dec_stack`` with
+``attn``, ``cross`` and ``mlp``, ``enc_norm``, ``final_norm``, ``embed``,
+``unembed``).  ``lm_params_to_numpy`` takes any of the port's parameter
+trees the other way, for the tests.  None imports the reference: the arrays
+are the interface.
 """
 from __future__ import annotations
 
@@ -13,9 +18,11 @@ import numpy as np
 import torch
 
 from .common import ArchConfig
+from .encdec import init_encdec
 from .lm import init_lm, tree_map
 
-__all__ = ["lm_params_from_numpy", "lm_params_to_numpy"]
+__all__ = ["lm_params_from_numpy", "encdec_params_from_numpy",
+           "lm_params_to_numpy"]
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -41,8 +48,18 @@ def _same_keys(want: dict, got: dict, path: str = "") -> None:
 def lm_params_from_numpy(cfg: ArchConfig, tree: dict,
                          device: "torch.device | str" = "cuda") -> dict:
     """The reference's LM parameter tree (numpy leaves) -> the port's
-    parameters on `device`, in the config's parameter type."""
-    shapes = init_lm(cfg, None, device="meta")
+    parameters on `device`, each leaf in the port's type for it."""
+    return _from_numpy(init_lm(cfg, None, device="meta"), tree, device)
+
+
+def encdec_params_from_numpy(cfg: ArchConfig, tree: dict,
+                             device: "torch.device | str" = "cuda") -> dict:
+    """The reference's encoder-decoder parameter tree (numpy leaves) -> the
+    port's parameters on `device`."""
+    return _from_numpy(init_encdec(cfg, None, device="meta"), tree, device)
+
+
+def _from_numpy(shapes: dict, tree: dict, device) -> dict:
     _same_keys(shapes, tree)
 
     def convert(path, want, a):

@@ -26,10 +26,11 @@ NEG_INF = -1e30
 
 def randn(shape: tuple, gen: "torch.Generator | None",
           device: "torch.device | str", std: float, dtype) -> torch.Tensor:
-    """Normal(0, std^2) draws in float32 from `gen`, cast to `dtype`.  On the
-    ``meta`` device (shapes only) no generator is needed."""
+    """Normal(0, std^2) draws in float32 from `gen`, cast to `dtype` (scaled
+    in place: one float32 copy of the leaf at a time).  On the ``meta``
+    device (shapes only) no generator is needed."""
     x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)
 
 
 def init_norm(d: int, dtype, lead: tuple = (), *, device) -> dict:

@@ -1,5 +1,5 @@
 """Decoder-only LM over the layer-pattern abstraction, the port of
-``repro.models.lm`` for attention and mamba (SSD) layers with dense or no
+``repro.models.lm``: attention and mamba (SSD) layers with dense, MoE or no
 MLPs.
 
 Parameters are a plain dict of tensors in the reference's layout: every
@@ -8,32 +8,36 @@ reference's scan layout), and the port runs the periods as a Python loop
 over views of that axis.
 
 Entry points:
-  lm_forward                — the training forward (logits); the teacher-
-                              forcing oracle of decode
+  lm_forward / lm_loss      — the training forward (logits, and the MoE
+                              auxiliary loss) and its chunked
+                              cross-entropy; lm_forward is also the
+                              teacher-forcing oracle of decode
   prefill                   — build the KV / SSM caches for a prompt
   decode_step               — one token against the cache (serve_step)
 
-On a card every attention of ``lm_forward`` and ``prefill`` goes through
-the flash_attention kernel (K4) and every mamba layer of ``lm_forward``
-through the ssd_scan kernel (K5); prefill's mamba layers run the plain
-chunked form and decode the recurrence, as the reference's do.  A period
-whose MLP is ``"moe"`` raises ``NotImplementedError``: MoE layers come with
-a later slice of the port.  ``lm_loss`` (the training loss) waits for the
-training slice.
+On a card every attention of ``lm_forward``, ``lm_loss`` and ``prefill``
+goes through the flash_attention kernel (K4) and every mamba layer of
+``lm_forward`` and ``lm_loss`` through the ssd_scan kernel (K5); prefill's
+mamba layers run the plain chunked form and decode the recurrence, as the
+reference's do.  MoE layers (``models/moe.py``) are plain tensor code on
+both devices.  The reference's rematerialisation policy (``_maybe_remat``)
+only shapes a backward pass and comes with the training slice.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from .common import DTYPES, ArchConfig
 from .layers import (_qkv, attention, decode_attention, init_attn, init_mlp,
                      init_norm, mlp_block, randn, rms_norm)
+from .moe import init_moe, moe_block
 from .ssm import (init_mamba, init_mamba_state, mamba_block,
                   mamba_decode_step)
 
-__all__ = ["init_lm", "lm_forward", "prefill", "decode_step",
+__all__ = ["init_lm", "lm_forward", "lm_loss", "prefill", "decode_step",
            "init_decode_cache", "hidden_states", "embed_tokens",
            "unembed_matrix", "tree_leaves", "tree_map"]
 
@@ -51,16 +55,6 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def _check_no_moe(cfg: ArchConfig) -> None:
-    for spec in cfg.period:
-        if spec.kind not in ("attn", "mamba"):
-            raise ValueError(spec.kind)
-        if spec.mlp == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1 "
-                "item 8: models/moe)")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -72,7 +66,6 @@ def init_lm(cfg: ArchConfig, gen: "torch.Generator | None",
     shapes and scales, not the same bits (``jax.random`` and torch's
     generators differ).  ``device="meta"`` with no generator builds the
     shapes only."""
-    _check_no_moe(cfg)
     if device is None:
         device = gen.device
     dt = DTYPES[cfg.param_dtype]
@@ -81,10 +74,14 @@ def init_lm(cfg: ArchConfig, gen: "torch.Generator | None",
     for i, spec in enumerate(cfg.period):
         if spec.kind == "attn":
             lp = {"attn": init_attn(cfg, gen, lead, device=device)}
-        else:
+        elif spec.kind == "mamba":
             lp = {"mamba": init_mamba(cfg, gen, lead, device=device)}
+        else:
+            raise ValueError(spec.kind)
         if spec.mlp == "dense":
             lp["mlp"] = init_mlp(cfg, gen, lead, device=device)
+        elif spec.mlp == "moe":
+            lp["moe"] = init_moe(cfg, gen, lead, device=device)
         stack[f"l{i}"] = lp
     params = {
         "embed": randn((cfg.padded_vocab, cfg.d_model), gen, device, 0.02, dt),
@@ -118,10 +115,13 @@ def _attn_layer(cfg: ArchConfig, p: dict, x: torch.Tensor,
 
 def _apply_period(cfg: ArchConfig, pp: dict, x: torch.Tensor,
                   positions: torch.Tensor, causal: bool = True,
-                  cache: dict | None = None) -> torch.Tensor:
-    """One period.  With a `cache` dict (prefill) each layer's cache goes
-    into it: k and v for attention, the SSD state and conv window for
-    mamba (whose block then takes the chunked form, not the kernel)."""
+                  cache: dict | None = None):
+    """One period -> (x, aux), aux the sum of its MoE layers' auxiliary
+    losses (float32), None without MoE layers.  With a `cache` dict
+    (prefill) each layer's cache goes into it: k and v for attention, the
+    SSD state and conv window for mamba (whose block then takes the chunked
+    form, not the kernel)."""
+    aux = None
     for i, spec in enumerate(cfg.period):
         lp = pp[f"l{i}"]
         if spec.kind == "attn":
@@ -136,17 +136,21 @@ def _apply_period(cfg: ArchConfig, pp: dict, x: torch.Tensor,
             x = mamba_block(cfg, lp["mamba"], x)
         if spec.mlp == "dense":
             x = mlp_block(cfg, lp["mlp"], x)
-    return x
+        elif spec.mlp == "moe":
+            x, a = moe_block(cfg, lp["moe"], x)
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 def hidden_states(cfg: ArchConfig, params: dict, x: torch.Tensor,
                   positions: torch.Tensor, causal: bool = True):
-    """Run the stack on embedded inputs x: (B, S, d) -> (h, aux).  Without
-    MoE layers there is no auxiliary loss, so aux is 0."""
-    _check_no_moe(cfg)
-    for n in range(cfg.n_periods):
-        x = _apply_period(cfg, _period(params, n), x, positions, causal)
+    """Run the stack on embedded inputs x: (B, S, d) -> (h, aux), aux the
+    MoE layers' auxiliary losses summed over the stack (0 without MoE)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for n in range(cfg.n_periods):
+        x, a = _apply_period(cfg, _period(params, n), x, positions, causal)
+        if a is not None:
+            aux = aux + a
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -174,6 +178,45 @@ def lm_forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     return h @ unembed_matrix(cfg, params), aux
 
 
+def lm_loss(cfg: ArchConfig, params: dict, tokens: torch.Tensor | None,
+            labels: torch.Tensor, aux_weight: float = 0.01,
+            loss_chunk: int | None = None,
+            inputs_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Chunked cross-entropy (float32 scalar): the logits exist one
+    sequence chunk of ``loss_chunk`` positions at a time (``cfg.loss_chunk``
+    by default, 0 = the whole sequence), the tail of S padded with label
+    -1; the padded vocabulary is masked, labels -1 are ignored, and the MoE
+    auxiliary loss is added with ``aux_weight``.  ``inputs_embeds`` (B, S,
+    d) replaces the token embeddings (the VLM's patch prefix)."""
+    B, S = labels.shape
+    positions = _positions(B, S, labels.device)
+    x = inputs_embeds if inputs_embeds is not None \
+        else embed_tokens(cfg, params, tokens)
+    h, aux = hidden_states(cfg, params, x, positions)
+    w = unembed_matrix(cfg, params)
+
+    if loss_chunk is None:
+        loss_chunk = cfg.loss_chunk
+    C = min(loss_chunk, S) if loss_chunk > 0 else S
+    pad = (-S) % C
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    vocab_mask = torch.arange(cfg.padded_vocab, device=h.device) < cfg.vocab
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.long, device=h.device)
+    for c0 in range(0, h.shape[1], C):
+        lb = labels[:, c0:c0 + C]
+        logits = (h[:, c0:c0 + C] @ w).float()
+        logits = torch.where(vocab_mask, logits, -1e30)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lb.clamp(min=0)[..., None])[..., 0]
+        valid = lb >= 0
+        total = total + torch.where(valid, logz - gold, 0.0).sum()
+        count = count + valid.sum()
+    return total / torch.clamp(count, min=1) + aux_weight * aux
+
+
 # ---------------------------------------------------------------------------
 # serving: prefill + decode
 # ---------------------------------------------------------------------------
@@ -186,7 +229,6 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     Hkv, dh), a mamba layer's ``{"h", "conv"}`` (n_periods, B, H, N, P)
     float32 and (n_periods, B, d_conv - 1, C); ``length`` is a Python
     int."""
-    _check_no_moe(cfg)
     B, S = tokens.shape[:2]
     positions = _positions(B, S, tokens.device)
     h = inputs_embeds if inputs_embeds is not None \
@@ -194,8 +236,8 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     per: list[dict] = []
     for n in range(cfg.n_periods):
         cache_p: dict = {}
-        h = _apply_period(cfg, _period(params, n), h, positions, True,
-                          cache_p)
+        h, _ = _apply_period(cfg, _period(params, n), h, positions, True,
+                             cache_p)
         per.append(cache_p)
     layers = {name: {key: torch.stack([c[name][key] for c in per])
                      for key in leaves} for name, leaves in per[0].items()}
@@ -208,7 +250,6 @@ def init_decode_cache(cfg: ArchConfig, batch: int, capacity: int,
                       device: "torch.device | str" = "cuda") -> dict:
     """Empty cache at a given KV capacity (a mamba layer's state has no
     capacity)."""
-    _check_no_moe(cfg)
     dt = DTYPES[cfg.compute_dtype]
     shape = (cfg.n_periods, batch, capacity, cfg.n_kv_heads, cfg.d_head)
     layers = {}
@@ -234,7 +275,6 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
     at ``length``) and a mamba layer's new state and conv window into the
     cache's tensors in place and returns the same tensors under a new
     length: the caller's cache is updated too."""
-    _check_no_moe(cfg)
     B = token.shape[0]
     length = int(cache["length"])
     positions = _positions(B, 1, token.device, start=length)
@@ -262,6 +302,8 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
                 lc["conv"][n].copy_(st["conv"])
             if spec.mlp == "dense":
                 h = mlp_block(cfg, pp[f"l{i}"]["mlp"], h)
+            elif spec.mlp == "moe":
+                h, _ = moe_block(cfg, pp[f"l{i}"]["moe"], h)
     h = rms_norm(h[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = (h @ unembed_matrix(cfg, params))[:, 0, :cfg.vocab]
     return logits, {"layers": cache["layers"], "length": length + 1}

@@ -123,7 +123,14 @@ _ATTN_SHAPES = [(1, 2, 2, 16, 16, 32), (2, 4, 2, 33, 33, 24),
                 (1, 2, 1, 70, 70, 256), (2, 2, 1, 40, 40, 16),
                 (1, 4, 2, 100, 300, 24), (1, 2, 2, 200, 200, 48),
                 (1, 16, 8, 129, 129, 128), (1, 8, 4, 257, 1000, 128),
-                (1, 4, 2, 1, 1, 64), (1, 2, 1, 130, 131, 256)]
+                (1, 4, 2, 1, 1, 64), (1, 2, 1, 130, 131, 256),
+                # the MoE, encoder-decoder and VLM families: whisper's
+                # cross-attention (Sq = a decoder prompt, Sk = 1500 frames)
+                # and encoder (MHA, d = 64), granite's 24:8 at d = 64,
+                # qwen3-moe's 64:4 and llava's 3008-token prefill
+                (1, 20, 20, 64, 1500, 64), (1, 20, 20, 1500, 1500, 64),
+                (1, 24, 8, 300, 300, 64), (1, 64, 4, 200, 200, 128),
+                (1, 32, 8, 3008, 3008, 128)]
 
 
 @pytest.mark.parametrize("shape", _ATTN_SHAPES)
@@ -723,6 +730,142 @@ def test_smoke_mamba2_forward_and_serve_on_card_equal_cpu():
         outs.append((stats, [r.out for r in rs]))
     assert outs[0] == outs[1]
     assert outs[0][0]["completed"] == 5
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b", "qwen3-moe-235b",
+                                  "jamba-1.5-large"])
+def test_smoke_moe_forward_loss_and_serve_on_card_equal_cpu(arch):
+    """The MoE stacks' f32 smoke configs: lm_forward on the card launches
+    K4 once per attention layer (and K5 once per mamba layer) and equals
+    the CPU's logits and auxiliary loss within 1e-4, every layer's routing
+    equal; lm_loss within 1e-5; a fifo serve gives the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm, lm_forward, lm_loss, moe
+    from repro_torch.models.lm import tree_map
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+
+    dev = _card()
+    cfg = get_config(arch).smoke()
+    cpu = init_lm(cfg, torch.Generator().manual_seed(0))
+    card = tree_map(lambda x: x.to(dev), cpu)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(2, 40)))
+    routes = []
+    orig = moe.moe_route
+
+    def noting(cfg_, router, xt):
+        r = orig(cfg_, router, xt)
+        routes.append((r["idx"].cpu(), r["keep"].cpu()))
+        return r
+
+    n_attn = sum(s.kind == "attn" for s in cfg.period) * cfg.n_periods
+    n_mamba = cfg.n_layers - n_attn
+    moe.moe_route = noting
+    try:
+        before = (flash_attention.launches, ssd_scan.launches)
+        lg, aux = lm_forward(cfg, card, toks.to(dev))
+        assert (flash_attention.launches, ssd_scan.launches) == \
+            (before[0] + n_attn, before[1] + n_mamba)
+        card_routes, routes[:] = list(routes), []
+        lg_c, aux_c = lm_forward(cfg, cpu, toks)
+    finally:
+        moe.moe_route = orig
+    assert len(card_routes) == len(routes) > 0
+    for (i1, k1), (i2, k2) in zip(card_routes, routes):
+        assert torch.equal(i1, i2) and torch.equal(k1, k2)
+    assert float((lg.cpu() - lg_c).abs().max()) < 1e-4
+    assert abs(float(aux) - float(aux_c)) < 1e-4
+    labels = toks.roll(-1, dims=1)
+    labels[:, -1] = -1
+    assert abs(float(lm_loss(cfg, card, toks.to(dev), labels.to(dev),
+                             loss_chunk=16))
+               - float(lm_loss(cfg, cpu, toks, labels, loss_chunk=16))) \
+        < 1e-5
+
+    def reqs():
+        rng = np.random.default_rng(1)
+        return [Request(rid=i, tokens=rng.integers(1, cfg.vocab, size=6 + i),
+                        max_new=5, arrival=float(i // 2)) for i in range(5)]
+
+    outs = []
+    for params in (card, cpu):
+        rs = reqs()
+        stats = ServingEngine(cfg, params, ServeConfig(
+            slots=2, capacity=32, admission="fifo")).run(rs)
+        outs.append((stats, [r.out for r in rs]))
+    assert outs[0] == outs[1]
+    assert outs[0][0]["completed"] == 5
+
+
+def test_smoke_encdec_on_card_equals_cpu():
+    """whisper-large-v3's f32 smoke config: encdec_forward launches K4 for
+    every encoder layer and twice a decoder layer (self, cross) and equals
+    the CPU within 1e-4; encdec_loss within 1e-5; prefill and 4 decode
+    steps within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (encdec_decode_step, encdec_forward,
+                                    encdec_loss, encdec_prefill, init_encdec)
+    from repro_torch.models.lm import tree_map
+
+    dev = _card()
+    cfg = get_config("whisper-large-v3").smoke()
+    cpu = init_encdec(cfg, torch.Generator().manual_seed(0))
+    card = tree_map(lambda x: x.to(dev), cpu)
+    rng = np.random.default_rng(0)
+    frames = torch.as_tensor(rng.normal(
+        size=(2, cfg.encoder_seq, cfg.d_model)), dtype=torch.float32)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(2, 12)))
+    before = flash_attention.launches
+    lg = encdec_forward(cfg, card, frames.to(dev), toks.to(dev))
+    assert flash_attention.launches == \
+        before + cfg.n_encoder_layers + 2 * cfg.n_periods
+    lg_c = encdec_forward(cfg, cpu, frames, toks)
+    assert float((lg.cpu() - lg_c).abs().max()) < 1e-4
+    assert abs(float(encdec_loss(cfg, card, frames.to(dev), toks.to(dev),
+                                 toks.to(dev)))
+               - float(encdec_loss(cfg, cpu, frames, toks, toks))) < 1e-5
+    out = []
+    for params, d in ((card, dev), (cpu, torch.device("cpu"))):
+        p_lg, cache = encdec_prefill(cfg, params, frames.to(d),
+                                     toks[:, :8].to(d), capacity=12)
+        seq = [p_lg.cpu()]
+        for t in range(8, 12):
+            p_lg, cache = encdec_decode_step(cfg, params, cache,
+                                             toks[:, t:t + 1].to(d))
+            seq.append(p_lg.cpu())
+        out.append(torch.stack(seq))
+    assert float((out[0] - out[1]).abs().max()) < 1e-4
+
+
+def test_smoke_vlm_on_card_equals_cpu():
+    """llava-next-mistral-7b's f32 smoke config: vlm_prefill launches K4
+    once per layer, its logits and cache equal the CPU's within 1e-4, and
+    vlm_loss within 1e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_vlm, vlm_loss, vlm_prefill
+    from repro_torch.models.lm import tree_map
+
+    dev = _card()
+    cfg = get_config("llava-next-mistral-7b").smoke()
+    cpu = init_vlm(cfg, torch.Generator().manual_seed(0))
+    card = tree_map(lambda x: x.to(dev), cpu)
+    rng = np.random.default_rng(0)
+    patches = torch.as_tensor(rng.normal(
+        size=(2, cfg.n_image_tokens, cfg.d_model)), dtype=torch.float32)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(2, 16)))
+    before = flash_attention.launches
+    lg, cache = vlm_prefill(cfg, card, patches.to(dev), toks.to(dev))
+    assert flash_attention.launches == before + cfg.n_layers
+    lg_c, cache_c = vlm_prefill(cfg, cpu, patches, toks)
+    assert cache["length"] == cache_c["length"] == cfg.n_image_tokens + 16
+    assert float((lg.cpu() - lg_c).abs().max()) < 1e-4
+    for name in cache_c["layers"]:
+        for kv in ("k", "v"):
+            assert float((cache["layers"][name][kv].cpu()
+                          - cache_c["layers"][name][kv]).abs().max()) < 1e-4
+    assert abs(float(vlm_loss(cfg, card, patches.to(dev), toks.to(dev),
+                              toks.to(dev)))
+               - float(vlm_loss(cfg, cpu, patches, toks, toks))) < 1e-5
 
 
 # --------------------------------------------------------------------------

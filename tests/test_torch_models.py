@@ -26,7 +26,8 @@ from repro_torch.models import layers
 from repro_torch.models.lm import tree_leaves, tree_map
 
 DENSE = ["qwen3_1_7b", "tinyllama_1_1b", "qwen2_5_32b"]
-# the stacks the port runs: dense attention and mamba2 (attention-free SSD)
+# dense attention and mamba2 (attention-free SSD); the MoE stacks are in
+# tests/test_torch_moe.py
 MODELS = DENSE + ["mamba2_2_7b"]
 KEY = jax.random.PRNGKey(0)
 
@@ -103,14 +104,6 @@ def test_qwen3_full_width_size():
     assert cfg.param_count() == 2_031_732_736
     # KV cache bytes per token per slot: k and v, bf16, every layer
     assert 2 * cfg.n_layers * cfg.n_kv_heads * cfg.d_head * 2 == 114_688
-
-
-@pytest.mark.parametrize("arch", ["jamba_1_5_large", "qwen3_moe_235b",
-                                  "granite_moe_3b"])
-def test_non_dense_stacks_raise(arch):
-    cfg = configs.get_config(arch).smoke()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        init_lm(cfg, torch.Generator().manual_seed(0))
 
 
 # --------------------------------------------------------------------------

@@ -10,6 +10,7 @@ from repro import scenarios
 from repro.core import backend as ref_backend
 from repro_torch.core import (clear_caches, instance_from_arrays,
                               instance_to_arrays, simulate_online)
+from test_torch_session_counters import assert_counters_equal
 
 COUNTS = ("reschedules", "repairs", "full_replans", "repair_rejects",
           "groups_reused", "groups_replanned")
@@ -47,3 +48,13 @@ def test_pipeline_online_equals_reference_jit(name):
                     a, b = got.stats["session"], want.stats["session"]
                     assert {k: a[k] for k in COUNTS} == \
                         {k: b[k] for k in COUNTS}, ctx
+
+
+@pytest.mark.parametrize("sched", ["gdm", "om_alg", "gdm_rt"])
+def test_pipeline_session_counters_equal_reference_jit(sched):
+    """The session's counters and the bna, order and group hit counts of
+    ``plan_online`` on the paper workload (m = 150, scale 0.1, releases at
+    theta0), the port's pipeline against the reference's jit backend
+    (tests/test_torch_session_counters.py holds the python pair)."""
+    with ref_backend.use_plan_backend("jit"):
+        assert_counters_equal(sched, "pipeline")

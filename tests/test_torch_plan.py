@@ -227,6 +227,24 @@ def test_port_imports_neither_jax_nor_repro():
         "p = init_lm(cfg, torch.Generator().manual_seed(0))\n"
         "lg, _ = lm_forward(cfg, p, torch.ones((1, 20), dtype=torch.long))\n"
         "assert bool(torch.isfinite(lg).all()), 'mamba2 forward'\n"
+        "import repro_torch.models.moe, repro_torch.models.encdec\n"
+        "import repro_torch.models.vlm\n"
+        "from repro_torch.models import (encdec_loss, init_encdec, init_vlm,\n"
+        "                                lm_loss, vlm_loss)\n"
+        "cfg = get_config('granite-moe-3b').smoke()\n"
+        "p = init_lm(cfg, torch.Generator().manual_seed(0))\n"
+        "t = torch.ones((1, 20), dtype=torch.long)\n"
+        "assert bool(torch.isfinite(lm_loss(cfg, p, t, t))), 'moe loss'\n"
+        "cfg = get_config('whisper-large-v3').smoke()\n"
+        "p = init_encdec(cfg, torch.Generator().manual_seed(0))\n"
+        "fr = torch.zeros((1, cfg.encoder_seq, cfg.d_model))\n"
+        "assert bool(torch.isfinite(encdec_loss(cfg, p, fr, t, t))), 'encdec'\n"
+        "cfg = get_config('llava-next-mistral-7b').smoke()\n"
+        "p = init_vlm(cfg, torch.Generator().manual_seed(0))\n"
+        "pa = torch.zeros((1, cfg.n_image_tokens, cfg.d_model))\n"
+        "assert bool(torch.isfinite(vlm_loss(cfg, p, pa, t, t))), 'vlm'\n"
+        "serve.main(['--arch', 'granite-moe-3b', '--requests', '2',\n"
+        "            '--max-new', '2', '--device', 'cpu'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith('jax.') or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"
