@@ -275,9 +275,42 @@ Phases; any failure exits non-zero and prints no result line:
    ``kernel_models``, not the line; K5's floor is the algorithm's bytes
    plus the chunk states written, read, written and read, over 3.35 TB/s,
    beside ``bound_ms``, which stays the algorithm's.  Print the
-   ``kernels`` line, the plan and serve timings
+   ``kernels`` line, the plan, serve and training timings
    and counts, and the card's name and power limit.  The last line is the
    result line.
+16. Training (``_training``, run after the timings of 15, whose kernels
+   line it extends):
+   a. qwen3-1.7b at its published full width (28 layers, bf16, remat
+      "full") trained through ``repro_torch.launch.train``'s ``main`` for
+      4 steps of 4 x 4096 tokens with ``--plan-buckets 8`` (the gradient
+      buckets planned on the card's scheduling session), the counts set to
+      0 just before and read just after: 56 K4 forward launches a step (28
+      and 28 recomputed) and 28 of each backward kernel (``attn_bwd_prep``,
+      ``attn_bwd_dkdv``, ``attn_bwd_dq``).  The reference's train_4k shape
+      is seq 4096 at global batch 256: the batch is cut to 4 (at 8 the
+      step's backward does not fit the card's 80 GB).  Prints the
+      step's wall (median of steps 2-4), tokens/s, peak memory, loss and
+      grad norm per step, and the bucket plan's seconds and gain.
+   b. K4's backward kernels against ``attention_bwd_ref``: layer 0 of a
+      real step of that model at B = 1, S = 4096, and a grid
+      (``ATTN_BWD_SHAPES``: d 64 and 128, GQA 16:8, 24:8, 32:8, 64:4, MHA
+      20:20, S in {1, 127, 128, 129, 4096}, Sq != Sk both ways, rows that
+      see no key) in float32 and bfloat16, causal and not; tolerances
+      ``ATTN_BWD_TOL`` of the largest |gradient| (float32 2e-5, bf16 4e-2),
+      dq 0 on rows that see no key.  Then the backward at the training
+      shape (B=4, Hq=16, Hkv=8, S=4096, d=128, bf16, causal): each kernel
+      and the whole beside its bound (five products of 2 B Hq Sq Sk d
+      operations over the kept pairs at the bf16 peak), SDPA's backward
+      (``torch.autograd.grad`` of SDPA with ``enable_gqa=True``, minus its
+      forward) and the plain version.
+   c. Card against CPU: one ``build_train_step`` of qwen3-1.7b at full
+      width cut to 2 periods, float32, B = 1, S = 256, from one state
+      (loss, grad norm, every parameter after the step); every gradient
+      leaf of the float32 smoke configs of tinyllama, qwen3, granite-moe,
+      whisper and llava; mamba2's and jamba's smoke gradients on the card
+      must raise K5's error; the reference's crash/resume protocol on the
+      card (tinyllama smoke: crash at step 7, resume from step 6, run to
+      12), every parameter bit-equal to an uninterrupted run.
 
 float32 matrix products run in full float32 (``allow_tf32`` is set False,
 PyTorch's default, for matmul and cuDNN).
@@ -412,6 +445,29 @@ ZOO_KEYS = ("twct", "job_completions", "makespan", "digest", "entries")
 LOGIT_TOL = 0.05                    # of the largest logit, bf16 card vs CPU
 LOGIT_TOL_F32 = 1e-3                # of the largest logit, float32 weights
 TF_TOL_BF16 = 0.08                  # of the largest logit, bf16 teacher forcing
+# phase 16, training: qwen3-1.7b at full width through repro_torch.launch.
+# train (the reference's train_4k shape is seq 4096 at global batch 256; the
+# batch is cut to 4: at 8 the backward asked for 9.27 GiB more with 69.33
+# GiB allocated, past the card's 79.18 GiB), K4's backward kernels
+# (BWD_KERNELS) against attention_bwd_ref on ATTN_BWD_SHAPES (the families' head shapes, S in
+# {1, 127, 128, 129, 4096}, Sq != Sk both ways: causal rows that see no
+# key), card vs CPU on qwen3 cut to TRAIN_CPU_CUT = (periods, B, S) in
+# float32 and on TRAIN_SMOKE's smoke configs, K5's refusal on TRAIN_RAISES,
+# crash/resume on RESUME_ARCH's smoke config
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_BUCKETS = 4, 4096, 4, 8
+TRAIN_CPU_CUT = (2, 1, 256)
+TRAIN_SMOKE = ("tinyllama-1.1b", "qwen3-1.7b", "granite-moe-3b",
+               "whisper-large-v3", "llava-next-mistral-7b")
+TRAIN_RAISES = ("mamba2-2.7b", "jamba-1.5-large")
+RESUME_ARCH = "tinyllama-1.1b"
+BWD_KERNELS = ("attn_bwd_prep", "attn_bwd_dkdv", "attn_bwd_dq")
+ATTN_BWD_TOL = {"float32": 2e-5, "bfloat16": 4e-2}   # of the largest |grad|
+ATTN_BWD_SHAPES = [(1, 16, 8, S, S, 128) for S in (1, 127, 128, 129, 4096)] \
+    + [(1, 24, 8, 300, 300, 64), (1, 64, 4, 200, 200, 128),
+       (1, 32, 8, 257, 257, 128), (1, 20, 20, 64, 1500, 64),
+       (1, 20, 20, 300, 300, 64), (1, 4, 2, 100, 40, 32),
+       (2, 4, 2, 33, 33, 24)]
 
 
 def _fail(msg: str) -> None:
@@ -1677,6 +1733,430 @@ def _families(dev, note_attn, counts) -> dict:
     return out
 
 
+def attn_bwd_bound(B, Hq, Hkv, Sq, Sk, d, causal, products=5,
+                   nbytes=2) -> dict:
+    """The least time of (part of) K4's backward: `products` products of
+    2 d flops a kept (query, key) pair and head (5 for the whole backward:
+    S, dP, dV, dQ and dK), at the bf16 peak; or q, k, v, o and dO read and
+    dq, dk and dv written once, lse and D read, over the memory rate."""
+    pairs = Sq * Sk - (Sq * (Sq - 1) // 2 if causal else 0)
+    ops = products * 2 * B * Hq * pairs * d
+    moved = nbytes * d * B * (4 * Hq * Sq + 4 * Hkv * Sk) + 8 * B * Hq * Sq
+    bound = {"operations": ops / BF16_FLOPS * 1e3,
+             "bytes": moved / HBM_BYTES_PER_S * 1e3}
+    by = max(bound, key=bound.get)
+    return {"bound_ms": bound[by], "bound_by": by, "flops": ops}
+
+
+def _training(dev, counts) -> dict:
+    """Phase 16: training.  (a) qwen3-1.7b at full width through
+    ``repro_torch.launch.train``'s ``main`` (the counts set to 0 just
+    before and read just after); (b) K4's backward kernels against
+    ``attention_bwd_ref`` (one layer of a real step, the grid of shapes)
+    and timed; (c) card against CPU, K5's refusal and crash/resume.
+    ``counts`` = (zero_counts, read_counts).  Returns the record."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.ft import FTConfig, TrainRunner
+    from repro_torch.kernels.flash_attention import (attn_bwd_dkdv,
+                                                     attn_bwd_dq,
+                                                     attn_bwd_prep,
+                                                     flash_attention,
+                                                     flash_attention_lse)
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_prep_ref, attention_bwd_ref)
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import layers
+    from repro_torch.models.lm import tree_leaves, tree_map
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.step import (TrainState, _value_and_grad,
+                                        build_train_step, init_params,
+                                        init_train_state, leaf_paths,
+                                        loss_for)
+
+    zero_counts, read_counts = counts
+    out: dict = {"max_abs_err": {k: 0.0 for k in BWD_KERNELS},
+                 "checked": {k: 0 for k in BWD_KERNELS}}
+    t_phase = time.perf_counter()
+
+    def free() -> None:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # (a) qwen3-1.7b trained at full width through the launcher -----------
+    cfg = get_config(TRAIN_ARCH)
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)     # no resume
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+            "--seq-len", str(TRAIN_SEQ), "--global-batch", str(TRAIN_BATCH),
+            "--plan-buckets", str(TRAIN_BUCKETS),
+            "--ckpt-every", str(TRAIN_STEPS + 1), "--ckpt-dir", str(ckpt_dir),
+            "--seed", "0", "--device", dev.type]
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = launch_train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log = res["runner"].metrics_log
+    if len(log) != TRAIN_STEPS:
+        _fail(f"training ran {len(log)} steps, not {TRAIN_STEPS}")
+    for r in log:
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+            _fail(f"training step {r['step']}: loss {r['loss']}, grad norm "
+                  f"{r['grad_norm']}")
+    per_step = {"flash_attention": 2 * cfg.n_layers,   # remat="full"
+                **{k: cfg.n_layers for k in BWD_KERNELS}}
+    for name, n in per_step.items():
+        if launches[name] != n * TRAIN_STEPS:
+            _fail(f"training launched {name} {launches[name]} times, not "
+                  f"{n} a step x {TRAIN_STEPS}")
+    if launches["bna_decompose"] < 1 or launches["merge_fix"] < 1:
+        _fail(f"the bucket plan did not run on the card's pipeline: "
+              f"{launches}")
+    walls = [r["time_s"] for r in log]
+    step_s = statistics.median(walls[1:])
+    outcome = res["outcome"]
+    out["train"] = {
+        "arch": cfg.name, "params": sum(x.numel() for x in
+                                        tree_leaves(res["state"].params)),
+        "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+        "steps": TRAIN_STEPS, "remat": cfg.remat, "loss_chunk":
+        cfg.loss_chunk, "step_s": walls, "step_s_median_2_4": step_s,
+        "first_step_s": walls[0],
+        "tokens_per_s": TRAIN_SEQ * TRAIN_BATCH / step_s,
+        "loss": [r["loss"] for r in log],
+        "grad_norm": [r["grad_norm"] for r in log],
+        "max_memory_allocated": peak, "wall_s": wall,
+        "launches": launches,
+        "launches_per_step": {k: launches[k] / TRAIN_STEPS
+                              for k in per_step},
+        "planned_buckets": len(outcome.order),
+        "bucket_order": outcome.order,
+        "bucket_makespan_gain_pct": res["summary"][
+            "bucket_makespan_gain_pct"],
+        "plan_s": res["plan_s"], "summary": res["summary"]}
+    print(f"16(a) {cfg.name} trained at full width "
+          f"({out['train']['params']} parameters, bf16, remat "
+          f"{cfg.remat}) through repro_torch.launch.train, {TRAIN_STEPS} "
+          f"steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: step s "
+          f"{[round(w, 4) for w in walls]} (median of 2-{TRAIN_STEPS} "
+          f"{step_s:.4f}, {out['train']['tokens_per_s']:.0f} tokens/s), "
+          f"loss {[round(x, 4) for x in out['train']['loss']]}, grad norm "
+          f"{[round(x, 4) for x in out['train']['grad_norm']]}, peak "
+          f"{peak / 2**30:.2f} GiB; buckets planned in "
+          f"{res['plan_s']:.3f} s, order {outcome.order}, makespan gain "
+          f"{out['train']['bucket_makespan_gain_pct']}%; launches a step "
+          f"{out['train']['launches_per_step']}")
+
+    # (b) one layer of a real step at B = 1, S = TRAIN_SEQ: layer 0's q, k,
+    # v and the gradient that reaches its output
+    params = res["state"].params
+    del res
+    free()
+    batch = SyntheticTokens(cfg, DataConfig(TRAIN_SEQ, 1, seed=1),
+                            device=dev).batch_at(0)
+    seen: dict = {}
+    orig = layers.flash_attention
+
+    def capture(q, k, v, **kw):
+        o = orig(q, k, v, **kw)
+        if "q" not in seen and o.requires_grad:
+            seen.update(q=q.detach().clone(), k=k.detach().clone(),
+                        v=v.detach().clone())
+            o.register_hook(lambda g: seen.setdefault("do", g.clone()))
+        return o
+
+    layers.flash_attention = capture
+    try:
+        _value_and_grad(loss_for(cfg), params, batch)
+    finally:
+        layers.flash_attention = orig
+    del params
+    free()
+
+    def check_bwd(q, k, v, do, causal, what):
+        """K4's backward kernels on (q, k, v, do) against the plain
+        version: dq, dk, dv each within ATTN_BWD_TOL of the largest
+        |gradient|, dq 0 on rows that see no key; D against its plain
+        version (on the kernel's output) within 1e-5 of its largest |D|,
+        on the rows that see a key."""
+        name = str(q.dtype).split(".")[-1]
+        o, lse = flash_attention_lse(q, k, v, causal=causal)
+        D = attn_bwd_prep(o, do)
+        dk, dv = attn_bwd_dkdv(q, k, v, do, lse, D, causal=causal,
+                               scale=q.shape[3] ** -0.5)
+        dq = attn_bwd_dq(q, k, v, do, lse, D, causal=causal,
+                         scale=q.shape[3] ** -0.5)
+        wq, wk, wv = attention_bwd_ref(q, k, v, do, causal=causal)
+        wD = attention_bwd_prep_ref(o, do)
+        Sq, Sk = q.shape[2], k.shape[2]
+        sees = (torch.arange(Sq, device=q.device) + Sk - Sq >= 0) \
+            if causal else torch.ones(Sq, dtype=torch.bool, device=q.device)
+        scale = max(float(w.float().abs().max()) for w in (wq, wk, wv)) \
+            or 1.0
+        errs = {"attn_bwd_dq": float((dq[:, :, sees].float()
+                                      - wq[:, :, sees].float()).abs().max())
+                if bool(sees.any()) else 0.0,
+                "attn_bwd_dkdv": max(float((dk.float() - wk.float()).abs()
+                                           .max()),
+                                     float((dv.float() - wv.float()).abs()
+                                           .max())),
+                "attn_bwd_prep": float((D[:, :, sees] - wD[:, :, sees])
+                                       .abs().max())
+                if bool(sees.any()) else 0.0}
+        d_scale = max(float(wD[:, :, sees].abs().max()), 1.0) \
+            if bool(sees.any()) else 1.0
+        if bool(dq[:, :, ~sees].any()):
+            _fail(f"attn_bwd_dq wrote a nonzero gradient on a row that sees "
+                  f"no key ({what})")
+        tol = {"attn_bwd_dq": ATTN_BWD_TOL[name] * scale,
+               "attn_bwd_dkdv": ATTN_BWD_TOL[name] * scale,
+               "attn_bwd_prep": 1e-5 * d_scale}
+        for key, err in errs.items():
+            rel = err / (scale if key != "attn_bwd_prep" else d_scale)
+            out["max_abs_err"][key] = max(out["max_abs_err"][key], err)
+            out["checked"][key] += 1
+            out.setdefault("max_rel_err", {}).setdefault(key, 0.0)
+            out["max_rel_err"][key] = max(out["max_rel_err"][key], rel)
+            if not err <= tol[key]:
+                _fail(f"{key} != plain version on {what} ({name}, max "
+                      f"|diff| {err} > {tol[key]})")
+
+    q1, k1, v1, do1 = (seen[x][:1] for x in ("q", "k", "v", "do"))
+    check_bwd(q1, k1, v1, do1, True,
+              f"layer 0 of a {cfg.name} training step, B=1, S={TRAIN_SEQ}")
+    out["real_layer"] = {"shape": list(q1.shape), "kv_shape":
+                         list(k1.shape), "dtype": str(q1.dtype)}
+    del seen, q1, k1, v1, do1
+    free()
+    rng = np.random.default_rng(16)
+    n_grid = 0
+    for shape in ATTN_BWD_SHAPES:
+        B, Hq, Hkv, Sq, Sk, d = shape
+        arrays = [rng.normal(size=sz).astype(np.float32)
+                  for sz in ((B, Hq, Sq, d), (B, Hkv, Sk, d),
+                             (B, Hkv, Sk, d), (B, Hq, Sq, d))]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.as_tensor(a).to(dev, dtype)
+                           for a in arrays)
+            for causal in (True, False):
+                check_bwd(q, k, v, do, causal,
+                          f"shape {shape}, causal={causal}")
+                n_grid += 1
+    free()
+    print(f"16(b) K4's backward kernels within tolerance of "
+          f"attention_bwd_ref on layer 0 of a {cfg.name} training step "
+          f"(B=1, S={TRAIN_SEQ}, bf16) and {n_grid} grid cases "
+          f"({len(ATTN_BWD_SHAPES)} shapes x f32/bf16 x causal or not); "
+          f"max |diff| {out['max_abs_err']}, relative to the largest "
+          f"|gradient| {out['max_rel_err']}")
+
+    # the backward at the training shape: each kernel, the whole, SDPA's
+    # backward and the plain version
+    Hq, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    g = torch.Generator(device=dev).manual_seed(S)
+    q, k, v, do = (torch.randn(sz, generator=g, device=dev)
+                   .to(torch.bfloat16)
+                   for sz in ((B, Hq, S, d), (B, Hkv, S, d), (B, Hkv, S, d),
+                              (B, Hq, S, d)))
+    sc = d ** -0.5
+    o, lse = flash_attention_lse(q, k, v, scale=sc)
+    D = attn_bwd_prep(o, do)
+    timing = {
+        "shape": [B, Hq, Hkv, S, S, d], "dtype": "bfloat16", "causal": True,
+        "attn_bwd_prep": _cuda_ms(lambda: attn_bwd_prep(o, do), reps=5,
+                                  rounds=3),
+        "attn_bwd_dkdv": _cuda_ms(lambda: attn_bwd_dkdv(
+            q, k, v, do, lse, D, causal=True, scale=sc), reps=5, rounds=3),
+        "attn_bwd_dq": _cuda_ms(lambda: attn_bwd_dq(
+            q, k, v, do, lse, D, causal=True, scale=sc), reps=5, rounds=3),
+        "fwd_lse_ms": _cuda_ms(lambda: flash_attention_lse(q, k, v,
+                                                           scale=sc),
+                               reps=5, rounds=3),
+        "prep_plain_ms": _cuda_ms(lambda: attention_bwd_prep_ref(o, do),
+                                  reps=5, rounds=3)}
+    timing["bwd_ms"] = sum(timing[k] for k in BWD_KERNELS)
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa(grad: bool):
+        if not grad:
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, scale=sc, enable_gqa=True)
+        o2 = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                            scale=sc, enable_gqa=True)
+        return torch.autograd.grad(o2, (qs, ks, vs), do)
+
+    timing["library_fwd_ms"] = _cuda_ms(lambda: sdpa(False), reps=5,
+                                        rounds=3)
+    timing["library_fwd_bwd_ms"] = _cuda_ms(lambda: sdpa(True), reps=5,
+                                            rounds=3)
+    timing["library_ms"] = timing["library_fwd_bwd_ms"] \
+        - timing["library_fwd_ms"]
+    timing["plain_ms"] = _cuda_ms(lambda: attention_bwd_ref(
+        q, k, v, do, scale=sc), reps=1, rounds=2)
+    timing.update(attn_bwd_bound(B, Hq, Hkv, S, S, d, True))
+    timing["bounds"] = {
+        "attn_bwd_prep": {"bound_ms": 2 * 2 * B * Hq * S * d
+                          / HBM_BYTES_PER_S * 1e3 + 4 * B * Hq * S
+                          / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"},
+        "attn_bwd_dkdv": attn_bwd_bound(B, Hq, Hkv, S, S, d, True, 4),
+        "attn_bwd_dq": attn_bwd_bound(B, Hq, Hkv, S, S, d, True, 3)}
+    timing["tflops"] = timing["flops"] / timing["bwd_ms"] / 1e9
+    timing["vs_library"] = timing["bwd_ms"] / timing["library_ms"]
+    lib = kernels.load_kernel("flash_attention")
+    timing["attributes"] = {
+        name: _attributes(lib.attn_bwd_attributes, 1, which, d)
+        for name, which in (("attn_bwd_prep", 0), ("attn_bwd_dkdv", 1),
+                            ("attn_bwd_dq", 2))}
+    out["timing"] = timing
+    del q, k, v, do, o, lse, D, qs, ks, vs
+    free()
+    print(f"16(b) K4's backward at {timing['shape']} (bf16, causal): "
+          f"prep {timing['attn_bwd_prep']:.4f} ms, dkdv "
+          f"{timing['attn_bwd_dkdv']:.4f} ms, dq {timing['attn_bwd_dq']:.4f}"
+          f" ms, whole {timing['bwd_ms']:.4f} ms ({timing['tflops']:.1f} "
+          f"TFLOP/s) against its bound {timing['bound_ms']:.4f} ms, SDPA's "
+          f"backward {timing['library_ms']:.4f} ms (x"
+          f"{timing['vs_library']:.2f}) and the plain version "
+          f"{timing['plain_ms']:.2f} ms")
+
+    # (c) card against CPU: one step of qwen3-1.7b at full width cut to
+    # TRAIN_CPU_CUT periods, float32, from one state
+    n_per, Bc, Sc = TRAIN_CPU_CUT
+    ccfg = cfg.replace(n_periods=n_per, param_dtype="float32",
+                       compute_dtype="float32")
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    card = init_train_state(ccfg, torch.Generator(device=dev).manual_seed(0))
+    cpu = TrainState(*(tree_map(lambda x: x.to("cpu", copy=True), t)
+                       for t in (card.params, card.opt, card.step)))
+    cbatch = SyntheticTokens(ccfg, DataConfig(Sc, Bc, seed=2)).batch_at(0)
+    step = build_train_step(ccfg, opt)
+    t0 = time.perf_counter()
+    card, m_card = step(card, {k: x.to(dev) for k, x in cbatch.items()})
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu, m_cpu = step(cpu, cbatch)
+    cpu_s = time.perf_counter() - t0
+    cmp = {key: abs(float(m_card[key]) - float(m_cpu[key]))
+           / abs(float(m_cpu[key])) for key in ("loss", "grad_norm")}
+    for key, rel in cmp.items():
+        if not rel <= 1e-5:
+            _fail(f"qwen3 cut to {n_per} periods: {key} on the card "
+                  f"{float(m_card[key])} vs the CPU {float(m_cpu[key])}")
+    diff = torch.cat([(a.cpu() - b).abs().ravel() for a, b in zip(
+        tree_leaves(card.params), tree_leaves(cpu.params))])
+    lr1 = float(m_cpu["lr"])
+    cmp["param_max_abs_diff"] = float(diff.max())
+    cmp["param_share_within_1e-5"] = float((diff <= 1e-5).float().mean())
+    cmp["lr"] = lr1
+    # AdamW's first step moves an element by about lr sign(g): a gradient
+    # near 0 of the other sign moves it 2 lr
+    if not (cmp["param_max_abs_diff"] <= 2 * lr1 + 1e-5
+            and cmp["param_share_within_1e-5"] >= 0.999):
+        _fail(f"qwen3 cut to {n_per} periods: parameters after one step, "
+              f"card vs CPU: {cmp}")
+    out["card_vs_cpu_step"] = {"periods": n_per, "B": Bc, "S": Sc,
+                               "card_s": card_s, "cpu_s": cpu_s, **cmp}
+    del card, cpu, diff
+    free()
+    grads_cmp = {}
+    for arch in TRAIN_SMOKE:
+        scfg = get_config(arch).smoke()
+        pcpu = init_params(scfg, torch.Generator().manual_seed(0))
+        pdev = tree_map(lambda x: x.to(dev), pcpu)
+        S0 = 24 - (scfg.n_image_tokens if scfg.family == "vlm" else 0)
+        b = SyntheticTokens(scfg, DataConfig(S0, 2, seed=3)).batch_at(0)
+        lc, gc_ = _value_and_grad(loss_for(scfg), pdev,
+                                  {k: x.to(dev) for k, x in b.items()})
+        lw, gw = _value_and_grad(loss_for(scfg), pcpu, b)
+        worst = 0.0
+        for path, a, w in zip(leaf_paths(gw), tree_leaves(gc_),
+                              tree_leaves(gw)):
+            rel = float((a.cpu() - w).abs().max()) / max(
+                float(w.abs().max()), 1e-30)
+            worst = max(worst, rel)
+            if not rel <= 1e-4:
+                _fail(f"{arch} smoke: gradient of {path} card vs CPU "
+                      f"{rel} of its largest |gradient|")
+        grads_cmp[arch] = {"loss_rel": abs(float(lc) - float(lw))
+                           / abs(float(lw)), "worst_leaf_rel": worst}
+    out["smoke_grads"] = grads_cmp
+    refused = {}
+    for arch in TRAIN_RAISES:
+        scfg = get_config(arch).smoke()
+        pdev = init_params(scfg, torch.Generator(device=dev).manual_seed(0))
+        b = SyntheticTokens(scfg, DataConfig(24, 2), device=dev).batch_at(0)
+        try:
+            _value_and_grad(loss_for(scfg), pdev, b)
+        except RuntimeError as e:
+            if "no backward kernel" not in str(e):
+                raise
+            refused[arch] = str(e)
+        else:
+            _fail(f"{arch}: a gradient through ssd_scan on the card did not "
+                  f"raise")
+    out["ssm_refused"] = refused
+
+    class Boom(Exception):
+        pass
+
+    def crash_at_7(s):
+        if s == 7:
+            raise Boom()
+
+    rcfg = get_config(RESUME_ARCH).smoke()
+    root = ROOT / "build" / "chip_smoke_resume"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def runner(d, hook=None):
+        return TrainRunner(rcfg, OptConfig(lr=1e-3, warmup_steps=2,
+                                           total_steps=50),
+                           DataConfig(seq_len=32, global_batch=4, seed=0),
+                           FTConfig(ckpt_dir=str(root / d), ckpt_every=3),
+                           fault_hook=hook, device=dev)
+
+    try:
+        runner("a", crash_at_7).run(12)
+        _fail("the fault hook did not crash the run")
+    except Boom:
+        pass
+    r2 = runner("a")
+    resumed = r2.run(12)
+    clean = runner("b").run(12)
+    equal = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(resumed.params), tree_leaves(clean.params)))
+    if r2.metrics_log[0]["step"] != 6 or not equal:
+        _fail(f"crash/resume on the card: resumed from step "
+              f"{r2.metrics_log[0]['step']}, bit-equal {equal}")
+    shutil.rmtree(root, ignore_errors=True)
+    out["crash_resume"] = {"arch": rcfg.name, "resumed_from": 6,
+                           "steps": 12, "bit_equal": equal}
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"16(c) card vs CPU: {ccfg.name} cut to {n_per} periods (float32, "
+          f"B={Bc}, S={Sc}), one step: {json.dumps(out['card_vs_cpu_step'])}"
+          f"; smoke gradients per leaf {json.dumps(grads_cmp)}; "
+          f"{', '.join(TRAIN_RAISES)} refused on the card (K5 has no "
+          f"backward); crash at 7 / resume at 6 / run to 12 bit-equal on "
+          f"the card ({rcfg.name}).  Phase 16 took {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1703,7 +2183,10 @@ def main() -> int:
     from repro_torch.kernels.coflow_merge.ref import alphas_ref, build_delta
     from repro_torch.kernels.merge_fix import merge_fix
     from repro_torch.kernels.merge_fix.ref import merge_fix_ref
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (attn_bwd_dkdv,
+                                                     attn_bwd_dq,
+                                                     attn_bwd_prep,
+                                                     flash_attention)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.ssd_scan import CUDA_LAUNCHES as \
         SSD_CUDA_LAUNCHES
@@ -1715,7 +2198,9 @@ def main() -> int:
     dev = torch.device("cuda")
     wrappers = {"bna_step": bna_step, "coflow_merge": coflow_merge,
                 "bna_decompose": bna_decompose, "merge_fix": merge_fix,
-                "flash_attention": flash_attention, "ssd_scan": ssd_scan}
+                "flash_attention": flash_attention, "ssd_scan": ssd_scan,
+                "attn_bwd_prep": attn_bwd_prep,
+                "attn_bwd_dkdv": attn_bwd_dkdv, "attn_bwd_dq": attn_bwd_dq}
     record: dict = {"device": torch.cuda.get_device_name(0),
                     "host": _host_cpu()}
     t_start = time.perf_counter()
@@ -3744,6 +4229,57 @@ def main() -> int:
         "design_floor_ms": k5_floor_ms,
         "kernels": k5_kernels})
     print(f"ssd_scan at B={fwd_B}, S={fwd_S}: {json.dumps(kernels_line[-1])}")
+    del x5, a5, b5, c5
+
+    # 16. training: qwen3-1.7b at full width, K4's backward ------------------
+    record["training"] = tr = _training(dev, (zero_counts, read_counts))
+    tm = tr["timing"]
+    k4_row = next(k for k in kernels_line if k["name"] == "flash_attention")
+    # this slice's path is training: K4's launches are the training run's
+    k4_row["launches"] = tr["train"]["launches"]["flash_attention"]
+    k4_row["launches_by_path"][f"train {TRAIN_ARCH}"] = k4_row["launches"]
+    k4_row["launches_per_train_step"] = \
+        tr["train"]["launches_per_step"]["flash_attention"]
+    for name in BWD_KERNELS:
+        kernels_line.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            # the reference's gradient: jax.grad of its plain attention
+            "replaces": "src/repro/models/layers.py:92",
+            "launches": tr["train"]["launches"][name],
+            "launches_per_step": tr["train"]["launches_per_step"][name],
+            "max_abs_err": tr["max_abs_err"][name],
+            "max_rel_err": tr["max_rel_err"][name],
+            "ms": tm[name],
+            # prep's plain version is its row sum; dkdv's and dq's is the
+            # whole plain backward (attention_bwd_ref), which gives both
+            "plain_ms": tm["prep_plain_ms"] if name == "attn_bwd_prep"
+            else tm["plain_ms"],
+            "bound_ms": tm["bounds"][name]["bound_ms"],
+            "bound_by": tm["bounds"][name]["bound_by"],
+            # SDPA's whole backward (its forward and backward, minus its
+            # forward) on the same inputs
+            "library_ms": tm["library_ms"],
+            "checked_calls": tr["checked"][name], "shape": tm["shape"],
+            "dtype": "bfloat16",
+            "design": {"attn_bwd_prep": "one warp a query row, D = "
+                                        "rowsum(dO o O) in float32",
+                       "attn_bwd_dkdv": "one block a 64-key block of a kv "
+                                        "head walks its group's query heads "
+                                        "and the 32-row query tiles that see "
+                                        "it (cp.async ring); S^T, dP^T, dV, "
+                                        "dK on mma.sync bf16; no atomics",
+                       "attn_bwd_dq": "one block a 64-row query tile walks "
+                                      "the 32-key tiles it sees (cp.async "
+                                      "ring); S, dP, dQ on mma.sync bf16"
+                       }[name],
+            **tm["attributes"][name]})
+    record["attn_bwd_whole"] = {
+        k: tm[k] for k in ("bwd_ms", "bound_ms", "bound_by", "library_ms",
+                           "library_fwd_ms", "library_fwd_bwd_ms",
+                           "plain_ms", "tflops", "vs_library", "fwd_lse_ms",
+                           "shape")}
     # the modelled fields go to the record: the line keeps bound_ms and
     # what this run measured
     record["kernel_models"] = {
@@ -3788,6 +4324,14 @@ def main() -> int:
             **r["replan_wall"], "run_s": r["wall_s"]}
          for r in [*record["online"]["pair"], record["online"]["full"]]
          if r["job"][5] == "session"}))
+    print("training (full width): " + json.dumps(
+        {k: tr["train"][k] for k in ("arch", "global_batch", "seq_len",
+                                     "step_s_median_2_4", "tokens_per_s",
+                                     "max_memory_allocated", "loss",
+                                     "grad_norm", "launches_per_step",
+                                     "bucket_makespan_gain_pct", "plan_s")}))
+    print("K4 backward (whole) at the training shape: "
+          + json.dumps(record["attn_bwd_whole"]))
     print(f"total {record['total_s']:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels_line}))

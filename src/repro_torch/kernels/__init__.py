@@ -17,10 +17,12 @@ Kernels (what each one replaces is named in its source note):
                   of the times), a counting sort of the endpoints, the
                   tile scan and the Lemma 6 durations, with no dense
                   interval x port array
-  flash_attention — blocked online-softmax GQA attention (prefill):
-                  bfloat16 on the tensor cores (mma.sync, a cp.async ring
-                  of K/V tiles), float32 as float32 FMAs; float32
-                  accumulators
+  flash_attention — blocked online-softmax GQA attention (prefill and
+                  training): bfloat16 on the tensor cores (mma.sync, a
+                  cp.async ring of K/V tiles), float32 as float32 FMAs;
+                  float32 accumulators; and its backward (D = rowsum(dO o
+                  O), dk and dv a key block, dq a query tile, from the
+                  forward's row log-sum-exp; no atomics)
   ssd_scan      — the Mamba2 SSD chunked scan (lm_forward's mamba layers),
                   chunk-parallel in three launches (chunk states, the state
                   pass over the chunks, chunk outputs): bfloat16 on the

@@ -69,6 +69,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 #include "tensor_core.cuh"
@@ -82,6 +83,18 @@ constexpr float kLog2e = 1.4426950408889634f;
 struct Strides {
   long long b, h, s;
 };
+
+constexpr float kLn2 = 0.6931471805599453f;
+
+// a query row's log-sum-exp (natural log) from its running max and log
+// denominator in the units of the scores it kept (base 2: unit = ln 2);
+// -inf for a row that sees no key (causal, query i + Sk - Sq < 0), whose
+// max and denominator count masked keys
+__device__ __forceinline__ float row_lse(int causal, int last_key,
+                                         float log_sum, float unit) {
+  return (causal && last_key < 0) ? -__int_as_float(0x7f800000)
+                                   : log_sum * unit;
+}
 
 // ---------------------------------------------------------------------------
 // bfloat16: tensor cores
@@ -118,9 +131,10 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_mma(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ o, int group, int Sq, int Sk,
-                    int d, Strides qs, Strides ks, Strides vs, Strides os,
-                    float scale_log2, int causal, int vec) {
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    int group, int Sq, int Sk, int d, Strides qs, Strides ks,
+                    Strides vs, Strides os, float scale_log2, int causal,
+                    int vec) {
   constexpr int MT = mma_mt<DT>();
   constexpr int BQ = mma_bq<DT>();
   constexpr int LDS = DT + 8;
@@ -310,9 +324,12 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
       float den = l[mt][r];
       den += __shfl_xor_sync(0xffffffffu, den, 1);
       den += __shfl_xor_sync(0xffffffffu, den, 2);
-      den = den == 0.f ? 1.f : den;
       const int qpos = q0 + row0(mt) + g + 8 * r;
       if (qpos >= Sq) continue;
+      if (lse != nullptr && t == 0)
+        lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + qpos] =
+            row_lse(causal, qpos + offset, m[mt][r] + log2f(den), kLn2);
+      den = den == 0.f ? 1.f : den;
       __nv_bfloat16* orow = ob + static_cast<long long>(qpos) * os.s;
 #pragma unroll
       for (int ot = 0; ot < OT; ++ot) {
@@ -332,10 +349,10 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int DT>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int Hq, int Hkv, int Sq, int Sk, int d, Strides qs, Strides ks,
-               Strides vs, Strides os, float scale, int causal, int vec,
-               cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int d,
+               Strides qs, Strides ks, Strides vs, Strides os, float scale,
+               int causal, int vec, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<DT>();
   auto kern = flash_attention_mma<DT>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -348,7 +365,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Hq / Hkv, Sq, Sk, d, qs, ks, vs, os, scale * kLog2e, causal, vec);
+      lse, Hq / Hkv, Sq, Sk, d, qs, ks, vs, os, scale * kLog2e, causal, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -384,8 +401,9 @@ template <int DT>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o,
-                    int group, int Sq, int Sk, int d, Strides qs, Strides ks,
-                    Strides vs, Strides os, float scale, int causal) {
+                    float* __restrict__ lse, int group, int Sq, int Sk, int d,
+                    Strides qs, Strides ks, Strides vs, Strides os,
+                    float scale, int causal) {
   constexpr int LD = DT + 1;           // padded row of the q and k tiles
   constexpr int LDP = kFBK + 1;        // padded row of the p tile
   constexpr int SC = kFBK / 8;         // score columns per thread
@@ -512,6 +530,9 @@ flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < kRows; ++i) {
     const int qpos = q0 + tr * kRows + i;
     if (qpos >= Sq) continue;
+    if (lse != nullptr && tc == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + qpos] =
+          row_lse(causal, qpos + offset, m[i] + logf(l[i]), 1.f);
     const float den = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
     for (int c = 0; c < OC; ++c) {
@@ -522,10 +543,10 @@ flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DT>
-int launch_fma(const void* q, const void* k, const void* v, void* o, int B,
-               int Hq, int Hkv, int Sq, int Sk, int d, Strides qs, Strides ks,
-               Strides vs, Strides os, float scale, int causal,
-               cudaStream_t stream) {
+int launch_fma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int d,
+               Strides qs, Strides ks, Strides vs, Strides os, float scale,
+               int causal, cudaStream_t stream) {
   constexpr size_t smem = fma_smem_bytes<DT>();
   auto kern = flash_attention_fma<DT>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -535,8 +556,8 @@ int launch_fma(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + kFBQ - 1) / kFBQ, Hq, B);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Hq / Hkv, Sq, Sk,
-      d, qs, ks, vs, os, scale, causal);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Hq / Hkv,
+      Sq, Sk, d, qs, ks, vs, os, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -556,12 +577,747 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+
+// ---------------------------------------------------------------------------
+// backward: dq, dk and dv of the attention above
+// ---------------------------------------------------------------------------
+//
+// Replaces no Pallas kernel: the reference has no backward kernel and takes
+// its gradient by jax.grad of the plain form (_attn_ref / _attn_chunked,
+// src/repro/models/layers.py:92).  This is that gradient, computed as
+// FlashAttention 2 computes it, from the forward's output O and its row
+// log-sum-exp (lse), with S = scale Q K^T recomputed tile by tile:
+//   P = exp(S - lse)     dV = P^T dO     dP = dO V^T
+//   D = rowsum(dO o O)   dS = P o (dP - D)
+//   dQ = scale dS K      dK = scale dS^T Q
+// Three launches: attn_bwd_prep (D, one warp a row), attn_bwd_dkdv (one
+// block a key block of one kv head: it walks the group's query heads and
+// the query tiles that see the block, so dK and dV of a GQA group sum
+// inside one block, with no atomics) and attn_bwd_dq (one block a query
+// tile of one head: it walks the key tiles the tile sees).  Every sum runs
+// in a fixed order, so the gradient is the same bits on every run.
+//
+// Masks are the forward's: key padding, the causal mask aligned to the end
+// of the keys, and query padding; a masked pair takes P = 0 by a select, so
+// a row that sees no key (lse = -inf) adds nothing anywhere and gets dq 0.
+//
+// Bound on the card: operations, five products of 2 B Hq Sq Sk d (half of
+// them when causal) on O((Sq + Sk) d) bytes.  bfloat16 runs the five
+// products on the tensor cores (mma.sync m16n8k16, the forward's fragment
+// dataflow: the accumulators of S and dP, turned into P and dS and rounded
+// to bf16, are the A fragments of the next product as they lie); float32 as
+// float32 FMAs.  Head dims up to 128 (every configuration's).
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void from_f(float* p, float x) { *p = x; }
+__device__ __forceinline__ void from_f(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// D[row] = sum_c dO[row, c] O[row, c], one warp a (batch, head, query) row
+template <typename E>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_prep(const E* __restrict__ o, const E* __restrict__ dout,
+              float* __restrict__ D, long long rows, int Hq, int Sq, int d,
+              Strides os, Strides dos) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (kThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const long long i = row % Sq;
+  const long long h = (row / Sq) % Hq;
+  const long long b = row / (static_cast<long long>(Sq) * Hq);
+  const E* orow = o + b * os.b + h * os.h + i * os.s;
+  const E* drow = dout + b * dos.b + h * dos.h + i * dos.s;
+  float acc = 0.f;
+  for (int c = lane; c < d; c += 32) acc += to_f(orow[c]) * to_f(drow[c]);
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, w);
+  if (lane == 0) D[row] = acc;
+}
+
+// --- bfloat16: tensor cores -------------------------------------------------
+
+constexpr int kDqBQ = 64;     // dq: query rows a block (16 a warp)
+constexpr int kDqBK = 32;     // dq: keys a K / V tile
+constexpr int kKvBK = 64;     // dkdv: keys a block (16 a warp)
+constexpr int kKvBQ = 32;     // dkdv: query rows a Q / dO tile
+
+template <int DT>
+constexpr size_t dq_mma_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (DT + 8) * (2 * kDqBQ + 4 * kDqBK);
+}
+
+template <int DT>
+constexpr size_t dkdv_mma_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (DT + 8) * (2 * kKvBK + 4 * kKvBQ) +
+         sizeof(float) * 4 * kKvBQ;
+}
+
+// A fragments of the 16 rows from row r0 of a [rows][LDS] tile, k columns
+// 16 kk .. 16 kk + 15
+template <int LDS>
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4],
+                                       const __nv_bfloat16* tile, int r0,
+                                       int kk, int lane) {
+  tc::ldmatrix_x4(a, tile + (r0 + (lane & 15)) * LDS + kk * 16 +
+                         (lane >> 4) * 8);
+}
+
+// B fragments of two n8 tiles (n rows n0 .. n0 + 15 of a [n][k] tile), k
+// columns 16 kk ..: b[0], b[1] for n0, b[2], b[3] for n0 + 8
+template <int LDS>
+__device__ __forceinline__ void frag_b_nk(uint32_t (&bf)[4],
+                                          const __nv_bfloat16* tile, int n0,
+                                          int kk, int lane) {
+  tc::ldmatrix_x4(bf, tile + (n0 + (lane >> 4) * 8 + (lane & 7)) * LDS +
+                          kk * 16 + ((lane >> 3) & 1) * 8);
+}
+
+// B fragments of two n8 tiles (columns n0 .. n0 + 15 of a [k][n] tile), k
+// rows 16 kk ..: b[0], b[1] for n0, b[2], b[3] for n0 + 8
+template <int LDS>
+__device__ __forceinline__ void frag_b_kn(uint32_t (&bf)[4],
+                                          const __nv_bfloat16* tile, int kk,
+                                          int n0, int lane) {
+  tc::ldmatrix_x4_trans(bf, tile + (kk * 16 + ((lane >> 3) & 1) * 8 +
+                                    (lane & 7)) * LDS +
+                                n0 + (lane >> 4) * 8);
+}
+
+// the accumulators of an m16 x n(2 NP x 8) product as the A fragments of the
+// next product, whose k runs over those n columns (rounded to bf16)
+template <int NP>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[NP][4],
+                                         const float (&c)[2 * NP][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NP; ++kk) {
+    a[kk][0] = tc::pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = tc::pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = tc::pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = tc::pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// one warp's 16 rows of an m16 x DT accumulator out, scaled, where the row
+// lies below `nrows` (rows r0 + g and r0 + g + 8; columns 8 ot + 2t, + 1)
+template <int OT>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* base, long long ld,
+                                          int r0, int nrows, int d,
+                                          const float (&acc)[OT][4],
+                                          float mul, int g, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (row >= nrows) continue;
+    __nv_bfloat16* out = base + static_cast<long long>(row) * ld;
+#pragma unroll
+    for (int ot = 0; ot < OT; ++ot) {
+      const int col = ot * 8 + 2 * t;
+      if (col < d) out[col] = __float2bfloat16(acc[ot][2 * r] * mul);
+      if (col + 1 < d) out[col + 1] = __float2bfloat16(acc[ot][2 * r + 1] * mul);
+    }
+  }
+}
+
+template <int DT>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                const __nv_bfloat16* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ D,
+                __nv_bfloat16* __restrict__ dq, int group, int Sq, int Sk,
+                int d, Strides qs, Strides ks, Strides vs, Strides dos,
+                Strides dqs, float scale, int causal, int vec) {
+  constexpr int LDS = DT + 8;
+  constexpr int NT = kDqBK / 8;        // n8 tiles of a score row block
+  constexpr int OT = DT / 8;           // n8 tiles of a dq row block
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qt = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][LDS]
+  __nv_bfloat16* dot = qt + kDqBQ * LDS;      // [BQ][LDS]
+  __nv_bfloat16* kt = dot + kDqBQ * LDS;      // [2][BK][LDS]
+  __nv_bfloat16* vt = kt + 2 * kDqBK * LDS;   // [2][BK][LDS]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqBQ;  // longest first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  const int offset = Sk - Sq;
+  const float scale_log2 = scale * kLog2e;
+
+  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
+  const __nv_bfloat16* dob = dout + b * dos.b + h * dos.h;
+  const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
+  const __nv_bfloat16* vb = v + b * vs.b + hk * vs.h;
+
+  int k_end = Sk;
+  if (causal) {
+    const int last_q = min(q0 + kDqBQ, Sq) - 1;
+    k_end = max(0, min(Sk, last_q + offset + 1));
+  }
+  const int ntiles = (k_end + kDqBK - 1) / kDqBK;
+
+  tc::stage<kThreads>(qt, LDS, qb + q0 * qs.s, qs.s, Sq - q0, d, kDqBQ, DT,
+                      vec, tid);
+  tc::stage<kThreads>(dot, LDS, dob + q0 * dos.s, dos.s, Sq - q0, d, kDqBQ,
+                      DT, vec, tid);
+  if (ntiles > 0) {
+    tc::stage<kThreads>(kt, LDS, kb, ks.s, Sk, d, kDqBK, DT, vec, tid);
+    tc::stage<kThreads>(vt, LDS, vb, vs.s, Sk, d, kDqBK, DT, vec, tid);
+  }
+  tc::cp_async_commit();
+
+  // this thread's rows (g and g + 8 of the warp's 16): lse in base 2, D
+  const long long row_base = (static_cast<long long>(b) * gridDim.y + h) * Sq;
+  float l2[2], dr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = q0 + warp * 16 + g + 8 * r;
+    l2[r] = qpos < Sq ? lse[row_base + qpos] * kLog2e : 0.f;
+    dr[r] = qpos < Sq ? D[row_base + qpos] : 0.f;
+  }
+
+  float acc[OT][4];
+#pragma unroll
+  for (int ot = 0; ot < OT; ++ot)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[ot][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it & 1;
+    const int k0 = it * kDqBK;
+    if (it + 1 < ntiles) {
+      const int k1 = k0 + kDqBK;
+      tc::stage<kThreads>(kt + (st ^ 1) * kDqBK * LDS, LDS, kb + k1 * ks.s,
+                          ks.s, Sk - k1, d, kDqBK, DT, vec, tid);
+      tc::stage<kThreads>(vt + (st ^ 1) * kDqBK * LDS, LDS, vb + k1 * vs.s,
+                          vs.s, Sk - k1, d, kDqBK, DT, vec, tid);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* ktile = kt + st * kDqBK * LDS;
+    const __nv_bfloat16* vtile = vt + st * kDqBK * LDS;
+
+    // S = Q K^T and dP = dO V^T for the warp's 16 rows
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DT / 16; ++kk) {
+      uint32_t aq[4], ado[4];
+      frag_a<LDS>(aq, qt, warp * 16, kk, lane);
+      frag_a<LDS>(ado, dot, warp * 16, kk, lane);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bk[4], bv[4];
+        frag_b_nk<LDS>(bk, ktile, np * 16, kk, lane);
+        frag_b_nk<LDS>(bv, vtile, np * 16, kk, lane);
+        tc::mma_bf16(s[2 * np], aq, bk[0], bk[1]);
+        tc::mma_bf16(s[2 * np + 1], aq, bk[2], bk[3]);
+        tc::mma_bf16(dp[2 * np], ado, bv[0], bv[1]);
+        tc::mma_bf16(dp[2 * np + 1], ado, bv[2], bv[3]);
+      }
+    }
+    // dS = P o (dP - D), P = exp(S - lse) on the pairs the mask keeps
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + nt * 8 + 2 * t + (e & 1);
+        const int qpos = q0 + warp * 16 + g + (e >> 1) * 8;
+        const bool ok = kpos < Sk && qpos < Sq &&
+                        (!causal || qpos + offset >= kpos);
+        const float p =
+            ok ? exp2f(s[nt][e] * scale_log2 - l2[e >> 1]) : 0.f;
+        s[nt][e] = p * (dp[nt][e] - dr[e >> 1]);
+      }
+    uint32_t da[NT / 2][4];
+    acc_to_a<NT / 2>(da, s);
+    // dQ += dS K
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk)
+#pragma unroll
+      for (int op = 0; op < OT / 2; ++op) {
+        uint32_t bk[4];
+        frag_b_kn<LDS>(bk, ktile, kk, op * 16, lane);
+        tc::mma_bf16(acc[2 * op], da[kk], bk[0], bk[1]);
+        tc::mma_bf16(acc[2 * op + 1], da[kk], bk[2], bk[3]);
+      }
+    __syncthreads();  // this stage is refilled two tiles on
+  }
+  tc::cp_async_wait<0>();  // a block that skipped every tile
+
+  store_acc<OT>(dq + b * dqs.b + h * dqs.h, dqs.s, q0 + warp * 16, Sq, d,
+                acc, scale, g, t);
+}
+
+template <int DT>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const __nv_bfloat16* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ D,
+                  __nv_bfloat16* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv, int Hq, int group, int Sq,
+                  int Sk, int d, Strides qs, Strides ks, Strides vs,
+                  Strides dos, Strides dks, Strides dvs, float scale,
+                  int causal, int vec) {
+  constexpr int LDS = DT + 8;
+  constexpr int NT = kKvBQ / 8;        // n8 tiles of a (key x query) block
+  constexpr int OT = DT / 8;           // n8 tiles of a dk / dv row block
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BK][LDS]
+  __nv_bfloat16* vt = kt + kKvBK * LDS;       // [BK][LDS]
+  __nv_bfloat16* qt = vt + kKvBK * LDS;       // [2][BQ][LDS]
+  __nv_bfloat16* dot = qt + 2 * kKvBQ * LDS;  // [2][BQ][LDS]
+  float* l2s = reinterpret_cast<float*>(dot + 2 * kKvBQ * LDS);  // [2][BQ]
+  float* ds_row = l2s + 2 * kKvBQ;                                // [2][BQ]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * kKvBK;   // the longest causal blocks first
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int offset = Sk - Sq;
+  const float scale_log2 = scale * kLog2e;
+
+  const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
+  const __nv_bfloat16* vb = v + b * vs.b + hk * vs.h;
+
+  // the query tiles that see key k0 or later: query i sees key j when
+  // i + offset >= j, so the first is tile (k0 - offset) / BQ
+  const int qt0 = causal ? max(0, k0 - offset) / kKvBQ : 0;
+  const int nq = max(0, (Sq + kKvBQ - 1) / kKvBQ - qt0);
+  const int total = group * nq;
+
+  // stage the (query head, query tile) of step `it` into ring slot `slot`
+  auto stage_q = [&](int it, int slot) {
+    const int h = hk * group + it / nq;
+    const int qq0 = (qt0 + it % nq) * kKvBQ;
+    tc::stage<kThreads>(qt + slot * kKvBQ * LDS, LDS,
+                        q + b * qs.b + h * qs.h + qq0 * qs.s, qs.s, Sq - qq0,
+                        d, kKvBQ, DT, vec, tid);
+    tc::stage<kThreads>(dot + slot * kKvBQ * LDS, LDS,
+                        dout + b * dos.b + h * dos.h + qq0 * dos.s, dos.s,
+                        Sq - qq0, d, kKvBQ, DT, vec, tid);
+    if (tid < kKvBQ) {
+      const int qpos = qq0 + tid;
+      const long long r = (static_cast<long long>(b) * Hq + h) * Sq + qpos;
+      l2s[slot * kKvBQ + tid] = qpos < Sq ? lse[r] * kLog2e : 0.f;
+      ds_row[slot * kKvBQ + tid] = qpos < Sq ? D[r] : 0.f;
+    }
+  };
+
+  tc::stage<kThreads>(kt, LDS, kb + k0 * ks.s, ks.s, Sk - k0, d, kKvBK, DT,
+                      vec, tid);
+  tc::stage<kThreads>(vt, LDS, vb + k0 * vs.s, vs.s, Sk - k0, d, kKvBK, DT,
+                      vec, tid);
+  if (total > 0) stage_q(0, 0);
+  tc::cp_async_commit();
+
+  float dka[OT][4], dva[OT][4];
+#pragma unroll
+  for (int ot = 0; ot < OT; ++ot)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[ot][e] = dva[ot][e] = 0.f;
+
+  for (int it = 0; it < total; ++it) {
+    const int st = it & 1;
+    if (it + 1 < total) {
+      stage_q(it + 1, st ^ 1);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int qq0 = (qt0 + it % nq) * kKvBQ;
+    const __nv_bfloat16* qtile = qt + st * kKvBQ * LDS;
+    const __nv_bfloat16* dotile = dot + st * kKvBQ * LDS;
+    const float* l2 = l2s + st * kKvBQ;
+    const float* dr = ds_row + st * kKvBQ;
+
+    // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DT / 16; ++kk) {
+      uint32_t ak[4], av[4];
+      frag_a<LDS>(ak, kt, warp * 16, kk, lane);
+      frag_a<LDS>(av, vt, warp * 16, kk, lane);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bq[4], bdo[4];
+        frag_b_nk<LDS>(bq, qtile, np * 16, kk, lane);
+        frag_b_nk<LDS>(bdo, dotile, np * 16, kk, lane);
+        tc::mma_bf16(s[2 * np], ak, bq[0], bq[1]);
+        tc::mma_bf16(s[2 * np + 1], ak, bq[2], bq[3]);
+        tc::mma_bf16(dp[2 * np], av, bdo[0], bdo[1]);
+        tc::mma_bf16(dp[2 * np + 1], av, bdo[2], bdo[3]);
+      }
+    }
+    // P^T and dS^T: rows are keys, columns queries
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + warp * 16 + g + (e >> 1) * 8;
+        const int ql = nt * 8 + 2 * t + (e & 1);
+        const int qpos = qq0 + ql;
+        const bool ok = kpos < Sk && qpos < Sq &&
+                        (!causal || qpos + offset >= kpos);
+        const float p = ok ? exp2f(s[nt][e] * scale_log2 - l2[ql]) : 0.f;
+        s[nt][e] = p;
+        dp[nt][e] = p * (dp[nt][e] - dr[ql]);
+      }
+    uint32_t pa[NT / 2][4], da[NT / 2][4];
+    acc_to_a<NT / 2>(pa, s);
+    acc_to_a<NT / 2>(da, dp);
+    // dV += P^T dO, dK += dS^T Q
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk)
+#pragma unroll
+      for (int op = 0; op < OT / 2; ++op) {
+        uint32_t bdo[4], bq[4];
+        frag_b_kn<LDS>(bdo, dotile, kk, op * 16, lane);
+        frag_b_kn<LDS>(bq, qtile, kk, op * 16, lane);
+        tc::mma_bf16(dva[2 * op], pa[kk], bdo[0], bdo[1]);
+        tc::mma_bf16(dva[2 * op + 1], pa[kk], bdo[2], bdo[3]);
+        tc::mma_bf16(dka[2 * op], da[kk], bq[0], bq[1]);
+        tc::mma_bf16(dka[2 * op + 1], da[kk], bq[2], bq[3]);
+      }
+    __syncthreads();  // this slot is refilled two steps on
+  }
+  tc::cp_async_wait<0>();  // a block with no query tile
+
+  const int r0 = k0 + warp * 16;
+  store_acc<OT>(dk + b * dks.b + hk * dks.h, dks.s, r0, Sk, d, dka, scale, g,
+                t);
+  store_acc<OT>(dv + b * dvs.b + hk * dvs.h, dvs.s, r0, Sk, d, dva, 1.f, g,
+                t);
+}
+
+// --- float32: FMAs from shared memory --------------------------------------
+//
+// 128 threads; thread (tr, tc) = (tid / 8, tid % 8) owns 4 rows 4 tr .. of
+// the block's tile and the columns tc + 8 j of each product, as the forward.
+
+constexpr int kFDqBQ = 64;    // dq: query rows a block
+constexpr int kFDqBK = 32;    // dq: keys a tile
+constexpr int kFKvBK = 64;    // dkdv: keys a block
+constexpr int kFKvBQ = 32;    // dkdv: queries a tile
+
+template <int DT>
+constexpr size_t dq_fma_smem_bytes() {
+  return sizeof(float) * ((DT + 1) * (2 * kFDqBQ + 2 * kFDqBK) +
+                          kFDqBQ * (kFDqBK + 1));
+}
+
+template <int DT>
+constexpr size_t dkdv_fma_smem_bytes() {
+  return sizeof(float) * ((DT + 1) * (2 * kFKvBK + 2 * kFKvBQ) +
+                          2 * kFKvBK * (kFKvBQ + 1) + 2 * kFKvBQ);
+}
+
+// rows [r0, r0 + ROWS) of a (seq, d) float32 slice into a [ROWS][LD] tile,
+// zero past nrows and past d
+template <int ROWS, int DT>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
+                                              long long ld, int r0, int nrows,
+                                              int d, int tid) {
+  for (int i = tid; i < ROWS * DT; i += kThreads) {
+    const int r = i / DT, c = i % DT;
+    dst[r * (DT + 1) + c] =
+        (r0 + r < nrows && c < d) ? src[(r0 + r) * ld + c] : 0.f;
+  }
+}
+
+template <int DT>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dq_fma(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ D,
+                float* __restrict__ dq, int group, int Sq, int Sk, int d,
+                Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs,
+                float scale, int causal) {
+  constexpr int LD = DT + 1;
+  constexpr int LDP = kFDqBK + 1;
+  constexpr int SC = kFDqBK / 8;       // key columns a thread
+  constexpr int OC = DT / 8;           // dq columns a thread
+  extern __shared__ float smem[];
+  float* qt = smem;                    // [BQ][LD]
+  float* dot = qt + kFDqBQ * LD;       // [BQ][LD]
+  float* kt = dot + kFDqBQ * LD;       // [BK][LD]
+  float* vt = kt + kFDqBK * LD;        // [BK][LD]
+  float* dst = vt + kFDqBK * LD;       // [BQ][LDP]
+
+  const int tid = threadIdx.x, tr = tid >> 3, tc = tid & 7;
+  const int q0 = blockIdx.x * kFDqBQ;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  const int offset = Sk - Sq;
+  const float* kb = k + b * ks.b + hk * ks.h;
+  const float* vb = v + b * vs.b + hk * vs.h;
+  load_rows_f32<kFDqBQ, DT>(qt, q + b * qs.b + h * qs.h, qs.s, q0, Sq, d,
+                            tid);
+  load_rows_f32<kFDqBQ, DT>(dot, dout + b * dos.b + h * dos.h, dos.s, q0, Sq,
+                            d, tid);
+  const long long row_base = (static_cast<long long>(b) * gridDim.y + h) * Sq;
+  float lr[kRows], dr[kRows], acc[kRows][OC];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int qpos = q0 + tr * kRows + i;
+    lr[i] = qpos < Sq ? lse[row_base + qpos] : 0.f;
+    dr[i] = qpos < Sq ? D[row_base + qpos] : 0.f;
+#pragma unroll
+    for (int c = 0; c < OC; ++c) acc[i][c] = 0.f;
+  }
+  int k_end = Sk;
+  if (causal) {
+    const int last_q = min(q0 + kFDqBQ, Sq) - 1;
+    k_end = max(0, min(Sk, last_q + offset + 1));
+  }
+  for (int k0 = 0; k0 < k_end; k0 += kFDqBK) {
+    __syncthreads();  // the previous tile's k, v and dS are consumed
+    load_rows_f32<kFDqBK, DT>(kt, kb, ks.s, k0, Sk, d, tid);
+    load_rows_f32<kFDqBK, DT>(vt, vb, vs.s, k0, Sk, d, tid);
+    __syncthreads();
+    float s[kRows][SC], dp[kRows][SC];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < SC; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < DT; ++kk) {
+      float qv[kRows], dov[kRows], kv[SC], vv[SC];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        qv[i] = qt[(tr * kRows + i) * LD + kk];
+        dov[i] = dot[(tr * kRows + i) * LD + kk];
+      }
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        kv[j] = kt[(tc + 8 * j) * LD + kk];
+        vv[j] = vt[(tc + 8 * j) * LD + kk];
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < SC; ++j) {
+          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int row = tr * kRows + i, qpos = q0 + row;
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        const int kpos = k0 + tc + 8 * j;
+        const bool ok = kpos < Sk && qpos < Sq &&
+                        (!causal || qpos + offset >= kpos);
+        const float p = ok ? expf(s[i][j] * scale - lr[i]) : 0.f;
+        dst[row * LDP + tc + 8 * j] = p * (dp[i][j] - dr[i]);
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kFDqBK; ++kk) {
+      float dsv[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) dsv[i] = dst[(tr * kRows + i) * LDP + kk];
+#pragma unroll
+      for (int c = 0; c < OC; ++c) {
+        const float kv = kt[kk * LD + tc + 8 * c];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) acc[i][c] = fmaf(dsv[i], kv, acc[i][c]);
+      }
+    }
+  }
+  float* dqb = dq + b * dqs.b + h * dqs.h;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int qpos = q0 + tr * kRows + i;
+    if (qpos >= Sq) continue;
+#pragma unroll
+    for (int c = 0; c < OC; ++c) {
+      const int col = tc + 8 * c;
+      if (col < d) dqb[qpos * dqs.s + col] = acc[i][c] * scale;
+    }
+  }
+}
+
+template <int DT>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dkdv_fma(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ D,
+                  float* __restrict__ dk, float* __restrict__ dv, int Hq,
+                  int group, int Sq, int Sk, int d, Strides qs, Strides ks,
+                  Strides vs, Strides dos, Strides dks, Strides dvs,
+                  float scale, int causal) {
+  constexpr int LD = DT + 1;
+  constexpr int LDP = kFKvBQ + 1;
+  constexpr int SC = kFKvBQ / 8;       // query columns a thread
+  constexpr int OC = DT / 8;           // dk / dv columns a thread
+  extern __shared__ float smem[];
+  float* kt = smem;                    // [BK][LD]
+  float* vt = kt + kFKvBK * LD;        // [BK][LD]
+  float* qt = vt + kFKvBK * LD;        // [BQ][LD]
+  float* dot = qt + kFKvBQ * LD;       // [BQ][LD]
+  float* pt = dot + kFKvBQ * LD;       // [BK][LDP]  P^T
+  float* dst = pt + kFKvBK * LDP;      // [BK][LDP]  dS^T
+  float* ls = dst + kFKvBK * LDP;      // [BQ]
+  float* dsr = ls + kFKvBQ;            // [BQ]
+
+  const int tid = threadIdx.x, tr = tid >> 3, tc = tid & 7;
+  const int k0 = blockIdx.x * kFKvBK;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int offset = Sk - Sq;
+  load_rows_f32<kFKvBK, DT>(kt, k + b * ks.b + hk * ks.h, ks.s, k0, Sk, d,
+                            tid);
+  load_rows_f32<kFKvBK, DT>(vt, v + b * vs.b + hk * vs.h, vs.s, k0, Sk, d,
+                            tid);
+  float dka[kRows][OC], dva[kRows][OC];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int c = 0; c < OC; ++c) dka[i][c] = dva[i][c] = 0.f;
+
+  const int q_lo = causal ? max(0, k0 - offset) / kFKvBQ * kFKvBQ : 0;
+  for (int hh = 0; hh < group; ++hh) {
+    const int h = hk * group + hh;
+    const float* qb = q + b * qs.b + h * qs.h;
+    const float* dob = dout + b * dos.b + h * dos.h;
+    const long long row_base = (static_cast<long long>(b) * Hq + h) * Sq;
+    for (int qq0 = q_lo; qq0 < Sq; qq0 += kFKvBQ) {
+      __syncthreads();  // the previous tile's q, dO, P and dS are consumed
+      load_rows_f32<kFKvBQ, DT>(qt, qb, qs.s, qq0, Sq, d, tid);
+      load_rows_f32<kFKvBQ, DT>(dot, dob, dos.s, qq0, Sq, d, tid);
+      if (tid < kFKvBQ) {
+        const int qpos = qq0 + tid;
+        ls[tid] = qpos < Sq ? lse[row_base + qpos] : 0.f;
+        dsr[tid] = qpos < Sq ? D[row_base + qpos] : 0.f;
+      }
+      __syncthreads();
+      float s[kRows][SC], dp[kRows][SC];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < SC; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+      for (int kk = 0; kk < DT; ++kk) {
+        float kv[kRows], vv[kRows], qv[SC], dov[SC];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          kv[i] = kt[(tr * kRows + i) * LD + kk];
+          vv[i] = vt[(tr * kRows + i) * LD + kk];
+        }
+#pragma unroll
+        for (int j = 0; j < SC; ++j) {
+          qv[j] = qt[(tc + 8 * j) * LD + kk];
+          dov[j] = dot[(tc + 8 * j) * LD + kk];
+        }
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+#pragma unroll
+          for (int j = 0; j < SC; ++j) {
+            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
+            dp[i][j] = fmaf(vv[i], dov[j], dp[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int row = tr * kRows + i, kpos = k0 + row;
+#pragma unroll
+        for (int j = 0; j < SC; ++j) {
+          const int ql = tc + 8 * j, qpos = qq0 + ql;
+          const bool ok = kpos < Sk && qpos < Sq &&
+                          (!causal || qpos + offset >= kpos);
+          const float p = ok ? expf(s[i][j] * scale - ls[ql]) : 0.f;
+          pt[row * LDP + ql] = p;
+          dst[row * LDP + ql] = p * (dp[i][j] - dsr[ql]);
+        }
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int qq = 0; qq < kFKvBQ; ++qq) {
+        float pv[kRows], dsv[kRows];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          pv[i] = pt[(tr * kRows + i) * LDP + qq];
+          dsv[i] = dst[(tr * kRows + i) * LDP + qq];
+        }
+#pragma unroll
+        for (int c = 0; c < OC; ++c) {
+          const float dov = dot[qq * LD + tc + 8 * c];
+          const float qv = qt[qq * LD + tc + 8 * c];
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) {
+            dva[i][c] = fmaf(pv[i], dov, dva[i][c]);
+            dka[i][c] = fmaf(dsv[i], qv, dka[i][c]);
+          }
+        }
+      }
+    }
+  }
+  float* dkb = dk + b * dks.b + hk * dks.h;
+  float* dvb = dv + b * dvs.b + hk * dvs.h;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int kpos = k0 + tr * kRows + i;
+    if (kpos >= Sk) continue;
+#pragma unroll
+    for (int c = 0; c < OC; ++c) {
+      const int col = tc + 8 * c;
+      if (col >= d) continue;
+      dkb[kpos * dks.s + col] = dka[i][c] * scale;
+      dvb[kpos * dvs.s + col] = dva[i][c];
+    }
+  }
+}
+
+// f(DT) for the backward's head-dim tile: the smallest of 16, 32, 64, 128
+// that holds d
+template <typename F>
+int by_tile_bwd(int d, F&& f) {
+  if (d <= 16) return f(std::integral_constant<int, 16>());
+  if (d <= 32) return f(std::integral_constant<int, 32>());
+  if (d <= 64) return f(std::integral_constant<int, 64>());
+  if (d <= 128) return f(std::integral_constant<int, 128>());
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename K>
+int set_smem(K kern, size_t bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
+}
+
 }  // namespace
 
-// q, k, v, o: device pointers; is_bf16 selects bfloat16 (else float32);
-// strides in elements, (batch, head, seq) for each of q, k, v, o.
+// q, k, v, o: device pointers; lse: a contiguous float32 (B, Hq, Sq) that
+// takes each query row's log-sum-exp (the backward's input), or null;
+// is_bf16 selects bfloat16 (else float32); strides in elements, (batch,
+// head, seq) for each of q, k, v, o.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int is_bf16, int B,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int is_bf16, int B,
     int Hq, int Hkv, int Sq, int Sk, int d, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss, long long vsb,
     long long vsh, long long vss, long long osb, long long osh, long long oss,
@@ -578,10 +1334,10 @@ extern "C" int flash_attention_launch(
   for (long long s : strides) vec = vec && s % 8 == 0;
   return by_tile(d, [&](auto tile) {
     constexpr int DT = decltype(tile)::value;
-    return is_bf16 ? launch_mma<DT>(q, k, v, o, B, Hq, Hkv, Sq, Sk, d, qs, ks,
-                                    vs, os, scale, causal, vec, st)
-                   : launch_fma<DT>(q, k, v, o, B, Hq, Hkv, Sq, Sk, d, qs, ks,
-                                    vs, os, scale, causal, st);
+    return is_bf16 ? launch_mma<DT>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, d,
+                                    qs, ks, vs, os, scale, causal, vec, st)
+                   : launch_fma<DT>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, d,
+                                    qs, ks, vs, os, scale, causal, st);
   });
 }
 
@@ -600,6 +1356,178 @@ extern "C" int flash_attention_attributes(int is_bf16, int d, int* regs,
     *regs = attr.numRegs;
     *local_bytes = static_cast<int>(attr.localSizeBytes);
     *smem = is_bf16 ? mma_smem_bytes<DT>() : fma_smem_bytes<DT>();
+    return 0;
+  });
+}
+
+// ---------------------------------------------------------------------------
+// backward entries: device pointers, strides in elements ((batch, head, seq)
+// for each strided operand); lse and D are contiguous float32 (B, Hq, Sq)
+// ---------------------------------------------------------------------------
+
+// D = rowsum(dO o O)
+extern "C" int attn_bwd_prep_launch(const void* o, const void* dout, float* D,
+                                    int is_bf16, int B, int Hq, int Sq, int d,
+                                    long long osb, long long osh,
+                                    long long oss, long long dosb,
+                                    long long dosh, long long doss,
+                                    void* stream) {
+  const long long rows = static_cast<long long>(B) * Hq * Sq;
+  if (rows <= 0) return 0;
+  if (d <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Strides os{osb, osh, oss}, dos{dosb, dosh, doss};
+  constexpr int kRowsPerBlock = kThreads / 32;
+  const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  if (is_bf16)
+    attn_bwd_prep<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(o),
+        static_cast<const __nv_bfloat16*>(dout), D, rows, Hq, Sq, d, os, dos);
+  else
+    attn_bwd_prep<float><<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dout), D,
+        rows, Hq, Sq, d, os, dos);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+bool vec_ok(int d, std::initializer_list<const void*> ptrs,
+            std::initializer_list<long long> strides) {
+  bool vec = d % 8 == 0;
+  for (const void* p : ptrs) vec = vec && aligned16(p);
+  for (long long s : strides) vec = vec && s % 8 == 0;
+  return vec;
+}
+
+}  // namespace
+
+// dq = scale dS K
+extern "C" int attn_bwd_dq_launch(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* D, void* dq, int is_bf16, int B, int Hq,
+    int Hkv, int Sq, int Sk, int d, long long qsb, long long qsh,
+    long long qss, long long ksb, long long ksh, long long kss, long long vsb,
+    long long vsh, long long vss, long long dosb, long long dosh,
+    long long doss, long long dqsb, long long dqsh, long long dqss,
+    float scale, int causal, void* stream) {
+  if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
+  if (Hkv <= 0 || Hq % Hkv != 0 || Sk <= 0 || d <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
+      dos{dosb, dosh, doss}, dqs{dqsb, dqsh, dqss};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int group = Hq / Hkv;
+  return by_tile_bwd(d, [&](auto tile) {
+    constexpr int DT = decltype(tile)::value;
+    if (is_bf16) {
+      const bool vec = vec_ok(d, {q, k, v, dout},
+                              {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss,
+                               dosb, dosh, doss});
+      constexpr size_t smem = dq_mma_smem_bytes<DT>();
+      int err = set_smem(attn_bwd_dq_mma<DT>, smem);
+      if (err) return err;
+      const dim3 grid((Sq + kDqBQ - 1) / kDqBQ, Hq, B);
+      attn_bwd_dq_mma<DT><<<grid, kThreads, smem, st>>>(
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v),
+          static_cast<const __nv_bfloat16*>(dout), lse, D,
+          static_cast<__nv_bfloat16*>(dq), group, Sq, Sk, d, qs, ks, vs, dos,
+          dqs, scale, causal, vec);
+    } else {
+      constexpr size_t smem = dq_fma_smem_bytes<DT>();
+      int err = set_smem(attn_bwd_dq_fma<DT>, smem);
+      if (err) return err;
+      const dim3 grid((Sq + kFDqBQ - 1) / kFDqBQ, Hq, B);
+      attn_bwd_dq_fma<DT><<<grid, kThreads, smem, st>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+          D, static_cast<float*>(dq), group, Sq, Sk, d, qs, ks, vs, dos, dqs,
+          scale, causal);
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// dk = scale dS^T Q and dv = P^T dO, each summed over the kv head's group
+extern "C" int attn_bwd_dkdv_launch(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* D, void* dk, void* dv, int is_bf16, int B,
+    int Hq, int Hkv, int Sq, int Sk, int d, long long qsb, long long qsh,
+    long long qss, long long ksb, long long ksh, long long kss, long long vsb,
+    long long vsh, long long vss, long long dosb, long long dosh,
+    long long doss, long long dksb, long long dksh, long long dkss,
+    long long dvsb, long long dvsh, long long dvss, float scale, int causal,
+    void* stream) {
+  if (B <= 0 || Hkv <= 0 || Sk <= 0) return 0;
+  if (Hq <= 0 || Hq % Hkv != 0 || Sq <= 0 || d <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
+      dos{dosb, dosh, doss}, dks{dksb, dksh, dkss}, dvs{dvsb, dvsh, dvss};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int group = Hq / Hkv;
+  return by_tile_bwd(d, [&](auto tile) {
+    constexpr int DT = decltype(tile)::value;
+    if (is_bf16) {
+      const bool vec = vec_ok(d, {q, k, v, dout},
+                              {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss,
+                               dosb, dosh, doss});
+      constexpr size_t smem = dkdv_mma_smem_bytes<DT>();
+      int err = set_smem(attn_bwd_dkdv_mma<DT>, smem);
+      if (err) return err;
+      const dim3 grid((Sk + kKvBK - 1) / kKvBK, Hkv, B);
+      attn_bwd_dkdv_mma<DT><<<grid, kThreads, smem, st>>>(
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v),
+          static_cast<const __nv_bfloat16*>(dout), lse, D,
+          static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+          Hq, group, Sq, Sk, d, qs, ks, vs, dos, dks, dvs, scale, causal,
+          vec);
+    } else {
+      constexpr size_t smem = dkdv_fma_smem_bytes<DT>();
+      int err = set_smem(attn_bwd_dkdv_fma<DT>, smem);
+      if (err) return err;
+      const dim3 grid((Sk + kFKvBK - 1) / kFKvBK, Hkv, B);
+      attn_bwd_dkdv_fma<DT><<<grid, kThreads, smem, st>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+          D, static_cast<float*>(dk), static_cast<float*>(dv), Hq, group, Sq,
+          Sk, d, qs, ks, vs, dos, dks, dvs, scale, causal);
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// the compiled backward kernel `which` (0 prep, 1 dkdv, 2 dq) for head dim
+// d: registers a thread, local memory a thread (spills), dynamic shared
+// memory a launch
+extern "C" int attn_bwd_attributes(int is_bf16, int which, int d, int* regs,
+                                   int* local_bytes, long long* smem) {
+  return by_tile_bwd(d, [&](auto tile) {
+    constexpr int DT = decltype(tile)::value;
+    cudaFuncAttributes attr;
+    cudaError_t err;
+    size_t bytes = 0;
+    if (which == 0) {
+      err = is_bf16 ? cudaFuncGetAttributes(&attr, attn_bwd_prep<__nv_bfloat16>)
+                    : cudaFuncGetAttributes(&attr, attn_bwd_prep<float>);
+    } else if (which == 1) {
+      err = is_bf16 ? cudaFuncGetAttributes(&attr, attn_bwd_dkdv_mma<DT>)
+                    : cudaFuncGetAttributes(&attr, attn_bwd_dkdv_fma<DT>);
+      bytes = is_bf16 ? dkdv_mma_smem_bytes<DT>() : dkdv_fma_smem_bytes<DT>();
+    } else {
+      err = is_bf16 ? cudaFuncGetAttributes(&attr, attn_bwd_dq_mma<DT>)
+                    : cudaFuncGetAttributes(&attr, attn_bwd_dq_fma<DT>);
+      bytes = is_bf16 ? dq_mma_smem_bytes<DT>() : dq_fma_smem_bytes<DT>();
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *regs = attr.numRegs;
+    *local_bytes = static_cast<int>(attr.localSizeBytes);
+    *smem = static_cast<long long>(bytes);
     return 0;
   });
 }

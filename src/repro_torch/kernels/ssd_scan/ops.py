@@ -5,7 +5,8 @@ device and the launch counter.
 computes, the Mamba2 SSD scan over x (B, S, H, P), the decay a (B, S, H)
 and the state-group inputs b, c (B, S, G, N).  A CPU tensor takes the plain
 version (``ref.ssd_ref``, the sequential recurrence); a CUDA tensor
-launches the kernels in ``csrc/ssd_scan.cu`` or raises.  Before the launch
+launches the kernels in ``csrc/ssd_scan.cu`` or raises (as it does when a
+gradient is wanted: K5 has no backward kernel yet).  Before the launch
 it does what the reference's wrapper does: L = min(chunk, S), x, b and c
 padded with zeros and a with 1 to a multiple of L (padded steps leave the
 state unchanged), loga = log(max(a, 1e-37)) in float32, the output sliced
@@ -68,6 +69,11 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         return ssd_ref(x, a, b, c)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cpu or cuda, not {x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, a, b, c)):
+        raise RuntimeError(
+            "ssd_scan has no backward kernel yet: its CUDA path cannot give "
+            "a gradient (the plain CPU path can)")
     if x.dtype not in _DTYPES:
         raise TypeError(f"the ssd_scan kernel takes float32 or bfloat16, "
                         f"got {x.dtype}")

@@ -9,8 +9,11 @@ the port's own shapes and types.  ``encdec_params_from_numpy`` does the
 same for ``init_encdec``'s tree (``enc_stack``, ``dec_stack`` with
 ``attn``, ``cross`` and ``mlp``, ``enc_norm``, ``final_norm``, ``embed``,
 ``unembed``).  ``lm_params_to_numpy`` takes any of the port's parameter
-trees the other way, for the tests.  None imports the reference: the arrays
-are the interface.
+trees the other way, for the tests.  ``train_state_from_numpy`` and
+``train_state_to_numpy`` do the same for a whole ``TrainState`` (the
+parameters, the float32 moments m and v shaped like them, and the step),
+so that tests start both packages' training from one state.  None imports
+the reference: the arrays are the interface.
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ from .encdec import init_encdec
 from .lm import init_lm, tree_map
 
 __all__ = ["lm_params_from_numpy", "encdec_params_from_numpy",
-           "lm_params_to_numpy"]
+           "lm_params_to_numpy", "train_state_from_numpy",
+           "train_state_to_numpy"]
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -87,3 +91,36 @@ def lm_params_to_numpy(params: dict) -> dict:
         return t.numpy()
 
     return tree_map(conv, params)
+
+
+def _params_from_numpy(cfg: ArchConfig, tree: dict, device) -> dict:
+    if cfg.family == "encdec":
+        return encdec_params_from_numpy(cfg, tree, device)
+    return lm_params_from_numpy(cfg, tree, device)
+
+
+def train_state_from_numpy(cfg: ArchConfig, params_tree: dict,
+                           opt_tree: dict, step: int,
+                           device: "torch.device | str" = "cuda"):
+    """A ``repro_torch.train.TrainState`` on `device` from numpy trees: the
+    reference's parameters (any family), ``opt_tree`` {"m", "v"} (float32
+    trees shaped like the parameters) and the step (the state's and the
+    optimizer's, int32)."""
+    from ..train.step import TrainState
+
+    params = _params_from_numpy(cfg, params_tree, device)
+    f32 = tree_map(lambda p: torch.empty(p.shape, dtype=torch.float32,
+                                         device="meta"), params)
+    opt = {key: _from_numpy(f32, opt_tree[key], device) for key in ("m", "v")}
+    opt["step"] = torch.tensor(step, dtype=torch.int32, device=device)
+    return TrainState(params=params, opt=opt,
+                      step=torch.tensor(step, dtype=torch.int32,
+                                        device=device))
+
+
+def train_state_to_numpy(state) -> tuple[dict, dict, int]:
+    """(params, {"m", "v"}, step) as numpy trees on the host; bfloat16
+    leaves widen exactly to float32."""
+    return (lm_params_to_numpy(state.params),
+            {key: lm_params_to_numpy(state.opt[key]) for key in ("m", "v")},
+            int(state.step))

@@ -149,7 +149,8 @@ def encdec_loss(cfg: ArchConfig, params: dict, frames: torch.Tensor,
                               device=logits.device) < cfg.vocab
     logits = torch.where(vocab_mask, logits, -1e30)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    gold = torch.gather(logits, -1,
+                        labels.clamp(min=0).long()[..., None])[..., 0]
     valid = labels >= 0
     return torch.where(valid, logz - gold, 0.0).sum() \
         / torch.clamp(valid.sum(), min=1)

@@ -20,8 +20,9 @@ goes through the flash_attention kernel (K4) and every mamba layer of
 ``lm_forward`` and ``lm_loss`` through the ssd_scan kernel (K5); prefill's
 mamba layers run the plain chunked form and decode the recurrence, as the
 reference's do.  MoE layers (``models/moe.py``) are plain tensor code on
-both devices.  The reference's rematerialisation policy (``_maybe_remat``)
-only shapes a backward pass and comes with the training slice.
+both devices.  ``cfg.remat`` applies the reference's rematerialisation
+policy (``_maybe_remat``) to each period of ``hidden_states``; it changes
+what a backward pass keeps, not the values.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from .common import DTYPES, ArchConfig
 from .layers import (_qkv, attention, decode_attention, init_attn, init_mlp,
@@ -142,21 +144,59 @@ def _apply_period(cfg: ArchConfig, pp: dict, x: torch.Tensor,
     return x, aux
 
 
+# the matrix products that remat="dots" keeps (the reference's
+# checkpoint_dots_with_no_batch_dims: every dot without batch dimensions;
+# here each product of an activation with a weight matrix)
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    if op in _DOT_OPS:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(cfg: ArchConfig, fn):
+    """The reference's ``_maybe_remat``: "none" runs `fn` as it is, "full"
+    keeps only its inputs for the backward pass (and runs it again there),
+    "dots" keeps its matrix products and recomputes the rest."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        return lambda *a: _ckpt.checkpoint(
+            fn, *a, use_reentrant=False,
+            context_fn=lambda: _ckpt.create_selective_checkpoint_contexts(
+                _keep_dots))
+    if cfg.remat != "full":
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    return lambda *a: _ckpt.checkpoint(fn, *a, use_reentrant=False)
+
+
 def hidden_states(cfg: ArchConfig, params: dict, x: torch.Tensor,
                   positions: torch.Tensor, causal: bool = True):
     """Run the stack on embedded inputs x: (B, S, d) -> (h, aux), aux the
-    MoE layers' auxiliary losses summed over the stack (0 without MoE)."""
+    MoE layers' auxiliary losses summed over the stack (0 without MoE).
+    Each period runs under ``_maybe_remat`` when a gradient is wanted."""
+
+    def body(pp, h):
+        h, a = _apply_period(cfg, pp, h, positions, causal)
+        return h, (torch.zeros((), dtype=torch.float32, device=h.device)
+                   if a is None else a)
+
+    step = _maybe_remat(cfg, body) if torch.is_grad_enabled() else body
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for n in range(cfg.n_periods):
-        x, a = _apply_period(cfg, _period(params, n), x, positions, causal)
-        if a is not None:
-            aux = aux + a
+        x, a = step(_period(params, n), x)
+        aux = aux + a
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def embed_tokens(cfg: ArchConfig, params: dict,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+    """The rows of the embedding (``F.embedding``: the same gather as
+    ``embed[tokens]``, and a backward that sums into the table in a fixed
+    order on a card, where indexing's backward accumulates with atomics)."""
+    return F.embedding(tokens, params["embed"])
 
 
 def unembed_matrix(cfg: ArchConfig, params: dict) -> torch.Tensor:
@@ -210,7 +250,8 @@ def lm_loss(cfg: ArchConfig, params: dict, tokens: torch.Tensor | None,
         logits = (h[:, c0:c0 + C] @ w).float()
         logits = torch.where(vocab_mask, logits, -1e30)
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lb.clamp(min=0)[..., None])[..., 0]
+        gold = torch.gather(logits, -1,
+                            lb.clamp(min=0).long()[..., None])[..., 0]
         valid = lb >= 0
         total = total + torch.where(valid, logz - gold, 0.0).sum()
         count = count + valid.sum()

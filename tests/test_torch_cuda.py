@@ -19,8 +19,13 @@ from repro_torch.kernels.bna_step import bna_step, stage_state
 from repro_torch.kernels.bna_step.ref import bna_step_ref
 from repro_torch.kernels.coflow_merge import coflow_merge, interval_alphas
 from repro_torch.kernels.coflow_merge.ref import alphas_ref
-from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention import (attn_bwd_dkdv, attn_bwd_dq,
+                                                 attn_bwd_prep,
+                                                 flash_attention,
+                                                 flash_attention_lse)
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_lse_ref,
+                                                     attention_ref)
 from repro_torch.kernels.merge_fix import merge_fix
 from repro_torch.kernels.merge_fix.ref import merge_fix_ref
 from repro_torch.kernels.ssd_scan import ssd_scan
@@ -222,6 +227,163 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take():
         flash_attention(q[..., :8].half(), q[..., :8].half(),
                         q[..., :8].half())
     assert flash_attention.launches == before
+
+
+# K4's backward: the families' shapes (d 64 and 128; GQA 16:8, 24:8, 32:8,
+# 64:4 and MHA 20:20), S in {1, 127, 128, 129}, Sq != Sk both ways (Sq > Sk
+# causal: rows that see no key), d not a multiple of 16
+_BWD_SHAPES = [(1, 16, 8, 1, 1, 128), (1, 16, 8, 127, 127, 128),
+               (1, 16, 8, 128, 128, 128), (2, 16, 8, 129, 129, 128),
+               (1, 24, 8, 300, 300, 64), (1, 32, 8, 257, 257, 128),
+               (1, 64, 4, 200, 200, 128), (1, 20, 20, 64, 1500, 64),
+               (1, 20, 20, 150, 150, 64), (2, 4, 2, 33, 33, 24),
+               (1, 8, 2, 64, 128, 48), (1, 4, 2, 100, 40, 32),
+               (1, 4, 1, 1, 96, 64), (1, 4, 2, 70, 70, 40)]
+_BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 4e-2}   # of max |grad|
+
+
+def _sees_a_key(Sq, Sk, causal, dev):
+    if not causal:
+        return torch.ones(Sq, dtype=torch.bool, device=dev)
+    return torch.arange(Sq, device=dev) + (Sk - Sq) >= 0
+
+
+def _bwd_case(shape, dtype, causal, seed, dev):
+    B, Hq, Hkv, Sq, Sk, d = shape
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.as_tensor(rng.normal(size=sz), dtype=dtype,
+                               device=dev).requires_grad_()
+               for sz in ((B, Hq, Sq, d), (B, Hkv, Sk, d), (B, Hkv, Sk, d)))
+    dout = torch.as_tensor(rng.normal(size=(B, Hq, Sq, d)), dtype=dtype,
+                           device=dev)
+    return q, k, v, dout
+
+
+def _assert_grads_close(got, want, sees, tol):
+    dq, dk, dv = got
+    wq, wk, wv = want
+    for g, w in ((dq, wq), (dk, wk), (dv, wv)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+    scale = max(float(w.float().abs().max()) for w in want) or 1.0
+    errs = [float((dq[:, :, sees].float() - wq[:, :, sees].float())
+                  .abs().max()) if bool(sees.any()) else 0.0,
+            float((dk.float() - wk.float()).abs().max()),
+            float((dv.float() - wv.float()).abs().max())]
+    assert max(errs) <= tol * scale, (errs, scale)
+    assert not bool(dq[:, :, ~sees].any())      # rows that see no key: 0
+
+
+@pytest.mark.parametrize("shape", _BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_kernels_equal_plain(shape, dtype, causal):
+    """K4's autograd on the card launches the three backward kernels once
+    each, and dq, dk, dv equal attention_bwd_ref within 2e-5 (float32) or
+    4e-2 (bfloat16) of the largest |gradient|; dq is 0 on rows that see no
+    key."""
+    dev = _card()
+    q, k, v, dout = _bwd_case(shape, dtype, causal, sum(shape), dev)
+    before = (flash_attention.launches, attn_bwd_prep.launches,
+              attn_bwd_dkdv.launches, attn_bwd_dq.launches)
+    out = flash_attention(q, k, v, causal=causal)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    want = attention_bwd_ref(q.detach(), k.detach(), v.detach(), dout,
+                             causal=causal)
+    torch.cuda.synchronize()
+    after = (flash_attention.launches, attn_bwd_prep.launches,
+             attn_bwd_dkdv.launches, attn_bwd_dq.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
+    sees = _sees_a_key(shape[3], shape[4], causal, dev)
+    _assert_grads_close(got, want, sees, _BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_at_training_length(dtype):
+    """qwen3-1.7b's head shape at S = 4096, causal: the backward against the
+    plain version."""
+    dev = _card()
+    shape = (1, 16, 8, 4096, 4096, 128)
+    q, k, v, dout = _bwd_case(shape, dtype, True, 4096, dev)
+    out = flash_attention(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    want = attention_bwd_ref(q.detach(), k.detach(), v.detach(), dout)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want, _sees_a_key(4096, 4096, True, dev),
+                        _BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_lse_equals_plain(dtype, causal):
+    """The forward's row log-sum-exp: within 1e-4 of the plain version on
+    rows that see a key, -inf on the others."""
+    dev = _card()
+    shape = (1, 8, 4, 100, 40, 64)
+    q, k, v, _ = _bwd_case(shape, dtype, causal, 3, dev)
+    _, lse = flash_attention_lse(q.detach(), k.detach(), v.detach(),
+                                 causal=causal)
+    want = attention_lse_ref(q.detach(), k.detach(), causal=causal)
+    torch.cuda.synchronize()
+    sees = _sees_a_key(100, 40, causal, dev)
+    assert lse.dtype == torch.float32 and lse.shape == (1, 8, 100)
+    assert float((lse[:, :, sees] - want[:, :, sees]).abs().max()) < 1e-4
+    assert bool(torch.isneginf(lse[:, :, ~sees]).all())
+
+
+def test_flash_attention_bwd_is_deterministic_and_keeps_layouts():
+    """(B, S, H, d) views through transpose(1, 2), as layers.attention
+    passes them: the gradients come back in the same memory layout, and two
+    runs give the same bits."""
+    dev = _card()
+    rng = np.random.default_rng(11)
+    B, S, Hq, Hkv, d = 2, 333, 16, 8, 128
+    base = [torch.as_tensor(rng.normal(size=(B, S, h, d)),
+                            dtype=torch.bfloat16, device=dev)
+            for h in (Hq, Hkv, Hkv)]
+    dout = torch.as_tensor(rng.normal(size=(B, S, Hq, d)),
+                           dtype=torch.bfloat16, device=dev)
+    runs = []
+    for _ in range(2):
+        leaves = [x.clone().requires_grad_() for x in base]
+        out = flash_attention(*(x.transpose(1, 2) for x in leaves))
+        out.transpose(1, 2).backward(dout)
+        runs.append([x.grad for x in leaves])
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert a.is_contiguous() and torch.equal(a, b)
+    want = attention_bwd_ref(*(x.transpose(1, 2) for x in base),
+                             dout.transpose(1, 2))
+    _assert_grads_close([g.transpose(1, 2) for g in runs[0]], want,
+                        _sees_a_key(S, S, True, dev), 4e-2)
+
+
+def test_flash_attention_serve_path_writes_no_lse():
+    """Without a gradient (inference mode, or no input that requires one)
+    K4 runs its forward alone: no backward state is kept."""
+    dev = _card()
+    q = torch.randn((1, 4, 64, 64), device=dev, requires_grad=True)
+    with torch.inference_mode():
+        out = flash_attention(q.detach(), q.detach(), q.detach())
+    assert out.grad_fn is None
+    out = flash_attention(q, q, q)
+    assert out.grad_fn is not None
+
+
+def test_ssd_scan_refuses_a_gradient_on_the_card():
+    """K5 has no backward kernel yet: a CUDA call that would need one
+    raises, where the CPU path stays differentiable."""
+    x = torch.randn((1, 32, 2, 8), requires_grad=True)
+    a = torch.rand((1, 32, 2)) * 0.5 + 0.5
+    b = torch.randn((1, 32, 1, 8))
+    c = torch.randn((1, 32, 1, 8))
+    ssd_scan(x, a, b, c, chunk=16).sum().backward()
+    assert x.grad is not None
+    dev = _card()
+    xd = x.detach().to(dev).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        ssd_scan(xd, a.to(dev), b.to(dev), c.to(dev), chunk=16)
+    with torch.no_grad():
+        ssd_scan(xd, a.to(dev), b.to(dev), c.to(dev), chunk=16)
 
 
 def test_smoke_prefill_and_serve_on_card_equal_cpu():
@@ -1243,3 +1405,164 @@ def test_planner_shared_session_on_card_equals_cpu(plan_backend):
             assert all(fn.launches > 0 for fn in path)
         outs.append((rows, shared.result().job_completions))
     assert outs[0] == outs[1]
+
+
+# --- training on the card ----------------------------------------------------
+
+def _smoke_batch(cfg, B=2, S=24, seed=0):
+    from repro_torch.data import DataConfig, SyntheticTokens
+
+    if cfg.family == "vlm":
+        S = S - cfg.n_image_tokens
+    return SyntheticTokens(cfg, DataConfig(seq_len=S, global_batch=B,
+                                           seed=seed)).batch_at(0)
+
+
+def _grads_on(cfg, params, batch):
+    from repro_torch.train.step import _value_and_grad, loss_for
+
+    return _value_and_grad(loss_for(cfg), params, batch)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-1.7b",
+                                  "granite-moe-3b", "whisper-large-v3",
+                                  "llava-next-mistral-7b"])
+def test_smoke_loss_gradient_on_card_equals_cpu(arch):
+    """loss_for(cfg) and every gradient leaf of a float32 smoke config on
+    the card (K4 forward and backward in every attention) against the CPU
+    (autograd through the plain attention): loss within 1e-5 relative,
+    each leaf within 1e-4 of its largest |gradient|.  K4's backward
+    kernels launch once per attention layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import tree_leaves, tree_map
+    from repro_torch.train.step import init_params, leaf_paths
+
+    dev = _card()
+    cfg = get_config(arch).smoke()
+    cpu = init_params(cfg, torch.Generator().manual_seed(0))
+    card = tree_map(lambda x: x.to(dev), cpu)
+    batch = _smoke_batch(cfg)
+    before = attn_bwd_dq.launches
+    loss, grads = _grads_on(cfg, card, {k: v.to(dev)
+                                        for k, v in batch.items()})
+    torch.cuda.synchronize()
+    n_attn = (cfg.n_layers if cfg.family != "encdec"
+              else cfg.n_encoder_layers + 2 * cfg.n_layers)
+    assert attn_bwd_dq.launches - before == n_attn
+    loss_c, grads_c = _grads_on(cfg, cpu, batch)
+    assert abs(float(loss) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+    for path, g, w in zip(leaf_paths(grads), tree_leaves(grads),
+                          tree_leaves(grads_c)):
+        err = float((g.cpu() - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), (path, err)
+
+
+def test_smoke_attention_projection_gradient_on_card():
+    """The fault this slice fixes, at its smallest: a 1-layer smoke
+    lm_loss on the card gave wq (the q projection, reached only through
+    attention) a zero gradient.  It equals the CPU's now."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import tree_map
+    from repro_torch.train.step import init_params
+
+    dev = _card()
+    cfg = get_config("qwen3-1.7b").smoke().replace(n_periods=1)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0))
+    card = tree_map(lambda x: x.to(dev), cpu)
+    batch = _smoke_batch(cfg)
+    _, g = _grads_on(cfg, card, {k: v.to(dev) for k, v in batch.items()})
+    _, w = _grads_on(cfg, cpu, batch)
+    gq, wq = g["stack"]["l0"]["attn"]["wq"].cpu(), \
+        w["stack"]["l0"]["attn"]["wq"]
+    assert float(wq.abs().max()) > 0
+    assert float((gq - wq).abs().max()) <= 1e-4 * float(wq.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-1.5-large"])
+def test_smoke_ssm_gradient_on_card_raises(arch):
+    """K5 has no backward kernel yet: a mamba layer's gradient on the card
+    raises K5's error rather than losing the scan's gradient."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import tree_map
+    from repro_torch.train.step import init_params
+
+    dev = _card()
+    cfg = get_config(arch).smoke()
+    card = tree_map(lambda x: x.to(dev),
+                    init_params(cfg, torch.Generator().manual_seed(0)))
+    batch = {k: v.to(dev) for k, v in _smoke_batch(cfg).items()}
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        _grads_on(cfg, card, batch)
+
+
+def test_smoke_train_step_on_card_equals_cpu():
+    """Three build_train_step steps of qwen3-1.7b's float32 smoke config
+    from one state on both devices: loss and grad norm within 1e-5
+    relative, the parameters within 3 x 2 lr (AdamW moves an element about
+    lr sign(g) a step: a near-zero gradient of the other sign moves it
+    2 lr), nearly all within 1e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import tree_leaves, tree_map
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.step import (TrainState, build_train_step,
+                                        init_train_state)
+
+    dev = _card()
+    cfg = get_config("qwen3-1.7b").smoke()
+    opt = OptConfig(lr=1e-3, warmup_steps=2, total_steps=50)
+    cpu = init_train_state(cfg, torch.Generator().manual_seed(0))
+    states = {"cpu": cpu, dev: TrainState(*(
+        tree_map(lambda x: x.to(dev), t)
+        for t in (cpu.params, cpu.opt, cpu.step)))}
+    step = build_train_step(cfg, opt)
+    for i in range(3):
+        batch = _smoke_batch(cfg, B=4, S=32, seed=i)
+        metrics = {}
+        for d in ("cpu", dev):
+            states[d], metrics[d] = step(states[d], {k: v.to(d) for k, v in
+                                                     batch.items()})
+        for key in ("loss", "grad_norm"):
+            a, b = float(metrics[dev][key]), float(metrics["cpu"][key])
+            assert abs(a - b) <= 1e-5 * abs(b), key
+    diff = torch.cat([(a.cpu() - b).abs().ravel() for a, b in zip(
+        tree_leaves(states[dev].params), tree_leaves(states["cpu"].params))])
+    assert float(diff.max()) <= 3 * 2 * opt.lr + 1e-5
+    assert float((diff <= 1e-5).float().mean()) >= 0.999
+
+
+def test_crash_resume_on_card_is_bit_exact(tmp_path):
+    """The reference's crash/resume protocol on the card (tinyllama smoke):
+    crash at step 7, resume from the step-6 checkpoint, run to 12; every
+    parameter bit-equal to an uninterrupted run."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.ft import FTConfig, TrainRunner
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.train.optim import OptConfig
+
+    dev = _card()
+    cfg = get_config("tinyllama-1.1b").smoke()
+
+    class Boom(Exception):
+        pass
+
+    def hook(step):
+        if step == 7:
+            raise Boom()
+
+    def mk(h=None, d="a"):
+        return TrainRunner(cfg, OptConfig(lr=1e-3, warmup_steps=2,
+                                          total_steps=50),
+                           DataConfig(seq_len=32, global_batch=4, seed=0),
+                           FTConfig(ckpt_dir=str(tmp_path / d),
+                                    ckpt_every=3),
+                           fault_hook=h, device=dev)
+
+    with pytest.raises(Boom):
+        mk(hook).run(12)
+    r2 = mk()
+    resumed = r2.run(12)
+    assert r2.metrics_log[0]["step"] == 6
+    clean = mk(d="b").run(12)
+    for a, b in zip(tree_leaves(resumed.params), tree_leaves(clean.params)):
+        assert a.device.type == "cuda" and torch.equal(a, b)

@@ -195,9 +195,12 @@ def test_plan_defaults_to_the_card(monkeypatch):
 
 
 def test_dist_package_names_only_the_planner():
+    """The port's dist package names the planner and (since the training
+    slice) compression; the reference's partition rules wait for the
+    distributed slice."""
     import repro_torch.dist as dist
 
-    assert dist.__all__ == ["planner"]
+    assert dist.__all__ == ["compression", "planner"]
     assert not hasattr(planner, "extract_collectives")
     assert set(planner.__all__) == set(ref_planner.__all__) - \
         {"extract_collectives"}

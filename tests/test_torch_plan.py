@@ -245,6 +245,19 @@ def test_port_imports_neither_jax_nor_repro():
         "assert bool(torch.isfinite(vlm_loss(cfg, p, pa, t, t))), 'vlm'\n"
         "serve.main(['--arch', 'granite-moe-3b', '--requests', '2',\n"
         "            '--max-new', '2', '--device', 'cpu'])\n"
+        "import tempfile\n"
+        "import repro_torch.train, repro_torch.data, repro_torch.ckpt\n"
+        "import repro_torch.ft, repro_torch.dist.compression\n"
+        "from repro_torch.launch import specs, train\n"
+        "from repro_torch.kernels.flash_attention import flash_attention\n"
+        "specs.abstract_params(get_config('qwen3-1.7b'))\n"
+        "q = torch.ones((1, 2, 4, 8), requires_grad=True)\n"
+        "flash_attention(q, q, q).sum().backward()\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    train.main(['--arch', 'tinyllama-1.1b', '--smoke', '--steps',\n"
+        "                '2', '--seq-len', '16', '--global-batch', '2',\n"
+        "                '--plan-buckets', '2', '--ckpt-every', '1',\n"
+        "                '--ckpt-dir', d, '--device', 'cpu'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith('jax.') or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"
