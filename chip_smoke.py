@@ -290,7 +290,9 @@ Phases; any failure exits non-zero and prints no result line:
       is seq 4096 at global batch 256: the batch is cut to 4 (at 8 the
       step's backward does not fit the card's 80 GB).  Prints the
       step's wall (median of steps 2-4), tokens/s, peak memory, loss and
-      grad norm per step, and the bucket plan's seconds and gain.
+      grad norm per step, and the bucket plan's seconds and gain, and
+      fails unless the step ran in bf16 and the backward kernels read
+      their operands by TMA as they lie (``.staged`` stays 0).
    b. K4's backward kernels against ``attention_bwd_ref``: layer 0 of a
       real step of that model at B = 1, S = 4096, and a grid
       (``ATTN_BWD_SHAPES``: d 64 and 128, GQA 16:8, 24:8, 32:8, 64:4, MHA
@@ -298,11 +300,15 @@ Phases; any failure exits non-zero and prints no result line:
       see no key) in float32 and bfloat16, causal and not; tolerances
       ``ATTN_BWD_TOL`` of the largest |gradient| (float32 2e-5, bf16 4e-2),
       dq 0 on rows that see no key.  Then the backward at the training
-      shape (B=4, Hq=16, Hkv=8, S=4096, d=128, bf16, causal): each kernel
+      shape (B=4, Hq=16, Hkv=8, S=4096, d=128, bf16, causal) and at
+      granite-moe-3b's (``ATTN_BWD_TIME_D64``, d=64): each kernel (ms,
+      bound, share of the bound, registers, local memory, shared memory)
       and the whole beside its bound (five products of 2 B Hq Sq Sk d
-      operations over the kept pairs at the bf16 peak), SDPA's backward
-      (``torch.autograd.grad`` of SDPA with ``enable_gqa=True``, minus its
-      forward) and the plain version.
+      operations over the kept pairs at the bf16 peak; dkdv four, dq
+      three), SDPA's backward (``torch.autograd.grad`` of SDPA with
+      ``enable_gqa=True``, minus its forward) and, at the training shape,
+      the plain version; two runs of the training shape's backward must
+      give the same bits.
    c. Card against CPU: one ``build_train_step`` of qwen3-1.7b at full
       width cut to 2 periods, float32, B = 1, S = 256, from one state
       (loss, grad norm, every parameter after the step); every gradient
@@ -462,6 +468,9 @@ TRAIN_SMOKE = ("tinyllama-1.1b", "qwen3-1.7b", "granite-moe-3b",
 TRAIN_RAISES = ("mamba2-2.7b", "jamba-1.5-large")
 RESUME_ARCH = "tinyllama-1.1b"
 BWD_KERNELS = ("attn_bwd_prep", "attn_bwd_dkdv", "attn_bwd_dq")
+# K4's backward is timed at the training shape and at granite-moe-3b's head
+# shape (d = 64), both bf16 and causal
+ATTN_BWD_TIME_D64 = (1, 24, 8, 3072, 3072, 64)
 ATTN_BWD_TOL = {"float32": 2e-5, "bfloat16": 4e-2}   # of the largest |grad|
 ATTN_BWD_SHAPES = [(1, 16, 8, S, S, 128) for S in (1, 127, 128, 129, 4096)] \
     + [(1, 24, 8, 300, 300, 64), (1, 64, 4, 200, 200, 128),
@@ -1803,12 +1812,15 @@ def _training(dev, counts) -> dict:
             "--seed", "0", "--device", dev.type]
     free()
     torch.cuda.reset_peak_memory_stats()
+    staged0 = (attn_bwd_dkdv.staged, attn_bwd_dq.staged)
     zero_counts()
     t0 = time.perf_counter()
     res = launch_train.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
+    staged = {"attn_bwd_dkdv": attn_bwd_dkdv.staged - staged0[0],
+              "attn_bwd_dq": attn_bwd_dq.staged - staged0[1]}
     peak = torch.cuda.max_memory_allocated()
     log = res["runner"].metrics_log
     if len(log) != TRAIN_STEPS:
@@ -1826,6 +1838,12 @@ def _training(dev, counts) -> dict:
     if launches["bna_decompose"] < 1 or launches["merge_fix"] < 1:
         _fail(f"the bucket plan did not run on the card's pipeline: "
               f"{launches}")
+    # bf16 operands, as the step hands them (transpose(1, 2) views), go to
+    # the wgmma kernels by TMA as they lie: no staged copy
+    if cfg.compute_dtype != "bfloat16" or any(staged.values()):
+        _fail(f"the training step's backward did not read its operands "
+              f"by TMA as they lie: compute {cfg.compute_dtype}, staged "
+              f"copies {staged}")
     walls = [r["time_s"] for r in log]
     step_s = statistics.median(walls[1:])
     outcome = res["outcome"]
@@ -1840,7 +1858,7 @@ def _training(dev, counts) -> dict:
         "loss": [r["loss"] for r in log],
         "grad_norm": [r["grad_norm"] for r in log],
         "max_memory_allocated": peak, "wall_s": wall,
-        "launches": launches,
+        "launches": launches, "staged_copies": staged,
         "launches_per_step": {k: launches[k] / TRAIN_STEPS
                               for k in per_step},
         "planned_buckets": len(outcome.order),
@@ -1859,7 +1877,7 @@ def _training(dev, counts) -> dict:
           f"{peak / 2**30:.2f} GiB; buckets planned in "
           f"{res['plan_s']:.3f} s, order {outcome.order}, makespan gain "
           f"{out['train']['bucket_makespan_gain_pct']}%; launches a step "
-          f"{out['train']['launches_per_step']}")
+          f"{out['train']['launches_per_step']}, staged copies {staged}")
 
     # (b) one layer of a real step at B = 1, S = TRAIN_SEQ: layer 0's q, k,
     # v and the gradient that reaches its output
@@ -1935,6 +1953,8 @@ def _training(dev, counts) -> dict:
                 _fail(f"{key} != plain version on {what} ({name}, max "
                       f"|diff| {err} > {tol[key]})")
 
+    if seen["q"].dtype != torch.bfloat16:
+        _fail(f"layer 0's attention ran in {seen['q'].dtype}, not bf16")
     q1, k1, v1, do1 = (seen[x][:1] for x in ("q", "k", "v", "do"))
     check_bwd(q1, k1, v1, do1, True,
               f"layer 0 of a {cfg.name} training step, B=1, S={TRAIN_SEQ}")
@@ -1964,76 +1984,106 @@ def _training(dev, counts) -> dict:
           f"max |diff| {out['max_abs_err']}, relative to the largest "
           f"|gradient| {out['max_rel_err']}")
 
-    # the backward at the training shape: each kernel, the whole, SDPA's
-    # backward and the plain version
-    Hq, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    B, S = TRAIN_BATCH, TRAIN_SEQ
-    g = torch.Generator(device=dev).manual_seed(S)
-    q, k, v, do = (torch.randn(sz, generator=g, device=dev)
-                   .to(torch.bfloat16)
-                   for sz in ((B, Hq, S, d), (B, Hkv, S, d), (B, Hkv, S, d),
-                              (B, Hq, S, d)))
-    sc = d ** -0.5
-    o, lse = flash_attention_lse(q, k, v, scale=sc)
-    D = attn_bwd_prep(o, do)
-    timing = {
-        "shape": [B, Hq, Hkv, S, S, d], "dtype": "bfloat16", "causal": True,
-        "attn_bwd_prep": _cuda_ms(lambda: attn_bwd_prep(o, do), reps=5,
-                                  rounds=3),
-        "attn_bwd_dkdv": _cuda_ms(lambda: attn_bwd_dkdv(
-            q, k, v, do, lse, D, causal=True, scale=sc), reps=5, rounds=3),
-        "attn_bwd_dq": _cuda_ms(lambda: attn_bwd_dq(
-            q, k, v, do, lse, D, causal=True, scale=sc), reps=5, rounds=3),
-        "fwd_lse_ms": _cuda_ms(lambda: flash_attention_lse(q, k, v,
-                                                           scale=sc),
-                               reps=5, rounds=3),
-        "prep_plain_ms": _cuda_ms(lambda: attention_bwd_prep_ref(o, do),
-                                  reps=5, rounds=3)}
-    timing["bwd_ms"] = sum(timing[k] for k in BWD_KERNELS)
-    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-
-    def sdpa(grad: bool):
-        if not grad:
-            with torch.no_grad():
-                return F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, scale=sc, enable_gqa=True)
-        o2 = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                            scale=sc, enable_gqa=True)
-        return torch.autograd.grad(o2, (qs, ks, vs), do)
-
-    timing["library_fwd_ms"] = _cuda_ms(lambda: sdpa(False), reps=5,
-                                        rounds=3)
-    timing["library_fwd_bwd_ms"] = _cuda_ms(lambda: sdpa(True), reps=5,
-                                            rounds=3)
-    timing["library_ms"] = timing["library_fwd_bwd_ms"] \
-        - timing["library_fwd_ms"]
-    timing["plain_ms"] = _cuda_ms(lambda: attention_bwd_ref(
-        q, k, v, do, scale=sc), reps=1, rounds=2)
-    timing.update(attn_bwd_bound(B, Hq, Hkv, S, S, d, True))
-    timing["bounds"] = {
-        "attn_bwd_prep": {"bound_ms": 2 * 2 * B * Hq * S * d
-                          / HBM_BYTES_PER_S * 1e3 + 4 * B * Hq * S
-                          / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"},
-        "attn_bwd_dkdv": attn_bwd_bound(B, Hq, Hkv, S, S, d, True, 4),
-        "attn_bwd_dq": attn_bwd_bound(B, Hq, Hkv, S, S, d, True, 3)}
-    timing["tflops"] = timing["flops"] / timing["bwd_ms"] / 1e9
-    timing["vs_library"] = timing["bwd_ms"] / timing["library_ms"]
+    # the backward at the training shape and at a d = 64 shape: each
+    # kernel, the whole, SDPA's backward and (training shape) the plain
+    # version; two runs of the training shape's backward give the same bits
     lib = kernels.load_kernel("flash_attention")
-    timing["attributes"] = {
-        name: _attributes(lib.attn_bwd_attributes, 1, which, d)
-        for name, which in (("attn_bwd_prep", 0), ("attn_bwd_dkdv", 1),
-                            ("attn_bwd_dq", 2))}
+
+    def time_bwd(shape, plain: bool) -> dict:
+        B, Hq, Hkv, S, _, d = shape
+        g = torch.Generator(device=dev).manual_seed(S)
+        q, k, v, do = (torch.randn(sz, generator=g, device=dev)
+                       .to(torch.bfloat16)
+                       for sz in ((B, Hq, S, d), (B, Hkv, S, d),
+                                  (B, Hkv, S, d), (B, Hq, S, d)))
+        sc = d ** -0.5
+        o, lse = flash_attention_lse(q, k, v, scale=sc)
+        D = attn_bwd_prep(o, do)
+        staged0 = (attn_bwd_dkdv.staged, attn_bwd_dq.staged)
+        tm = {
+            "shape": list(shape), "dtype": "bfloat16", "causal": True,
+            "attn_bwd_prep": _cuda_ms(lambda: attn_bwd_prep(o, do), reps=5,
+                                      rounds=3),
+            "attn_bwd_dkdv": _cuda_ms(lambda: attn_bwd_dkdv(
+                q, k, v, do, lse, D, causal=True, scale=sc), reps=5,
+                rounds=3),
+            "attn_bwd_dq": _cuda_ms(lambda: attn_bwd_dq(
+                q, k, v, do, lse, D, causal=True, scale=sc), reps=5,
+                rounds=3),
+            "fwd_lse_ms": _cuda_ms(lambda: flash_attention_lse(
+                q, k, v, scale=sc), reps=5, rounds=3),
+            "prep_plain_ms": _cuda_ms(lambda: attention_bwd_prep_ref(o, do),
+                                      reps=5, rounds=3)}
+        if (attn_bwd_dkdv.staged, attn_bwd_dq.staged) != staged0:
+            _fail(f"K4's backward staged a copy of contiguous operands at "
+                  f"{shape}")
+        tm["bwd_ms"] = sum(tm[x] for x in BWD_KERNELS)
+        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+
+        def sdpa(grad: bool):
+            if not grad:
+                with torch.no_grad():
+                    return F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, scale=sc, enable_gqa=True)
+            o2 = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                scale=sc, enable_gqa=True)
+            return torch.autograd.grad(o2, (qs, ks, vs), do)
+
+        tm["library_fwd_ms"] = _cuda_ms(lambda: sdpa(False), reps=5,
+                                        rounds=3)
+        tm["library_fwd_bwd_ms"] = _cuda_ms(lambda: sdpa(True), reps=5,
+                                            rounds=3)
+        tm["library_ms"] = tm["library_fwd_bwd_ms"] - tm["library_fwd_ms"]
+        if plain:
+            tm["plain_ms"] = _cuda_ms(lambda: attention_bwd_ref(
+                q, k, v, do, scale=sc), reps=1, rounds=2)
+            runs = [(*attn_bwd_dkdv(q, k, v, do, lse, D, causal=True,
+                                    scale=sc),
+                     attn_bwd_dq(q, k, v, do, lse, D, causal=True, scale=sc))
+                    for _ in range(2)]
+            tm["same_bits"] = all(torch.equal(x, y)
+                                  for x, y in zip(*runs))
+            if not tm["same_bits"]:
+                _fail(f"two runs of K4's backward at {shape} gave different "
+                      f"bits")
+            del runs
+        tm.update(attn_bwd_bound(B, Hq, Hkv, S, S, d, True))
+        tm["bounds"] = {
+            "attn_bwd_prep": {"bound_ms": 2 * 2 * B * Hq * S * d
+                              / HBM_BYTES_PER_S * 1e3 + 4 * B * Hq * S
+                              / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"},
+            "attn_bwd_dkdv": attn_bwd_bound(B, Hq, Hkv, S, S, d, True, 4),
+            "attn_bwd_dq": attn_bwd_bound(B, Hq, Hkv, S, S, d, True, 3)}
+        tm["share_of_bound"] = {x: tm["bounds"][x]["bound_ms"] / tm[x]
+                                for x in BWD_KERNELS}
+        tm["tflops"] = tm["flops"] / tm["bwd_ms"] / 1e9
+        tm["vs_library"] = tm["bwd_ms"] / tm["library_ms"]
+        tm["attributes"] = {
+            name: _attributes(lib.attn_bwd_attributes, 1, which, d)
+            for name, which in (("attn_bwd_prep", 0), ("attn_bwd_dkdv", 1),
+                                ("attn_bwd_dq", 2))}
+        del q, k, v, do, o, lse, D, qs, ks, vs
+        free()
+        kern = "; ".join(
+            f"{x} {tm[x]:.4f} ms (bound {tm['bounds'][x]['bound_ms']:.4f} ms "
+            f"by {tm['bounds'][x]['bound_by']}, "
+            f"{100 * tm['share_of_bound'][x]:.1f}% of it; "
+            f"{tm['attributes'][x]['registers']} registers, "
+            f"{tm['attributes'][x]['local_bytes']} B local, "
+            f"{tm['attributes'][x]['smem_bytes']} B shared)"
+            for x in BWD_KERNELS)
+        print(f"16(b) K4's backward at {tm['shape']} (bf16, causal): {kern}; "
+              f"whole {tm['bwd_ms']:.4f} ms ({tm['tflops']:.1f} TFLOP/s) "
+              f"against its bound {tm['bound_ms']:.4f} ms, SDPA's backward "
+              f"{tm['library_ms']:.4f} ms (x{tm['vs_library']:.2f})"
+              + (f", the plain version {tm['plain_ms']:.2f} ms, two runs "
+                 f"the same bits: {tm['same_bits']}" if plain else ""))
+        return tm
+
+    Hq, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    timing = time_bwd((TRAIN_BATCH, Hq, Hkv, TRAIN_SEQ, TRAIN_SEQ, d), True)
+    timing["d64"] = time_bwd(ATTN_BWD_TIME_D64, False)
     out["timing"] = timing
-    del q, k, v, do, o, lse, D, qs, ks, vs
-    free()
-    print(f"16(b) K4's backward at {timing['shape']} (bf16, causal): "
-          f"prep {timing['attn_bwd_prep']:.4f} ms, dkdv "
-          f"{timing['attn_bwd_dkdv']:.4f} ms, dq {timing['attn_bwd_dq']:.4f}"
-          f" ms, whole {timing['bwd_ms']:.4f} ms ({timing['tflops']:.1f} "
-          f"TFLOP/s) against its bound {timing['bound_ms']:.4f} ms, SDPA's "
-          f"backward {timing['library_ms']:.4f} ms (x"
-          f"{timing['vs_library']:.2f}) and the plain version "
-          f"{timing['plain_ms']:.2f} ms")
 
     # (c) card against CPU: one step of qwen3-1.7b at full width cut to
     # TRAIN_CPU_CUT periods, float32, from one state
@@ -4263,23 +4313,35 @@ def main() -> int:
             "library_ms": tm["library_ms"],
             "checked_calls": tr["checked"][name], "shape": tm["shape"],
             "dtype": "bfloat16",
+            "share_of_bound": tm["share_of_bound"][name],
+            "d64": {"shape": tm["d64"]["shape"], "ms": tm["d64"][name],
+                    "bound_ms": tm["d64"]["bounds"][name]["bound_ms"],
+                    **tm["d64"]["attributes"][name]},
             "design": {"attn_bwd_prep": "one warp a query row, D = "
                                         "rowsum(dO o O) in float32",
-                       "attn_bwd_dkdv": "one block a 64-key block of a kv "
-                                        "head walks its group's query heads "
-                                        "and the 32-row query tiles that see "
-                                        "it (cp.async ring); S^T, dP^T, dV, "
-                                        "dK on mma.sync bf16; no atomics",
-                       "attn_bwd_dq": "one block a 64-row query tile walks "
-                                      "the 32-key tiles it sees (cp.async "
-                                      "ring); S, dP, dQ on mma.sync bf16"
+                       "attn_bwd_dkdv": "one block (two warpgroups) a "
+                                        "128-key block of a kv head, K and V "
+                                        "resident; its group's query heads' "
+                                        "64-row Q/dO/lse/D tiles by TMA in a "
+                                        "3-stage mbarrier ring; S^T, dP^T "
+                                        "(wgmma from shared memory), dV, dK "
+                                        "(wgmma, A from registers); no "
+                                        "atomics",
+                       "attn_bwd_dq": "one block (two warpgroups) a 128-row "
+                                      "query tile, Q and dO resident; 64-key "
+                                      "K/V tiles by TMA in a 3-stage mbarrier "
+                                      "ring; S, dP (wgmma from shared "
+                                      "memory), dQ (wgmma, A from "
+                                      "registers)"
                        }[name],
             **tm["attributes"][name]})
+    whole_keys = ("bwd_ms", "bound_ms", "bound_by", "library_ms",
+                  "library_fwd_ms", "library_fwd_bwd_ms", "tflops",
+                  "vs_library", "fwd_lse_ms", "shape")
     record["attn_bwd_whole"] = {
-        k: tm[k] for k in ("bwd_ms", "bound_ms", "bound_by", "library_ms",
-                           "library_fwd_ms", "library_fwd_bwd_ms",
-                           "plain_ms", "tflops", "vs_library", "fwd_lse_ms",
-                           "shape")}
+        **{k: tm[k] for k in whole_keys}, "plain_ms": tm["plain_ms"],
+        "same_bits": tm["same_bits"],
+        "d64": {k: tm["d64"][k] for k in whole_keys}}
     # the modelled fields go to the record: the line keeps bound_ms and
     # what this run measured
     record["kernel_models"] = {

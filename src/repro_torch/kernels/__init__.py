@@ -22,7 +22,8 @@ Kernels (what each one replaces is named in its source note):
                   cp.async ring of K/V tiles), float32 as float32 FMAs;
                   float32 accumulators; and its backward (D = rowsum(dO o
                   O), dk and dv a key block, dq a query tile, from the
-                  forward's row log-sum-exp; no atomics)
+                  forward's row log-sum-exp; no atomics): bfloat16 on
+                  wgmma with TMA tiles under mbarriers, float32 as FMAs
   ssd_scan      — the Mamba2 SSD chunked scan (lm_forward's mamba layers),
                   chunk-parallel in three launches (chunk states, the state
                   pass over the chunks, chunk outputs): bfloat16 on the
@@ -30,7 +31,10 @@ Kernels (what each one replaces is named in its source note):
                   FMAs
 Headers shared between kernels (``*/csrc/*.cuh``) are included by path:
 ``flash_attention/csrc/tensor_core.cuh`` holds the mma.sync, ldmatrix and
-cp.async primitives of K4 and K5, ``coflow_merge/csrc/merge_scan.cuh`` the
+cp.async primitives of K4 and K5, ``flash_attention/csrc/hopper.cuh`` the
+wgmma, TMA and mbarrier primitives of K4's backward (its tensor maps are
+encoded through `cudaGetDriverEntryPoint`, so no library needs
+``-lcuda``), ``coflow_merge/csrc/merge_scan.cuh`` the
 scan of coflow_merge and merge_fix (the carry between tiles, the row max).
 
 Dispatch is by device, never by a knob: a CPU tensor takes the plain

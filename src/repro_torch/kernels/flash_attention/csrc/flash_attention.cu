@@ -72,6 +72,7 @@
 #include <initializer_list>
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -601,20 +602,39 @@ bool aligned16(const void* p) {
 // of the keys, and query padding; a masked pair takes P = 0 by a select, so
 // a row that sees no key (lse = -inf) adds nothing anywhere and gets dq 0.
 //
-// Bound on the card: operations, five products of 2 B Hq Sq Sk d (half of
-// them when causal) on O((Sq + Sk) d) bytes.  bfloat16 runs the five
-// products on the tensor cores (mma.sync m16n8k16, the forward's fragment
-// dataflow: the accumulators of S and dP, turned into P and dS and rounded
-// to bf16, are the A fragments of the next product as they lie); float32 as
-// float32 FMAs.  Head dims up to 128 (every configuration's).
+// Bound on the card: operations.  attn_bwd_dkdv runs four products of
+// 2 B Hq Sq Sk d operations (S^T, dP^T, dV, dK) and attn_bwd_dq three (S, dP
+// again, dQ), half of each when causal, on O((Sq + Sk) d) bytes: far above
+// the card's balance point, so the products must run at the tensor cores'
+// rate.  Splitting dq from dk / dv costs two products more than a fused
+// backward with atomics on dQ, and buys bits that do not change from run
+// to run.  Head dims up to 128 (every configuration's).
+//
+// bfloat16 (the training path) runs on Hopper's own datapath: wgmma, the
+// only instruction that reaches the tensor cores' full rate, on tiles that
+// TMA copies into shared memory (hopper.cuh).  A block is two consumer
+// warpgroups; a ring of two or three stages of operand tiles stays in
+// flight under mbarriers, each stage refilled by the warp that reads it
+// last, so no
+// thread copies and no block barrier stands between two tiles.  The block's
+// own operands stay resident: K and V in dkdv (one block a 128-key block of
+// a kv head), Q and dO in dq (one block a 128-row query tile of a query
+// head).  The accumulators of S (S^T) and dP (dP^T), turned into P and dS
+// in registers and rounded to bf16, are the A operands of the next
+// products as they lie (a wgmma accumulator is mma.sync's C fragment
+// repeated across the n8 columns); B of those products is the same shared
+// tile read MN-major, so no operand is transposed in memory.  A tile whose
+// pairs the masks all keep skips the mask; a warpgroup whose rows see no
+// key of a stage skips its products.  The tensor maps describe q, k, v and
+// dO as they lie, (batch, head, seq) strides included, so the training
+// path's transpose(1, 2) views need no copy; the wrapper stages a copy only
+// of an operand whose base or stride is not a multiple of 16 bytes.
+// float32 (the checks and the float32 smoke configs) runs as float32 FMAs
+// from shared memory.
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-__device__ __forceinline__ void from_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
 }
 
 // D[row] = sum_c dO[row, c] O[row, c], one warp a (batch, head, query) row
@@ -640,53 +660,71 @@ attn_bwd_prep(const E* __restrict__ o, const E* __restrict__ dout,
   if (lane == 0) D[row] = acc;
 }
 
-// --- bfloat16: tensor cores -------------------------------------------------
+// --- bfloat16: wgmma on TMA tiles --------------------------------------------
+//
+// A block is two consumer warpgroups, each owning 64 rows of the block's
+// resident tile.  The other operand's tiles stream through a ring of
+// shared-memory stages by TMA: a `full` mbarrier a stage, which the TMA's
+// bytes complete, and an `empty` one, on which each warp arrives once it
+// has read the stage; the warp whose arrival completes it (the barrier's
+// pending count was 1) starts the refill, so no warp waits for another to
+// finish a stage, no thread copies and no atomic is used.  There is no
+// producer warp: at a launch bound of 288 or 384 threads ptxas keeps the
+// consumers of dk/dv at d = 128 well below the ~230 registers they need
+// and serialises every wgmma (C7512, whatever setmaxnreg grants), while at
+// 256 threads the whole kernel gets them.
 
-constexpr int kDqBQ = 64;     // dq: query rows a block (16 a warp)
-constexpr int kDqBK = 32;     // dq: keys a K / V tile
-constexpr int kKvBK = 64;     // dkdv: keys a block (16 a warp)
-constexpr int kKvBQ = 32;     // dkdv: query rows a Q / dO tile
+constexpr int kWg = 128;                  // threads a warpgroup
+constexpr int kBwdThreads = 2 * kWg;
+constexpr int kReaders = kBwdThreads / 32;   // warps that read a stage
+constexpr int kKvStages = 2;              // dkdv: Q / dO ring stages
+constexpr int kKvBK = 128;                // dkdv: keys a block (64 each)
+constexpr int kKvBQ = 64;                 // dkdv: query rows a Q / dO stage
+constexpr int kDqBQ = 128;                // dq: query rows a block (64 each)
 
+// dq's K / V stage: 128 keys in two stages at DT = 128, where S and dP as
+// m64n128 products read fewer shared-memory bytes an operation than as
+// m64n64; 64 keys in three at DT = 64, where the wider tile was slower on
+// the H100
 template <int DT>
-constexpr size_t dq_mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (DT + 8) * (2 * kDqBQ + 4 * kDqBK);
-}
+struct DqTile {
+  static constexpr int kBK = DT > 64 ? 128 : 64;
+  static constexpr int kStages = DT > 64 ? 2 : 3;
+};
 
+// shared memory of the dk/dv kernel, byte offsets from a 1024-aligned base:
+// K and V resident ([DT / 64 panels][128 keys][64]), the Q and dO ring
+// ([kKvStages][DT / 64][64 rows][64]), each stage's lse and D rows, the
+// mbarriers (K and V's, then full and empty a stage)
 template <int DT>
-constexpr size_t dkdv_mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (DT + 8) * (2 * kKvBK + 4 * kKvBQ) +
-         sizeof(float) * 4 * kKvBQ;
-}
+struct DkdvSmem {
+  static constexpr int kKv = kKvBK * DT * 2;      // K or V
+  static constexpr int kQ = kKvBQ * DT * 2;       // a Q or dO stage
+  static constexpr int kRow = kKvBQ * 4;          // a stage's lse or D
+  static constexpr int k = 0, v = kKv, q = 2 * kKv, dout = q + kKvStages * kQ;
+  static constexpr int lse = dout + kKvStages * kQ, D = lse + kKvStages * kRow;
+  static constexpr int bars = D + kKvStages * kRow;
+  static constexpr int bytes = bars + 8 * (1 + 2 * kKvStages) + 1024;
+};
 
-// A fragments of the 16 rows from row r0 of a [rows][LDS] tile, k columns
-// 16 kk .. 16 kk + 15
-template <int LDS>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* tile, int r0,
-                                       int kk, int lane) {
-  tc::ldmatrix_x4(a, tile + (r0 + (lane & 15)) * LDS + kk * 16 +
-                         (lane >> 4) * 8);
-}
+// shared memory of the dq kernel: Q and dO resident ([DT / 64][128][64]),
+// the K and V ring ([stages][DT / 64][BK keys][64]), the mbarriers (Q and
+// dO's, then full and empty a stage)
+template <int DT>
+struct DqSmem {
+  static constexpr int kQ = kDqBQ * DT * 2;       // Q or dO
+  static constexpr int kBK = DqTile<DT>::kBK, kDqStages = DqTile<DT>::kStages;
+  static constexpr int kK = kBK * DT * 2;         // a K or V stage
+  static constexpr int q = 0, dout = kQ, k = 2 * kQ, v = k + kDqStages * kK;
+  static constexpr int bars = v + kDqStages * kK;
+  static constexpr int bytes = bars + 8 * (1 + 2 * kDqStages) + 1024;
+};
 
-// B fragments of two n8 tiles (n rows n0 .. n0 + 15 of a [n][k] tile), k
-// columns 16 kk ..: b[0], b[1] for n0, b[2], b[3] for n0 + 8
-template <int LDS>
-__device__ __forceinline__ void frag_b_nk(uint32_t (&bf)[4],
-                                          const __nv_bfloat16* tile, int n0,
-                                          int kk, int lane) {
-  tc::ldmatrix_x4(bf, tile + (n0 + (lane >> 4) * 8 + (lane & 7)) * LDS +
-                          kk * 16 + ((lane >> 3) & 1) * 8);
-}
-
-// B fragments of two n8 tiles (columns n0 .. n0 + 15 of a [k][n] tile), k
-// rows 16 kk ..: b[0], b[1] for n0, b[2], b[3] for n0 + 8
-template <int LDS>
-__device__ __forceinline__ void frag_b_kn(uint32_t (&bf)[4],
-                                          const __nv_bfloat16* tile, int kk,
-                                          int n0, int lane) {
-  tc::ldmatrix_x4_trans(bf, tile + (kk * 16 + ((lane >> 3) & 1) * 8 +
-                                    (lane & 7)) * LDS +
-                                n0 + (lane >> 4) * 8);
+// p moved up to the next 1024-byte boundary of the shared window, by an
+// offset on p itself (so the compiler still knows it points into shared
+// memory and keeps 32-bit shared addresses)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (hop::smem_u32(p) & 1023)) & 1023);
 }
 
 // the accumulators of an m16 x n(2 NP x 8) product as the A fragments of the
@@ -704,12 +742,13 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[NP][4],
 }
 
 // one warp's 16 rows of an m16 x DT accumulator out, scaled, where the row
-// lies below `nrows` (rows r0 + g and r0 + g + 8; columns 8 ot + 2t, + 1)
+// lies below `nrows` (rows r0 + g and r0 + g + 8; columns 8 ot + 2t, + 1),
+// two columns a store where `pair` (d even, even strides, 4-byte base)
 template <int OT>
 __device__ __forceinline__ void store_acc(__nv_bfloat16* base, long long ld,
                                           int r0, int nrows, int d,
                                           const float (&acc)[OT][4],
-                                          float mul, int g, int t) {
+                                          float mul, int g, int t, bool pair) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + g + 8 * r;
@@ -718,69 +757,342 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* base, long long ld,
 #pragma unroll
     for (int ot = 0; ot < OT; ++ot) {
       const int col = ot * 8 + 2 * t;
-      if (col < d) out[col] = __float2bfloat16(acc[ot][2 * r] * mul);
-      if (col + 1 < d) out[col + 1] = __float2bfloat16(acc[ot][2 * r + 1] * mul);
+      const float lo = acc[ot][2 * r] * mul, hi = acc[ot][2 * r + 1] * mul;
+      if (pair && col + 1 < d) {
+        *reinterpret_cast<__nv_bfloat162*>(out + col) =
+            __floats2bfloat162_rn(lo, hi);
+      } else {
+        if (col < d) out[col] = __float2bfloat16(lo);
+        if (col + 1 < d) out[col + 1] = __float2bfloat16(hi);
+      }
     }
   }
 }
 
-template <int DT>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
-                const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v,
-                const __nv_bfloat16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ D,
-                __nv_bfloat16* __restrict__ dq, int group, int Sq, int Sk,
-                int d, Strides qs, Strides ks, Strides vs, Strides dos,
-                Strides dqs, float scale, int causal, int vec) {
-  constexpr int LDS = DT + 8;
-  constexpr int NT = kDqBK / 8;        // n8 tiles of a score row block
-  constexpr int OT = DT / 8;           // n8 tiles of a dq row block
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qt = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][LDS]
-  __nv_bfloat16* dot = qt + kDqBQ * LDS;      // [BQ][LDS]
-  __nv_bfloat16* kt = dot + kDqBQ * LDS;      // [2][BK][LDS]
-  __nv_bfloat16* vt = kt + 2 * kDqBK * LDS;   // [2][BK][LDS]
+// A descriptor of a K-major operand: the 64 rows from `row0` of a
+// [DT / 64][ROWS][64] panel tile, k columns 0 .. 15; k columns 16 kk ..
+// are kstep<ROWS>(kk) further (32 bytes a step inside a panel, the next
+// panel every four)
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_k(const __nv_bfloat16* tile,
+                                           int row0) {
+  return hop::opaque(hop::desc_sw128(tile + row0 * 64, 16, 1024));
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
+template <int ROWS>
+__host__ __device__ constexpr uint64_t kstep(int kk) {
+  return static_cast<uint64_t>((kk / 4) * ROWS * 128 + (kk % 4) * 32) >> 4;
+}
+
+// a descriptor of an MN-major operand: k rows 0 .. 15 of a
+// [DT / 64][ROWS][64] panel tile, all DT columns (the panels ROWS * 128
+// bytes apart); k rows 16 kk .. are 2048 kk bytes further
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_mn(const __nv_bfloat16* tile) {
+  return hop::opaque(hop::desc_sw128(tile, ROWS * 128, 1024));
+}
+
+constexpr uint64_t kMnStep = 2048 >> 4;
+
+// this warp is done with a stage: its lane 0 arrives on the stage's
+// `empty` barrier (one arrival a warp); true on the lane whose arrival
+// completes it, which refills the stage
+__device__ __forceinline__ bool release_last(uint64_t* empty, int lane) {
+  __syncwarp();
+  return lane == 0 && hop::mbar_arrive_last(empty);
+}
+
+// dK and dV of one key block of one kv head.  Warpgroup w holds keys
+// k0 + 64 w ..: per Q / dO stage (64 query rows of one query head), S^T =
+// K Q^T and dP^T = V dO^T (wgmma, both operands in shared memory), P^T =
+// exp2(S^T scale log2 e - lse log2 e) while dP^T runs, dS^T = P^T o (dP^T
+// - D), both in the accumulators' registers, then dV += P^T dO and dK +=
+// dS^T Q (wgmma, A the packed registers, B the same dO and Q stages read
+// MN-major).  Every wgmma group retires inside its stage (an accumulator
+// in flight across the loop's back edge makes ptxas serialise: C7515).
+// The stages come in a fixed order, the group's query heads in turn, each
+// from the first query tile that sees the block to the last.  The grid
+// runs key block fastest, so the blocks in flight share a few GQA groups'
+// Q and dO in L2, and each group's longest causal blocks start first.
+template <int DT>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tlse,
+                    const __grid_constant__ CUtensorMap tD,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int Hq, int group,
+                    int Sq, int Sk, int d, Strides dks, Strides dvs,
+                    float scale, int causal, int pair) {
+  using L = DkdvSmem<DT>;
+  constexpr int NP = DT / 64;          // panels of a row
+  constexpr int OT = DT / 8;           // n8 tiles of a dK / dV row block
+  constexpr int NT = kKvBQ / 8;        // n8 tiles of an S^T row block
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(sm + L::k);
+  __nv_bfloat16* vt = reinterpret_cast<__nv_bfloat16*>(sm + L::v);
+  __nv_bfloat16* qt = reinterpret_cast<__nv_bfloat16*>(sm + L::q);
+  __nv_bfloat16* dot = reinterpret_cast<__nv_bfloat16*>(sm + L::dout);
+  float* lses = reinterpret_cast<float*>(sm + L::lse);   // [kKvStages][BQ]
+  float* drs = reinterpret_cast<float*>(sm + L::D);      // [kKvStages][BQ]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::bars);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kKvStages;
+
+  const int k0 = blockIdx.x * kKvBK;   // the longest causal blocks first
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int offset = Sk - Sq;
+  // the query tiles that see key k0 or later: query i sees key j when
+  // i + offset >= j, so the first is tile (k0 - offset) / BQ
+  const int qt0 = causal ? max(0, k0 - offset) / kKvBQ : 0;
+  const int nq = max(0, (Sq + kKvBQ - 1) / kKvBQ - qt0);
+  const int total = group * nq;
+  const int wg = hop::warpgroup();
+  const int lane = threadIdx.x & 31;
+
+  // stage s takes step j: the Q and dO rows of (query head, query tile)
+  // (hk group + j / nq, qt0 + j % nq), and their lse and D
+  auto load_stage = [&](int j, int s) {
+    const int h = hk * group + j / nq;
+    const int qq0 = (qt0 + j % nq) * kKvBQ;
+    hop::mbar_arrive_expect_tx(&full[s], 2 * L::kQ + 2 * L::kRow);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      hop::tma_load_4d(qt + (s * NP + p) * kKvBQ * 64, &tq, &full[s], 64 * p,
+                       qq0, h, b);
+      hop::tma_load_4d(dot + (s * NP + p) * kKvBQ * 64, &tdo, &full[s],
+                       64 * p, qq0, h, b);
+    }
+    hop::tma_load_2d(lses + s * kKvBQ, &tlse, &full[s], qq0, b * Hq + h);
+    hop::tma_load_2d(drs + s * kKvBQ, &tD, &full[s], qq0, b * Hq + h);
+  };
+
+  if (threadIdx.x == 0) {
+    hop::mbar_init(kv_full, 1);
+    for (int s = 0; s < kKvStages; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], kReaders);
+    }
+    hop::fence_barrier_init();
+    if (total > 0) {
+      hop::mbar_arrive_expect_tx(kv_full, 2 * L::kKv);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        hop::tma_load_4d(kt + p * kKvBK * 64, &tk, kv_full, 64 * p, k0, hk, b);
+        hop::tma_load_4d(vt + p * kKvBK * 64, &tv, kv_full, 64 * p, k0, hk, b);
+      }
+      for (int j = 0; j < min(kKvStages, total); ++j) load_stage(j, j);
+    }
+  }
+  __syncthreads();
+
+  const int warp = (threadIdx.x >> 5) & 3;   // in the warpgroup
   const int g = lane >> 2, t = lane & 3;
+  const int kw0 = k0 + 64 * wg;        // this warpgroup's first key
+  const float sl2 = scale * kLog2e;
+
+  float dka[OT][4], dva[OT][4];
+#pragma unroll
+  for (int ot = 0; ot < OT; ++ot)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[ot][e] = dva[ot][e] = 0.f;
+
+  if (total > 0) hop::mbar_wait(kv_full, 0);
+  for (int it = 0; it < total; ++it) {
+    const int s = it % kKvStages, round = it / kKvStages;
+    const int qq0 = (qt0 + it % nq) * kKvBQ;
+    hop::mbar_wait(&full[s], round & 1);
+    // does a query of the stage see a key of this warpgroup?
+    if (kw0 < Sk && (!causal || qq0 + kKvBQ - 1 + offset >= kw0)) {
+      const __nv_bfloat16* qs = qt + s * NP * kKvBQ * 64;
+      const __nv_bfloat16* ds = dot + s * NP * kKvBQ * 64;
+      const float* ls = lses + s * kKvBQ;
+      const float* dr = drs + s * kKvBQ;
+      float st[NT][4], dpt[NT][4];     // S^T then P^T; dP^T then dS^T
+      {
+        const uint64_t ka = desc_k<kKvBK>(kt, 64 * wg);
+        const uint64_t va = desc_k<kKvBK>(vt, 64 * wg);
+        const uint64_t qb = desc_k<kKvBQ>(qs, 0);
+        const uint64_t db = desc_k<kKvBQ>(ds, 0);
+        hop::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DT / 16; ++kk)
+          hop::wgmma_ss(st, ka + kstep<kKvBK>(kk), qb + kstep<kKvBQ>(kk),
+                        kk > 0);
+        hop::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < DT / 16; ++kk)
+          hop::wgmma_ss(dpt, va + kstep<kKvBK>(kk), db + kstep<kKvBQ>(kk),
+                        kk > 0);
+        hop::wgmma_commit();
+      }
+      // every pair kept: keys and queries inside Sk and Sq, and the
+      // stage's first query sees the warpgroup's last key
+      const bool whole = kw0 + 64 <= Sk && qq0 + kKvBQ <= Sq &&
+                         (!causal || qq0 + offset >= kw0 + 63);
+      hop::wgmma_wait<1>();            // S^T is done, dP^T may run on
+      hop::fence_regs(st);
+      // P^T: rows are keys, columns queries 8 j + 2 t, + 1 (lse and D are
+      // 0 past Sq, where the mask drops the pair)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float2 lj = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = hop::ex2(st[j][e] * sl2 -
+                                   ((e & 1) ? lj.y : lj.x) * kLog2e);
+          if (whole) {
+            st[j][e] = p;
+          } else {
+            const int kpos = kw0 + warp * 16 + g + (e >> 1) * 8;
+            const int qpos = qq0 + 8 * j + 2 * t + (e & 1);
+            const bool ok = kpos < Sk && qpos < Sq &&
+                            (!causal || qpos + offset >= kpos);
+            st[j][e] = ok ? p : 0.f;
+          }
+        }
+      }
+      hop::wgmma_wait<0>();
+      hop::fence_regs(dpt);
+      // dS^T = P^T o (dP^T - D)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float2 dj = *reinterpret_cast<const float2*>(dr + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dpt[j][e] = st[j][e] * (dpt[j][e] - ((e & 1) ? dj.y : dj.x));
+      }
+      // packed once dS^T is made, so that P^T is not held twice
+      uint32_t pa[NT / 2][4], da[NT / 2][4];
+      acc_to_a<NT / 2>(pa, st);
+      acc_to_a<NT / 2>(da, dpt);
+      // dV += P^T dO, dK += dS^T Q
+      const uint64_t db = desc_mn<kKvBQ>(ds), qb = desc_mn<kKvBQ>(qs);
+      hop::fence_regs(pa);
+      hop::fence_regs(da);
+      hop::fence_regs(dva);
+      hop::fence_regs(dka);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk)
+        hop::wgmma_rs_tb(dva, pa[kk], db + kk * kMnStep);
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk)
+        hop::wgmma_rs_tb(dka, da[kk], qb + kk * kMnStep);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(dva);
+      hop::fence_regs(dka);
+    }
+    if (release_last(&empty[s], lane) && it + kKvStages < total)
+      load_stage(it + kKvStages, s);
+  }
+
+  // every product has retired (each stage ends in wait<0>); said here, on
+  // the warpgroup's uniform path, the compiler needs no wait of its own
+  // inside the stores' row and column branches
+  hop::wgmma_wait<0>();
+  hop::fence_regs(dka);
+  hop::fence_regs(dva);
+  const int r0 = kw0 + warp * 16;
+  store_acc<OT>(dk + b * dks.b + hk * dks.h, dks.s, r0, Sk, d, dka, scale, g,
+                t, pair);
+  store_acc<OT>(dv + b * dvs.b + hk * dvs.h, dvs.s, r0, Sk, d, dva, 1.f, g,
+                t, pair);
+}
+
+// dQ of one 128-row query tile of one query head.  Warpgroup w holds query
+// rows q0 + 64 w ..: per K / V stage (DqTile<DT>::kBK keys), S = Q K^T and
+// dP = dO V^T (wgmma from shared memory), P while dP runs, dS = P o (dP -
+// D), then dQ += dS K (wgmma, A the packed registers, B the K stage read
+// MN-major).  The stages come in key order up to the tile's causal end.
+// The grid runs query tile fastest, the last (the longest, when causal)
+// first.
+template <int DT>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ lse, const float* __restrict__ D,
+                  __nv_bfloat16* __restrict__ dq, int Hq, int group, int Sq,
+                  int Sk, int d, Strides dqs, float scale, int causal,
+                  int pair) {
+  using L = DqSmem<DT>;
+  constexpr int kDqBK = L::kBK, kDqStages = L::kDqStages;
+  constexpr int NP = DT / 64;
+  constexpr int OT = DT / 8;           // n8 tiles of a dQ row block
+  constexpr int NT = kDqBK / 8;        // n8 tiles of an S row block
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  __nv_bfloat16* qt = reinterpret_cast<__nv_bfloat16*>(sm + L::q);
+  __nv_bfloat16* dot = reinterpret_cast<__nv_bfloat16*>(sm + L::dout);
+  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(sm + L::k);
+  __nv_bfloat16* vt = reinterpret_cast<__nv_bfloat16*>(sm + L::v);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::bars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kDqStages;
+
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqBQ;  // longest first
   const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
   const int offset = Sk - Sq;
-  const float scale_log2 = scale * kLog2e;
-
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* dob = dout + b * dos.b + h * dos.h;
-  const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + hk * vs.h;
-
   int k_end = Sk;
   if (causal) {
     const int last_q = min(q0 + kDqBQ, Sq) - 1;
     k_end = max(0, min(Sk, last_q + offset + 1));
   }
   const int ntiles = (k_end + kDqBK - 1) / kDqBK;
+  const int wg = hop::warpgroup();
+  const int lane = threadIdx.x & 31;
 
-  tc::stage<kThreads>(qt, LDS, qb + q0 * qs.s, qs.s, Sq - q0, d, kDqBQ, DT,
-                      vec, tid);
-  tc::stage<kThreads>(dot, LDS, dob + q0 * dos.s, dos.s, Sq - q0, d, kDqBQ,
-                      DT, vec, tid);
-  if (ntiles > 0) {
-    tc::stage<kThreads>(kt, LDS, kb, ks.s, Sk, d, kDqBK, DT, vec, tid);
-    tc::stage<kThreads>(vt, LDS, vb, vs.s, Sk, d, kDqBK, DT, vec, tid);
+  // stage s takes the K and V rows of key tile j
+  auto load_stage = [&](int j, int s) {
+    hop::mbar_arrive_expect_tx(&full[s], 2 * L::kK);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      hop::tma_load_4d(kt + (s * NP + p) * kDqBK * 64, &tk, &full[s], 64 * p,
+                       j * kDqBK, hk, b);
+      hop::tma_load_4d(vt + (s * NP + p) * kDqBK * 64, &tv, &full[s], 64 * p,
+                       j * kDqBK, hk, b);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    hop::mbar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], kReaders);
+    }
+    hop::fence_barrier_init();
+    if (ntiles > 0) {
+      hop::mbar_arrive_expect_tx(q_full, 2 * L::kQ);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        hop::tma_load_4d(qt + p * kDqBQ * 64, &tq, q_full, 64 * p, q0, h, b);
+        hop::tma_load_4d(dot + p * kDqBQ * 64, &tdo, q_full, 64 * p, q0, h,
+                         b);
+      }
+      for (int j = 0; j < min(kDqStages, ntiles); ++j) load_stage(j, j);
+    }
   }
-  tc::cp_async_commit();
+  __syncthreads();
 
-  // this thread's rows (g and g + 8 of the warp's 16): lse in base 2, D
-  const long long row_base = (static_cast<long long>(b) * gridDim.y + h) * Sq;
+  const int warp = (threadIdx.x >> 5) & 3;   // in the warpgroup
+  const int g = lane >> 2, t = lane & 3;
+  const int qw0 = q0 + 64 * wg;        // this warpgroup's first query row
+  const float sl2 = scale * kLog2e;
+
+  // this thread's rows (g and g + 8 of its warp's 16): lse in base 2, D
+  const long long rb = (static_cast<long long>(b) * Hq + h) * Sq;
   float l2[2], dr[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qpos = q0 + warp * 16 + g + 8 * r;
-    l2[r] = qpos < Sq ? lse[row_base + qpos] * kLog2e : 0.f;
-    dr[r] = qpos < Sq ? D[row_base + qpos] : 0.f;
+    const int qpos = qw0 + warp * 16 + g + 8 * r;
+    l2[r] = qpos < Sq ? lse[rb + qpos] * kLog2e : 0.f;
+    dr[r] = qpos < Sq ? D[rb + qpos] : 0.f;
   }
 
   float acc[OT][4];
@@ -789,227 +1101,81 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[ot][e] = 0.f;
 
+  if (ntiles > 0) hop::mbar_wait(q_full, 0);
   for (int it = 0; it < ntiles; ++it) {
-    const int st = it & 1;
+    const int s = it % kDqStages, round = it / kDqStages;
     const int k0 = it * kDqBK;
-    if (it + 1 < ntiles) {
-      const int k1 = k0 + kDqBK;
-      tc::stage<kThreads>(kt + (st ^ 1) * kDqBK * LDS, LDS, kb + k1 * ks.s,
-                          ks.s, Sk - k1, d, kDqBK, DT, vec, tid);
-      tc::stage<kThreads>(vt + (st ^ 1) * kDqBK * LDS, LDS, vb + k1 * vs.s,
-                          vs.s, Sk - k1, d, kDqBK, DT, vec, tid);
-      tc::cp_async_commit();
-      tc::cp_async_wait<1>();
-    } else {
-      tc::cp_async_wait<0>();
+    hop::mbar_wait(&full[s], round & 1);
+    // does a row of this warpgroup see a key of the stage?
+    if (qw0 < Sq && (!causal || qw0 + 63 + offset >= k0)) {
+      const __nv_bfloat16* ks = kt + s * NP * kDqBK * 64;
+      const __nv_bfloat16* vs = vt + s * NP * kDqBK * 64;
+      float sc[NT][4], dp[NT][4];      // S then P; dP then dS
+      {
+        const uint64_t qa = desc_k<kDqBQ>(qt, 64 * wg);
+        const uint64_t oa = desc_k<kDqBQ>(dot, 64 * wg);
+        const uint64_t kb = desc_k<kDqBK>(ks, 0);
+        const uint64_t vb = desc_k<kDqBK>(vs, 0);
+        hop::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DT / 16; ++kk)
+          hop::wgmma_ss(sc, qa + kstep<kDqBQ>(kk), kb + kstep<kDqBK>(kk),
+                        kk > 0);
+        hop::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < DT / 16; ++kk)
+          hop::wgmma_ss(dp, oa + kstep<kDqBQ>(kk), vb + kstep<kDqBK>(kk),
+                        kk > 0);
+        hop::wgmma_commit();
+      }
+      const bool whole = k0 + kDqBK <= Sk && qw0 + 64 <= Sq &&
+                         (!causal || qw0 + offset >= k0 + kDqBK - 1);
+      hop::wgmma_wait<1>();            // S is done, dP may run on
+      hop::fence_regs(sc);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = hop::ex2(sc[j][e] * sl2 - l2[e >> 1]);
+          if (whole) {
+            sc[j][e] = p;
+          } else {
+            const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+            const int qpos = qw0 + warp * 16 + g + (e >> 1) * 8;
+            const bool ok = kpos < Sk && qpos < Sq &&
+                            (!causal || qpos + offset >= kpos);
+            sc[j][e] = ok ? p : 0.f;
+          }
+        }
+      hop::wgmma_wait<0>();
+      hop::fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[j][e] = sc[j][e] * (dp[j][e] - dr[e >> 1]);
+      uint32_t da[NT / 2][4];
+      acc_to_a<NT / 2>(da, dp);
+      // dQ += dS K
+      const uint64_t kb = desc_mn<kDqBK>(ks);
+      hop::fence_regs(da);
+      hop::fence_regs(acc);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk)
+        hop::wgmma_rs_tb(acc, da[kk], kb + kk * kMnStep);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc);
     }
-    __syncthreads();
-    const __nv_bfloat16* ktile = kt + st * kDqBK * LDS;
-    const __nv_bfloat16* vtile = vt + st * kDqBK * LDS;
-
-    // S = Q K^T and dP = dO V^T for the warp's 16 rows
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DT / 16; ++kk) {
-      uint32_t aq[4], ado[4];
-      frag_a<LDS>(aq, qt, warp * 16, kk, lane);
-      frag_a<LDS>(ado, dot, warp * 16, kk, lane);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bk[4], bv[4];
-        frag_b_nk<LDS>(bk, ktile, np * 16, kk, lane);
-        frag_b_nk<LDS>(bv, vtile, np * 16, kk, lane);
-        tc::mma_bf16(s[2 * np], aq, bk[0], bk[1]);
-        tc::mma_bf16(s[2 * np + 1], aq, bk[2], bk[3]);
-        tc::mma_bf16(dp[2 * np], ado, bv[0], bv[1]);
-        tc::mma_bf16(dp[2 * np + 1], ado, bv[2], bv[3]);
-      }
-    }
-    // dS = P o (dP - D), P = exp(S - lse) on the pairs the mask keeps
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + nt * 8 + 2 * t + (e & 1);
-        const int qpos = q0 + warp * 16 + g + (e >> 1) * 8;
-        const bool ok = kpos < Sk && qpos < Sq &&
-                        (!causal || qpos + offset >= kpos);
-        const float p =
-            ok ? exp2f(s[nt][e] * scale_log2 - l2[e >> 1]) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - dr[e >> 1]);
-      }
-    uint32_t da[NT / 2][4];
-    acc_to_a<NT / 2>(da, s);
-    // dQ += dS K
-#pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk)
-#pragma unroll
-      for (int op = 0; op < OT / 2; ++op) {
-        uint32_t bk[4];
-        frag_b_kn<LDS>(bk, ktile, kk, op * 16, lane);
-        tc::mma_bf16(acc[2 * op], da[kk], bk[0], bk[1]);
-        tc::mma_bf16(acc[2 * op + 1], da[kk], bk[2], bk[3]);
-      }
-    __syncthreads();  // this stage is refilled two tiles on
+    if (release_last(&empty[s], lane) && it + kDqStages < ntiles)
+      load_stage(it + kDqStages, s);
   }
-  tc::cp_async_wait<0>();  // a block that skipped every tile
 
-  store_acc<OT>(dq + b * dqs.b + h * dqs.h, dqs.s, q0 + warp * 16, Sq, d,
-                acc, scale, g, t);
-}
-
-template <int DT>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  const __nv_bfloat16* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ D,
-                  __nv_bfloat16* __restrict__ dk,
-                  __nv_bfloat16* __restrict__ dv, int Hq, int group, int Sq,
-                  int Sk, int d, Strides qs, Strides ks, Strides vs,
-                  Strides dos, Strides dks, Strides dvs, float scale,
-                  int causal, int vec) {
-  constexpr int LDS = DT + 8;
-  constexpr int NT = kKvBQ / 8;        // n8 tiles of a (key x query) block
-  constexpr int OT = DT / 8;           // n8 tiles of a dk / dv row block
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BK][LDS]
-  __nv_bfloat16* vt = kt + kKvBK * LDS;       // [BK][LDS]
-  __nv_bfloat16* qt = vt + kKvBK * LDS;       // [2][BQ][LDS]
-  __nv_bfloat16* dot = qt + 2 * kKvBQ * LDS;  // [2][BQ][LDS]
-  float* l2s = reinterpret_cast<float*>(dot + 2 * kKvBQ * LDS);  // [2][BQ]
-  float* ds_row = l2s + 2 * kKvBQ;                                // [2][BQ]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * kKvBK;   // the longest causal blocks first
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int offset = Sk - Sq;
-  const float scale_log2 = scale * kLog2e;
-
-  const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + hk * vs.h;
-
-  // the query tiles that see key k0 or later: query i sees key j when
-  // i + offset >= j, so the first is tile (k0 - offset) / BQ
-  const int qt0 = causal ? max(0, k0 - offset) / kKvBQ : 0;
-  const int nq = max(0, (Sq + kKvBQ - 1) / kKvBQ - qt0);
-  const int total = group * nq;
-
-  // stage the (query head, query tile) of step `it` into ring slot `slot`
-  auto stage_q = [&](int it, int slot) {
-    const int h = hk * group + it / nq;
-    const int qq0 = (qt0 + it % nq) * kKvBQ;
-    tc::stage<kThreads>(qt + slot * kKvBQ * LDS, LDS,
-                        q + b * qs.b + h * qs.h + qq0 * qs.s, qs.s, Sq - qq0,
-                        d, kKvBQ, DT, vec, tid);
-    tc::stage<kThreads>(dot + slot * kKvBQ * LDS, LDS,
-                        dout + b * dos.b + h * dos.h + qq0 * dos.s, dos.s,
-                        Sq - qq0, d, kKvBQ, DT, vec, tid);
-    if (tid < kKvBQ) {
-      const int qpos = qq0 + tid;
-      const long long r = (static_cast<long long>(b) * Hq + h) * Sq + qpos;
-      l2s[slot * kKvBQ + tid] = qpos < Sq ? lse[r] * kLog2e : 0.f;
-      ds_row[slot * kKvBQ + tid] = qpos < Sq ? D[r] : 0.f;
-    }
-  };
-
-  tc::stage<kThreads>(kt, LDS, kb + k0 * ks.s, ks.s, Sk - k0, d, kKvBK, DT,
-                      vec, tid);
-  tc::stage<kThreads>(vt, LDS, vb + k0 * vs.s, vs.s, Sk - k0, d, kKvBK, DT,
-                      vec, tid);
-  if (total > 0) stage_q(0, 0);
-  tc::cp_async_commit();
-
-  float dka[OT][4], dva[OT][4];
-#pragma unroll
-  for (int ot = 0; ot < OT; ++ot)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[ot][e] = dva[ot][e] = 0.f;
-
-  for (int it = 0; it < total; ++it) {
-    const int st = it & 1;
-    if (it + 1 < total) {
-      stage_q(it + 1, st ^ 1);
-      tc::cp_async_commit();
-      tc::cp_async_wait<1>();
-    } else {
-      tc::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int qq0 = (qt0 + it % nq) * kKvBQ;
-    const __nv_bfloat16* qtile = qt + st * kKvBQ * LDS;
-    const __nv_bfloat16* dotile = dot + st * kKvBQ * LDS;
-    const float* l2 = l2s + st * kKvBQ;
-    const float* dr = ds_row + st * kKvBQ;
-
-    // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DT / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      frag_a<LDS>(ak, kt, warp * 16, kk, lane);
-      frag_a<LDS>(av, vt, warp * 16, kk, lane);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bq[4], bdo[4];
-        frag_b_nk<LDS>(bq, qtile, np * 16, kk, lane);
-        frag_b_nk<LDS>(bdo, dotile, np * 16, kk, lane);
-        tc::mma_bf16(s[2 * np], ak, bq[0], bq[1]);
-        tc::mma_bf16(s[2 * np + 1], ak, bq[2], bq[3]);
-        tc::mma_bf16(dp[2 * np], av, bdo[0], bdo[1]);
-        tc::mma_bf16(dp[2 * np + 1], av, bdo[2], bdo[3]);
-      }
-    }
-    // P^T and dS^T: rows are keys, columns queries
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + warp * 16 + g + (e >> 1) * 8;
-        const int ql = nt * 8 + 2 * t + (e & 1);
-        const int qpos = qq0 + ql;
-        const bool ok = kpos < Sk && qpos < Sq &&
-                        (!causal || qpos + offset >= kpos);
-        const float p = ok ? exp2f(s[nt][e] * scale_log2 - l2[ql]) : 0.f;
-        s[nt][e] = p;
-        dp[nt][e] = p * (dp[nt][e] - dr[ql]);
-      }
-    uint32_t pa[NT / 2][4], da[NT / 2][4];
-    acc_to_a<NT / 2>(pa, s);
-    acc_to_a<NT / 2>(da, dp);
-    // dV += P^T dO, dK += dS^T Q
-#pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk)
-#pragma unroll
-      for (int op = 0; op < OT / 2; ++op) {
-        uint32_t bdo[4], bq[4];
-        frag_b_kn<LDS>(bdo, dotile, kk, op * 16, lane);
-        frag_b_kn<LDS>(bq, qtile, kk, op * 16, lane);
-        tc::mma_bf16(dva[2 * op], pa[kk], bdo[0], bdo[1]);
-        tc::mma_bf16(dva[2 * op + 1], pa[kk], bdo[2], bdo[3]);
-        tc::mma_bf16(dka[2 * op], da[kk], bq[0], bq[1]);
-        tc::mma_bf16(dka[2 * op + 1], da[kk], bq[2], bq[3]);
-      }
-    __syncthreads();  // this slot is refilled two steps on
-  }
-  tc::cp_async_wait<0>();  // a block with no query tile
-
-  const int r0 = k0 + warp * 16;
-  store_acc<OT>(dk + b * dks.b + hk * dks.h, dks.s, r0, Sk, d, dka, scale, g,
-                t);
-  store_acc<OT>(dv + b * dvs.b + hk * dvs.h, dvs.s, r0, Sk, d, dva, 1.f, g,
-                t);
+  hop::wgmma_wait<0>();                // as in dkdv
+  hop::fence_regs(acc);
+  store_acc<OT>(dq + b * dqs.b + h * dqs.h, dqs.s, qw0 + warp * 16, Sq, d,
+                acc, scale, g, t, pair);
 }
 
 // --- float32: FMAs from shared memory --------------------------------------
@@ -1394,17 +1560,50 @@ extern "C" int attn_bwd_prep_launch(const void* o, const void* dout, float* D,
 
 namespace {
 
-bool vec_ok(int d, std::initializer_list<const void*> ptrs,
-            std::initializer_list<long long> strides) {
-  bool vec = d % 8 == 0;
-  for (const void* p : ptrs) vec = vec && aligned16(p);
-  for (long long s : strides) vec = vec && s % 8 == 0;
-  return vec;
+// f(DT) for the wgmma kernels' head-dim tile: 64 or 128 (whole 128-byte
+// panels; TMA fills the columns past d with zeros)
+template <typename F>
+int by_panels(int d, F&& f) {
+  if (d <= 64) return f(std::integral_constant<int, 64>());
+  if (d <= 128) return f(std::integral_constant<int, 128>());
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the four operands' tensor maps, K and V with `kv_rows` a box, Q and dO
+// with `q_rows`
+int encode_operands(CUtensorMap (&m)[4], const void* q, const void* k,
+                    const void* v, const void* dout, int B, int Hq, int Hkv,
+                    int Sq, int Sk, int d, const Strides& qs,
+                    const Strides& ks, const Strides& vs, const Strides& dos,
+                    int q_rows, int kv_rows) {
+  int err = hop::encode_bf16_panels(&m[0], q, d, Sq, Hq, B, qs.s, qs.h, qs.b,
+                                    q_rows);
+  if (!err)
+    err = hop::encode_bf16_panels(&m[1], k, d, Sk, Hkv, B, ks.s, ks.h, ks.b,
+                                  kv_rows);
+  if (!err)
+    err = hop::encode_bf16_panels(&m[2], v, d, Sk, Hkv, B, vs.s, vs.h, vs.b,
+                                  kv_rows);
+  if (!err)
+    err = hop::encode_bf16_panels(&m[3], dout, d, Sq, Hq, B, dos.s, dos.h,
+                                  dos.b, q_rows);
+  return err;
+}
+
+// two bf16 columns a store: d even, every stride even, a 4-byte base
+bool pair_ok(int d, const void* p, std::initializer_list<Strides> ss) {
+  bool ok = d % 2 == 0 && reinterpret_cast<uintptr_t>(p) % 4 == 0;
+  for (const Strides& x : ss) ok = ok && x.b % 2 == 0 && x.h % 2 == 0 &&
+                                   x.s % 2 == 0;
+  return ok;
 }
 
 }  // namespace
 
-// dq = scale dS K
+// dq = scale dS K.  bfloat16 reads q, k, v and dout by TMA: each base and
+// each (batch, head, seq) stride a multiple of 16 bytes (ops.py stages a
+// copy of an operand that is not); a tensor map that cuTensorMapEncodeTiled
+// refuses returns 1000 + its CUresult.
 extern "C" int attn_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* D, void* dq, int is_bf16, int B, int Hq,
@@ -1420,39 +1619,43 @@ extern "C" int attn_bwd_dq_launch(
       dos{dosb, dosh, doss}, dqs{dqsb, dqsh, dqss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int group = Hq / Hkv;
-  return by_tile_bwd(d, [&](auto tile) {
-    constexpr int DT = decltype(tile)::value;
-    if (is_bf16) {
-      const bool vec = vec_ok(d, {q, k, v, dout},
-                              {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss,
-                               dosb, dosh, doss});
-      constexpr size_t smem = dq_mma_smem_bytes<DT>();
-      int err = set_smem(attn_bwd_dq_mma<DT>, smem);
+  if (is_bf16) {
+    const int pair = pair_ok(d, dq, {dqs});
+    return by_panels(d, [&](auto tile) {
+      constexpr int DT = decltype(tile)::value;
+      CUtensorMap m[4];
+      int err = encode_operands(m, q, k, v, dout, B, Hq, Hkv, Sq, Sk, d, qs,
+                                ks, vs, dos, kDqBQ, DqTile<DT>::kBK);
+      if (err) return err;
+      constexpr size_t smem = DqSmem<DT>::bytes;
+      err = set_smem(attn_bwd_dq_wgmma<DT>, smem);
       if (err) return err;
       const dim3 grid((Sq + kDqBQ - 1) / kDqBQ, Hq, B);
-      attn_bwd_dq_mma<DT><<<grid, kThreads, smem, st>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v),
-          static_cast<const __nv_bfloat16*>(dout), lse, D,
-          static_cast<__nv_bfloat16*>(dq), group, Sq, Sk, d, qs, ks, vs, dos,
-          dqs, scale, causal, vec);
-    } else {
-      constexpr size_t smem = dq_fma_smem_bytes<DT>();
-      int err = set_smem(attn_bwd_dq_fma<DT>, smem);
-      if (err) return err;
-      const dim3 grid((Sq + kFDqBQ - 1) / kFDqBQ, Hq, B);
-      attn_bwd_dq_fma<DT><<<grid, kThreads, smem, st>>>(
-          static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-          D, static_cast<float*>(dq), group, Sq, Sk, d, qs, ks, vs, dos, dqs,
-          scale, causal);
-    }
+      attn_bwd_dq_wgmma<DT><<<grid, kBwdThreads, smem, st>>>(
+          m[0], m[1], m[2], m[3], lse, D, static_cast<__nv_bfloat16*>(dq),
+          Hq, group, Sq, Sk, d, dqs, scale, causal, pair);
+      return static_cast<int>(cudaGetLastError());
+    });
+  }
+  return by_tile_bwd(d, [&](auto tile) {
+    constexpr int DT = decltype(tile)::value;
+    constexpr size_t smem = dq_fma_smem_bytes<DT>();
+    int err = set_smem(attn_bwd_dq_fma<DT>, smem);
+    if (err) return err;
+    const dim3 grid((Sq + kFDqBQ - 1) / kFDqBQ, Hq, B);
+    attn_bwd_dq_fma<DT><<<grid, kThreads, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        D, static_cast<float*>(dq), group, Sq, Sk, d, qs, ks, vs, dos, dqs,
+        scale, causal);
     return static_cast<int>(cudaGetLastError());
   });
 }
 
-// dk = scale dS^T Q and dv = P^T dO, each summed over the kv head's group
+// dk = scale dS^T Q and dv = P^T dO, each summed over the kv head's group;
+// bfloat16 operands as for attn_bwd_dq_launch, and lse and D read by TMA as
+// B Hq rows of Sq values row_ld apart (row_ld * 4 a multiple of 16 bytes;
+// float32 ignores it: its lse and D are contiguous)
 extern "C" int attn_bwd_dkdv_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* D, void* dk, void* dv, int is_bf16, int B,
@@ -1460,8 +1663,8 @@ extern "C" int attn_bwd_dkdv_launch(
     long long qss, long long ksb, long long ksh, long long kss, long long vsb,
     long long vsh, long long vss, long long dosb, long long dosh,
     long long doss, long long dksb, long long dksh, long long dkss,
-    long long dvsb, long long dvsh, long long dvss, float scale, int causal,
-    void* stream) {
+    long long dvsb, long long dvsh, long long dvss, long long row_ld,
+    float scale, int causal, void* stream) {
   if (B <= 0 || Hkv <= 0 || Sk <= 0) return 0;
   if (Hq <= 0 || Hq % Hkv != 0 || Sq <= 0 || d <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1469,35 +1672,41 @@ extern "C" int attn_bwd_dkdv_launch(
       dos{dosb, dosh, doss}, dks{dksb, dksh, dkss}, dvs{dvsb, dvsh, dvss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int group = Hq / Hkv;
-  return by_tile_bwd(d, [&](auto tile) {
-    constexpr int DT = decltype(tile)::value;
-    if (is_bf16) {
-      const bool vec = vec_ok(d, {q, k, v, dout},
-                              {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss,
-                               dosb, dosh, doss});
-      constexpr size_t smem = dkdv_mma_smem_bytes<DT>();
-      int err = set_smem(attn_bwd_dkdv_mma<DT>, smem);
+  if (is_bf16) {
+    CUtensorMap m[4];
+    int err = encode_operands(m, q, k, v, dout, B, Hq, Hkv, Sq, Sk, d, qs, ks,
+                              vs, dos, kKvBQ, kKvBK);
+    if (err) return err;
+    CUtensorMap ml, mD;
+    const long long rows = static_cast<long long>(B) * Hq;
+    err = hop::encode_f32_rows(&ml, lse, Sq, rows, row_ld, kKvBQ);
+    if (!err) err = hop::encode_f32_rows(&mD, D, Sq, rows, row_ld, kKvBQ);
+    if (err) return err;
+    const int pair = pair_ok(d, dk, {dks, dvs}) && pair_ok(d, dv, {});
+    return by_panels(d, [&](auto tile) {
+      constexpr int DT = decltype(tile)::value;
+      constexpr size_t smem = DkdvSmem<DT>::bytes;
+      err = set_smem(attn_bwd_dkdv_wgmma<DT>, smem);
       if (err) return err;
       const dim3 grid((Sk + kKvBK - 1) / kKvBK, Hkv, B);
-      attn_bwd_dkdv_mma<DT><<<grid, kThreads, smem, st>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v),
-          static_cast<const __nv_bfloat16*>(dout), lse, D,
-          static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-          Hq, group, Sq, Sk, d, qs, ks, vs, dos, dks, dvs, scale, causal,
-          vec);
-    } else {
-      constexpr size_t smem = dkdv_fma_smem_bytes<DT>();
-      int err = set_smem(attn_bwd_dkdv_fma<DT>, smem);
-      if (err) return err;
-      const dim3 grid((Sk + kFKvBK - 1) / kFKvBK, Hkv, B);
-      attn_bwd_dkdv_fma<DT><<<grid, kThreads, smem, st>>>(
-          static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-          D, static_cast<float*>(dk), static_cast<float*>(dv), Hq, group, Sq,
-          Sk, d, qs, ks, vs, dos, dks, dvs, scale, causal);
-    }
+      attn_bwd_dkdv_wgmma<DT><<<grid, kBwdThreads, smem, st>>>(
+          m[0], m[1], m[2], m[3], ml, mD, static_cast<__nv_bfloat16*>(dk),
+          static_cast<__nv_bfloat16*>(dv), Hq, group, Sq, Sk, d, dks, dvs,
+          scale, causal, pair);
+      return static_cast<int>(cudaGetLastError());
+    });
+  }
+  return by_tile_bwd(d, [&](auto tile) {
+    constexpr int DT = decltype(tile)::value;
+    constexpr size_t smem = dkdv_fma_smem_bytes<DT>();
+    int err = set_smem(attn_bwd_dkdv_fma<DT>, smem);
+    if (err) return err;
+    const dim3 grid((Sk + kFKvBK - 1) / kFKvBK, Hkv, B);
+    attn_bwd_dkdv_fma<DT><<<grid, kThreads, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        D, static_cast<float*>(dk), static_cast<float*>(dv), Hq, group, Sq,
+        Sk, d, qs, ks, vs, dos, dks, dvs, scale, causal);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -1507,27 +1716,34 @@ extern "C" int attn_bwd_dkdv_launch(
 // memory a launch
 extern "C" int attn_bwd_attributes(int is_bf16, int which, int d, int* regs,
                                    int* local_bytes, long long* smem) {
-  return by_tile_bwd(d, [&](auto tile) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaSuccess;
+  size_t bytes = 0;
+  const int bad = by_tile_bwd(d, [&](auto tile) {
     constexpr int DT = decltype(tile)::value;
-    cudaFuncAttributes attr;
-    cudaError_t err;
-    size_t bytes = 0;
     if (which == 0) {
       err = is_bf16 ? cudaFuncGetAttributes(&attr, attn_bwd_prep<__nv_bfloat16>)
                     : cudaFuncGetAttributes(&attr, attn_bwd_prep<float>);
-    } else if (which == 1) {
-      err = is_bf16 ? cudaFuncGetAttributes(&attr, attn_bwd_dkdv_mma<DT>)
-                    : cudaFuncGetAttributes(&attr, attn_bwd_dkdv_fma<DT>);
-      bytes = is_bf16 ? dkdv_mma_smem_bytes<DT>() : dkdv_fma_smem_bytes<DT>();
+    } else if (!is_bf16) {
+      err = which == 1 ? cudaFuncGetAttributes(&attr, attn_bwd_dkdv_fma<DT>)
+                       : cudaFuncGetAttributes(&attr, attn_bwd_dq_fma<DT>);
+      bytes = which == 1 ? dkdv_fma_smem_bytes<DT>() : dq_fma_smem_bytes<DT>();
     } else {
-      err = is_bf16 ? cudaFuncGetAttributes(&attr, attn_bwd_dq_mma<DT>)
-                    : cudaFuncGetAttributes(&attr, attn_bwd_dq_fma<DT>);
-      bytes = is_bf16 ? dq_mma_smem_bytes<DT>() : dq_fma_smem_bytes<DT>();
+      return by_panels(d, [&](auto panels) {
+        constexpr int PT = decltype(panels)::value;
+        err = which == 1
+                  ? cudaFuncGetAttributes(&attr, attn_bwd_dkdv_wgmma<PT>)
+                  : cudaFuncGetAttributes(&attr, attn_bwd_dq_wgmma<PT>);
+        bytes = which == 1 ? DkdvSmem<PT>::bytes : DqSmem<PT>::bytes;
+        return 0;
+      });
     }
-    if (err != cudaSuccess) return static_cast<int>(err);
-    *regs = attr.numRegs;
-    *local_bytes = static_cast<int>(attr.localSizeBytes);
-    *smem = static_cast<long long>(bytes);
     return 0;
   });
+  if (bad) return bad;
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  *smem = static_cast<long long>(bytes);
+  return 0;
 }

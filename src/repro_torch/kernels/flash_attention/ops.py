@@ -26,6 +26,16 @@ row that sees no key gets dq 0.
 ``flash_attention.launches`` counts the forward's kernel launches, and
 ``attn_bwd_prep.launches``, ``attn_bwd_dkdv.launches`` and
 ``attn_bwd_dq.launches`` the backward's.
+
+bfloat16 dk/dv and dq read q, k, v and dout by TMA, whose tensor maps
+describe an operand as it lies: a contiguous head dim, a base and (batch,
+head, seq) strides that are multiples of 16 bytes (``tma_describable``).
+An operand that is not (a view offset by an element, a head dim of odd
+bytes) goes to its kernel as a staged copy (``tma_staged``: contiguous, the
+head dim's row padded to 16 bytes); so do dk/dv's lse and D where Sq is not
+a multiple of 4 (their rows padded to 16 bytes); ``attn_bwd_dkdv.staged``
+and ``attn_bwd_dq.staged`` count those copies.  The choice is made from the
+layout before the launch, never after a failure.
 """
 from __future__ import annotations
 
@@ -39,7 +49,8 @@ from .ref import (attention_bwd_prep_ref, attention_bwd_ref, attention_ref,
 
 __all__ = ["flash_attention", "flash_attention_lse", "flash_attention_bwd",
            "attn_bwd_prep", "attn_bwd_dkdv", "attn_bwd_dq", "MAX_HEAD_DIM",
-           "MAX_BWD_HEAD_DIM"]
+           "MAX_BWD_HEAD_DIM", "tma_describable", "tma_staged",
+           "tma_strides"]
 
 MAX_HEAD_DIM = 256          # the forward kernel's largest head-dim tile
 MAX_BWD_HEAD_DIM = 128      # the backward kernels' (every config's d)
@@ -220,6 +231,78 @@ def attn_bwd_prep(o: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 attn_bwd_prep.launches = 0
 
 
+TMA_ALIGN = 16              # bytes: a TMA base address and stride
+
+
+def tma_describable(t: torch.Tensor) -> bool:
+    """Whether a (B, H, S, d) operand can be read by TMA as it lies: a
+    contiguous head dim, a 16-byte aligned base, and a (batch, head, seq)
+    stride that is a positive multiple of 16 bytes on every dim longer than
+    1 (a dim of length 1 is never stepped along)."""
+    es = t.element_size()
+    if t.data_ptr() % TMA_ALIGN or (t.shape[3] > 1 and t.stride(3) != 1):
+        return False
+    return all(n == 1 or (st > 0 and st * es % TMA_ALIGN == 0)
+               for n, st in zip(t.shape[:3], t.stride()[:3]))
+
+
+def tma_strides(t: torch.Tensor) -> list[int]:
+    """t's (batch, head, seq) strides in elements for its tensor map; a dim
+    of length 1 takes the extent of the whole tensor, rounded up to 16
+    bytes, since its stride is never stepped along but must still be a
+    multiple of 16 bytes."""
+    unit = TMA_ALIGN // t.element_size()
+    extent = max(n * st for n, st in zip(t.shape, t.stride()))
+    packed = -(-extent // unit) * unit
+    return [st if n > 1 else packed
+            for n, st in zip(t.shape[:3], t.stride()[:3])]
+
+
+def tma_staged(t: torch.Tensor) -> torch.Tensor:
+    """A copy of t that TMA can describe: contiguous, each row of its last
+    dim padded to a multiple of 16 bytes (the padding is never read: the
+    tensor map's width is the row's length)."""
+    unit = TMA_ALIGN // t.element_size()
+    n = t.shape[-1]
+    buf = t.new_empty((*t.shape[:-1], -(-n // unit) * unit))
+    view = buf[..., :n]
+    view.copy_(t)
+    return view
+
+
+def _tma_operands(wrapper, *tensors) -> list[torch.Tensor]:
+    """The operands as the bf16 kernels read them: each one TMA cannot
+    describe as it lies replaced by its staged copy, counted on
+    ``wrapper.staged``."""
+    out = []
+    for t in tensors:
+        if not tma_describable(t):
+            t = tma_staged(t)
+            wrapper.staged += 1
+        out.append(t)
+    return out
+
+
+def _tma_rows(wrapper, *rows) -> tuple[list[torch.Tensor], int]:
+    """lse and D, contiguous float32 (B, Hq, Sq), as the bf16 dk/dv kernel
+    reads them by TMA: B Hq rows of Sq values whose row stride is a
+    multiple of 16 bytes.  Where Sq is not a multiple of 4 (or a base is
+    not 16-byte aligned) each goes as a staged copy with padded rows,
+    counted on ``wrapper.staged``.  Returns the tensors and their row
+    stride in values."""
+    Sq = rows[0].shape[2]
+    if Sq * rows[0].element_size() % TMA_ALIGN == 0 and all(
+            r.data_ptr() % TMA_ALIGN == 0 for r in rows):
+        return list(rows), Sq
+    out = [tma_staged(r) for r in rows]
+    wrapper.staged += len(out)
+    return out, out[0].stride(1)
+
+
+def _operand_strides(*tensors) -> list[int]:
+    return [st for t in tensors for st in tma_strides(t)]
+
+
 def _cuda_only(name: str, q: torch.Tensor) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"{name} launches a CUDA kernel, got a tensor on "
@@ -236,21 +319,26 @@ def attn_bwd_dkdv(q, k, v, dout, lse, D, *, causal: bool, scale: float):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
+    row_ld = Sq
+    if q.dtype == torch.bfloat16:
+        q, k, v, dout = _tma_operands(attn_bwd_dkdv, q, k, v, dout)
+        (lse, D), row_ld = _tma_rows(attn_bwd_dkdv, lse, D)
     fn = load_kernel("flash_attention").attn_bwd_dkdv_launch
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                   + [ctypes.c_longlong] * 18
+                   + [ctypes.c_longlong] * 19
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     _launch(fn, "attn_bwd_dkdv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), D.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), int(q.dtype == torch.bfloat16), B, Hq, Hkv, Sq,
-            Sk, d, *_strides(q, k, v, dout, dk, dv), float(scale),
-            int(bool(causal)))
+            Sk, d, *_operand_strides(q, k, v, dout), *_strides(dk, dv),
+            row_ld, float(scale), int(bool(causal)))
     attn_bwd_dkdv.launches += 1
     return dk, dv
 
 
 attn_bwd_dkdv.launches = 0
+attn_bwd_dkdv.staged = 0
 
 
 def attn_bwd_dq(q, k, v, dout, lse, D, *, causal: bool, scale: float):
@@ -262,6 +350,8 @@ def attn_bwd_dq(q, k, v, dout, lse, D, *, causal: bool, scale: float):
     dq = torch.empty_like(q)
     if dq.numel() == 0:
         return dq
+    if q.dtype == torch.bfloat16:
+        q, k, v, dout = _tma_operands(attn_bwd_dq, q, k, v, dout)
     fn = load_kernel("flash_attention").attn_bwd_dq_launch
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 15
@@ -270,12 +360,14 @@ def attn_bwd_dq(q, k, v, dout, lse, D, *, causal: bool, scale: float):
     _launch(fn, "attn_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(),
             int(q.dtype == torch.bfloat16), B, Hq, Hkv, Sq, Sk, d,
-            *_strides(q, k, v, dout, dq), float(scale), int(bool(causal)))
+            *_operand_strides(q, k, v, dout), *_strides(dq), float(scale),
+            int(bool(causal)))
     attn_bwd_dq.launches += 1
     return dq
 
 
 attn_bwd_dq.launches = 0
+attn_bwd_dq.staged = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,

@@ -259,6 +259,19 @@ def _bwd_case(shape, dtype, causal, seed, dev):
     return q, k, v, dout
 
 
+def _staged():
+    return attn_bwd_dkdv.staged, attn_bwd_dq.staged
+
+
+def _expected_staged(Sq, dtype):
+    """The staged copies a bf16 backward makes of contiguous operands:
+    none of q, k, v, dout (TMA reads them as they lie); dk/dv's lse and D
+    where their rows (Sq float32 values) are not a multiple of 16 bytes."""
+    if dtype != torch.bfloat16:
+        return 0, 0
+    return (0 if Sq % 4 == 0 else 2), 0
+
+
 def _assert_grads_close(got, want, sees, tol):
     dq, dk, dv = got
     wq, wk, wv = want
@@ -285,6 +298,7 @@ def test_flash_attention_bwd_kernels_equal_plain(shape, dtype, causal):
     q, k, v, dout = _bwd_case(shape, dtype, causal, sum(shape), dev)
     before = (flash_attention.launches, attn_bwd_prep.launches,
               attn_bwd_dkdv.launches, attn_bwd_dq.launches)
+    staged = _staged()
     out = flash_attention(q, k, v, causal=causal)
     got = torch.autograd.grad(out, (q, k, v), dout)
     want = attention_bwd_ref(q.detach(), k.detach(), v.detach(), dout,
@@ -293,23 +307,64 @@ def test_flash_attention_bwd_kernels_equal_plain(shape, dtype, causal):
     after = (flash_attention.launches, attn_bwd_prep.launches,
              attn_bwd_dkdv.launches, attn_bwd_dq.launches)
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
+    # the route: bf16 through the wgmma kernels, q, k, v and dout read by TMA
+    # as they lie
+    assert tuple(a - b for a, b in zip(_staged(), staged)) == \
+        _expected_staged(shape[3], dtype)
     sees = _sees_a_key(shape[3], shape[4], causal, dev)
     _assert_grads_close(got, want, sees, _BWD_TOL[dtype])
 
 
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_bwd_at_training_length(dtype):
+def test_flash_attention_bwd_at_training_length(dtype, layout):
     """qwen3-1.7b's head shape at S = 4096, causal: the backward against the
-    plain version."""
+    plain version, on contiguous (B, H, S, d) inputs and on (B, S, H, d)
+    ones seen through transpose(1, 2) as the model passes them; bf16 reads
+    both by TMA as they lie (no staged copy)."""
     dev = _card()
     shape = (1, 16, 8, 4096, 4096, 128)
     q, k, v, dout = _bwd_case(shape, dtype, True, 4096, dev)
+    if layout == "bshd":
+        q, k, v, dout = (x.detach().transpose(1, 2).contiguous()
+                         .transpose(1, 2) for x in (q, k, v, dout))
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+    staged = _staged()
     out = flash_attention(q, k, v)
     got = torch.autograd.grad(out, (q, k, v), dout)
     want = attention_bwd_ref(q.detach(), k.detach(), v.detach(), dout)
     torch.cuda.synchronize()
+    assert _staged() == staged
     _assert_grads_close(got, want, _sees_a_key(4096, 4096, True, dev),
                         _BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("case", ["offset", "d20"])
+def test_flash_attention_bwd_stages_what_tma_cannot_read(case):
+    """bf16 operands TMA cannot describe as they lie go through a staged
+    copy, counted on the wrappers, and the gradients still equal the plain
+    version's within _BWD_TOL: q a view whose base is one element into its
+    buffer (staged by both kernels), or a head dim of 20 (rows of 40 bytes:
+    all four operands staged by both)."""
+    dev = _card()
+    if case == "offset":
+        shape = (1, 8, 4, 200, 200, 64)
+        q, k, v, dout = _bwd_case(shape, torch.bfloat16, True, 7, dev)
+        buf = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=dev)
+        q = buf[1:].view(q.shape).copy_(q.detach()).requires_grad_()
+        want_staged = (1, 1)
+    else:
+        shape = (2, 4, 2, 96, 96, 20)
+        q, k, v, dout = _bwd_case(shape, torch.bfloat16, True, 8, dev)
+        want_staged = (4, 4)
+    staged = _staged()
+    out = flash_attention(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    want = attention_bwd_ref(q.detach(), k.detach(), v.detach(), dout)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_staged(), staged)) == want_staged
+    _assert_grads_close(got, want, _sees_a_key(shape[3], shape[4], True, dev),
+                        _BWD_TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
