@@ -313,10 +313,30 @@ Phases; any failure exits non-zero and prints no result line:
       width cut to 2 periods, float32, B = 1, S = 256, from one state
       (loss, grad norm, every parameter after the step); every gradient
       leaf of the float32 smoke configs of tinyllama, qwen3, granite-moe,
-      whisper and llava; mamba2's and jamba's smoke gradients on the card
-      must raise K5's error; the reference's crash/resume protocol on the
-      card (tinyllama smoke: crash at step 7, resume from step 6, run to
-      12), every parameter bit-equal to an uninterrupted run.
+      whisper, llava, mamba2 and jamba (K4, K5 and their backwards on the
+      card) within 1e-4 of its largest; the reference's crash/resume
+      protocol on the card (tinyllama's and jamba's smoke configs: crash
+      at step 7, resume from step 6, run to 12), every parameter
+      bit-equal to an uninterrupted run.
+   d. mamba2-2.7b at its published full width (64 layers, bf16, remat
+      "full") trained through ``launch.train``'s ``main`` for 4 steps of
+      4 x 4096 tokens with ``--plan-buckets 8``, the counts set to 0 just
+      before and read just after: 128 K5 forward calls a step (64 and 64
+      recomputed) and 64 of each backward wrapper (``ssd_bwd_state``,
+      ``ssd_bwd_chunk``, two CUDA launches each).  Prints the step's wall
+      (median of steps 2-4), tokens/s, peak memory, loss and grad norm.
+   e. K5's backward wrappers against their plain versions
+      (``ssd_bwd_state_ref``, ``ssd_bwd_chunk_ref``, on the same inputs,
+      the forward's kept states from the card) and the whole backward
+      (``ssd_scan(...).backward``, the autograd path training runs)
+      against ``ssd_bwd_ref``, on ``SSD_BWD_SHAPES`` in float32 and
+      bfloat16, b and c strided views of one tensor as the model hands
+      them; tolerances ``SSD_BWD_TOL`` of each output's own largest
+      |value| and of the largest over the outputs (float32 1e-4 and
+      2e-5, bf16 1e-2).  Then each wrapper at the
+      training shape (B=4, S=4096, H=80, bf16): ms, bound, the plain
+      version's ms, registers, local and shared memory of each CUDA
+      kernel; two runs must give the same bits.
 
 float32 matrix products run in full float32 (``allow_tf32`` is set False,
 PyTorch's default, for matmul and cuDNN).
@@ -458,15 +478,17 @@ TF_TOL_BF16 = 0.08                  # of the largest logit, bf16 teacher forcing
 # (BWD_KERNELS) against attention_bwd_ref on ATTN_BWD_SHAPES (the families' head shapes, S in
 # {1, 127, 128, 129, 4096}, Sq != Sk both ways: causal rows that see no
 # key), card vs CPU on qwen3 cut to TRAIN_CPU_CUT = (periods, B, S) in
-# float32 and on TRAIN_SMOKE's smoke configs, K5's refusal on TRAIN_RAISES,
-# crash/resume on RESUME_ARCH's smoke config
+# float32 and on TRAIN_SMOKE's smoke configs, crash/resume on RESUME_ARCHS'
+# smoke configs
 TRAIN_ARCH = "qwen3-1.7b"
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_BUCKETS = 4, 4096, 4, 8
 TRAIN_CPU_CUT = (2, 1, 256)
 TRAIN_SMOKE = ("tinyllama-1.1b", "qwen3-1.7b", "granite-moe-3b",
-               "whisper-large-v3", "llava-next-mistral-7b")
-TRAIN_RAISES = ("mamba2-2.7b", "jamba-1.5-large")
-RESUME_ARCH = "tinyllama-1.1b"
+               "whisper-large-v3", "llava-next-mistral-7b", "mamba2-2.7b",
+               "jamba-1.5-large")
+# crash/resume on the card: a decoder-only LM, and jamba's hybrid (K4, K5
+# and the MoE layer in one run)
+RESUME_ARCHS = ("tinyllama-1.1b", "jamba-1.5-large")
 BWD_KERNELS = ("attn_bwd_prep", "attn_bwd_dkdv", "attn_bwd_dq")
 # K4's backward is timed at the training shape and at granite-moe-3b's head
 # shape (d = 64), both bf16 and causal
@@ -477,6 +499,32 @@ ATTN_BWD_SHAPES = [(1, 16, 8, S, S, 128) for S in (1, 127, 128, 129, 4096)] \
        (1, 32, 8, 257, 257, 128), (1, 20, 20, 64, 1500, 64),
        (1, 20, 20, 300, 300, 64), (1, 4, 2, 100, 40, 32),
        (2, 4, 2, 33, 33, 24)]
+# phase 16(d)-(e), the SSM slice: mamba2-2.7b at full width trained through
+# repro_torch.launch.train (B x S tokens a step, as qwen3's run: B = 8
+# fits the card, at a peak of 55.9 GiB on an H100, but its 12 s more do not
+# fit this script's time on a slower host; scripts/ssm_train_batch.py
+# trains it), and K5's
+# backward wrappers (SSD_BWD: the chunk state gradients and their reverse
+# pass; the chunk gradients and the group sum) against their plain versions
+# on SSD_BWD_SHAPES (B, S, H, G, N, P, L): mamba2's heads at S in {1, 127,
+# 128, 129, 4096}, jamba-1.5-large's full-width heads (H 256 in 8 groups)
+# at a small B S, the smoke configs' (N 16, P 8, L 16).  SSD_BWD_TOL: (of
+# each output's own largest |value|, of the largest |value| over the
+# outputs); each output is held to both.  float32 (1e-4, 2e-5): the second
+# is K4's backward's; the first is the forward's and the CPU tests' 1e-4,
+# as an output can be small by cancellation where its rounding is not: at
+# S = 1 (one batch, one group) dx is the single dot product c.b times dy,
+# and this draw's c.b is about 3e-4 (dx read 5.6e-5 of its own largest on
+# an H100).  bf16 (1e-2, 1e-2), set from readings: 3.4e-3 at most, dx at S
+# = 4096
+SSM_TRAIN_STEPS, SSM_TRAIN_SEQ, SSM_TRAIN_BATCH = 4, 4096, 4
+SSD_BWD = ("ssd_bwd_state", "ssd_bwd_chunk")
+SSD_GRADS = ("dx", "da", "db", "dc")
+SSD_BWD_TOL = {"float32": (1e-4, 2e-5), "bfloat16": (1e-2, 1e-2)}
+SSD_BWD_SHAPES = [(1, S, 80, 1, 128, 64, 128) for S in (1, 127, 128, 129,
+                                                        4096)] \
+    + [(1, 384, 256, 8, 128, 64, 128), (2, 24, 16, 1, 16, 8, 16),
+       (2, 50, 6, 3, 16, 8, 16)]
 
 
 def _fail(msg: str) -> None:
@@ -1757,12 +1805,89 @@ def attn_bwd_bound(B, Hq, Hkv, Sq, Sk, d, causal, products=5,
     return {"bound_ms": bound[by], "bound_by": by, "flops": ops}
 
 
+def _train_full_width(dev, counts, arch, steps, seq, batch,
+                      per_step) -> tuple:
+    """Train `arch` at its published full width through
+    ``repro_torch.launch.train``'s ``main`` for `steps` steps of `batch` x
+    `seq` tokens with ``--plan-buckets``, the counts set to 0 just before
+    and read just after.  Fails unless every loss and grad norm is finite,
+    each wrapper of `per_step` (name -> launches a step) ran that many
+    times a step, the bucket plan ran on the card's pipeline and the model
+    computed in bf16.  Returns (the launcher's result, the run's
+    record)."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.lm import tree_leaves
+
+    zero_counts, read_counts = counts
+    cfg = get_config(arch)
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)     # no resume
+    argv = ["--arch", arch, "--steps", str(steps), "--seq-len", str(seq),
+            "--global-batch", str(batch), "--plan-buckets",
+            str(TRAIN_BUCKETS), "--ckpt-every", str(steps + 1),
+            "--ckpt-dir", str(ckpt_dir), "--seed", "0", "--device",
+            dev.type]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = launch_train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log = res["runner"].metrics_log
+    if len(log) != steps:
+        _fail(f"{arch} training ran {len(log)} steps, not {steps}")
+    for r in log:
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+            _fail(f"{arch} training step {r['step']}: loss {r['loss']}, "
+                  f"grad norm {r['grad_norm']}")
+    for name, n in per_step.items():
+        if launches[name] != n * steps:
+            _fail(f"{arch} training launched {name} {launches[name]} times, "
+                  f"not {n} a step x {steps}")
+    if launches["bna_decompose"] < 1 or launches["merge_fix"] < 1:
+        _fail(f"{arch}'s bucket plan did not run on the card's pipeline: "
+              f"{launches}")
+    if cfg.compute_dtype != "bfloat16":
+        _fail(f"{arch} trained in {cfg.compute_dtype}, not bf16")
+    walls = [r["time_s"] for r in log]
+    step_s = statistics.median(walls[1:])
+    return res, {
+        "arch": cfg.name, "params": sum(x.numel() for x in
+                                        tree_leaves(res["state"].params)),
+        "seq_len": seq, "global_batch": batch, "steps": steps,
+        "remat": cfg.remat, "loss_chunk": cfg.loss_chunk, "step_s": walls,
+        "step_s_median_2_4": step_s, "first_step_s": walls[0],
+        "tokens_per_s": seq * batch / step_s,
+        "loss": [r["loss"] for r in log],
+        "grad_norm": [r["grad_norm"] for r in log],
+        "max_memory_allocated": peak, "wall_s": wall, "launches": launches,
+        "launches_per_step": {k: launches[k] / steps for k in per_step},
+        "planned_buckets": len(res["outcome"].order),
+        "bucket_order": res["outcome"].order,
+        "bucket_makespan_gain_pct": res["summary"][
+            "bucket_makespan_gain_pct"],
+        "plan_s": res["plan_s"]}
+
+
 def _training(dev, counts) -> dict:
     """Phase 16: training.  (a) qwen3-1.7b at full width through
     ``repro_torch.launch.train``'s ``main`` (the counts set to 0 just
     before and read just after); (b) K4's backward kernels against
     ``attention_bwd_ref`` (one layer of a real step, the grid of shapes)
-    and timed; (c) card against CPU, K5's refusal and crash/resume.
+    and timed; (c) card against CPU and crash/resume.
     ``counts`` = (zero_counts, read_counts).  Returns the record."""
     import gc
     import shutil
@@ -1782,7 +1907,6 @@ def _training(dev, counts) -> dict:
                                                      flash_attention_lse)
     from repro_torch.kernels.flash_attention.ref import (
         attention_bwd_prep_ref, attention_bwd_ref)
-    from repro_torch.launch import train as launch_train
     from repro_torch.models import layers
     from repro_torch.models.lm import tree_leaves, tree_map
     from repro_torch.train.optim import OptConfig
@@ -1791,7 +1915,6 @@ def _training(dev, counts) -> dict:
                                         init_train_state, leaf_paths,
                                         loss_for)
 
-    zero_counts, read_counts = counts
     out: dict = {"max_abs_err": {k: 0.0 for k in BWD_KERNELS},
                  "checked": {k: 0 for k in BWD_KERNELS}}
     t_phase = time.perf_counter()
@@ -1803,69 +1926,22 @@ def _training(dev, counts) -> dict:
 
     # (a) qwen3-1.7b trained at full width through the launcher -----------
     cfg = get_config(TRAIN_ARCH)
-    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
-    shutil.rmtree(ckpt_dir, ignore_errors=True)     # no resume
-    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
-            "--seq-len", str(TRAIN_SEQ), "--global-batch", str(TRAIN_BATCH),
-            "--plan-buckets", str(TRAIN_BUCKETS),
-            "--ckpt-every", str(TRAIN_STEPS + 1), "--ckpt-dir", str(ckpt_dir),
-            "--seed", "0", "--device", dev.type]
-    free()
-    torch.cuda.reset_peak_memory_stats()
     staged0 = (attn_bwd_dkdv.staged, attn_bwd_dq.staged)
-    zero_counts()
-    t0 = time.perf_counter()
-    res = launch_train.main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts()
+    res, out["train"] = _train_full_width(
+        dev, counts, TRAIN_ARCH, TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH,
+        {"flash_attention": 2 * cfg.n_layers,         # remat="full"
+         **{k: cfg.n_layers for k in BWD_KERNELS}})
     staged = {"attn_bwd_dkdv": attn_bwd_dkdv.staged - staged0[0],
               "attn_bwd_dq": attn_bwd_dq.staged - staged0[1]}
-    peak = torch.cuda.max_memory_allocated()
-    log = res["runner"].metrics_log
-    if len(log) != TRAIN_STEPS:
-        _fail(f"training ran {len(log)} steps, not {TRAIN_STEPS}")
-    for r in log:
-        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
-            _fail(f"training step {r['step']}: loss {r['loss']}, grad norm "
-                  f"{r['grad_norm']}")
-    per_step = {"flash_attention": 2 * cfg.n_layers,   # remat="full"
-                **{k: cfg.n_layers for k in BWD_KERNELS}}
-    for name, n in per_step.items():
-        if launches[name] != n * TRAIN_STEPS:
-            _fail(f"training launched {name} {launches[name]} times, not "
-                  f"{n} a step x {TRAIN_STEPS}")
-    if launches["bna_decompose"] < 1 or launches["merge_fix"] < 1:
-        _fail(f"the bucket plan did not run on the card's pipeline: "
-              f"{launches}")
     # bf16 operands, as the step hands them (transpose(1, 2) views), go to
     # the wgmma kernels by TMA as they lie: no staged copy
-    if cfg.compute_dtype != "bfloat16" or any(staged.values()):
+    if any(staged.values()):
         _fail(f"the training step's backward did not read its operands "
-              f"by TMA as they lie: compute {cfg.compute_dtype}, staged "
-              f"copies {staged}")
-    walls = [r["time_s"] for r in log]
-    step_s = statistics.median(walls[1:])
-    outcome = res["outcome"]
-    out["train"] = {
-        "arch": cfg.name, "params": sum(x.numel() for x in
-                                        tree_leaves(res["state"].params)),
-        "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
-        "steps": TRAIN_STEPS, "remat": cfg.remat, "loss_chunk":
-        cfg.loss_chunk, "step_s": walls, "step_s_median_2_4": step_s,
-        "first_step_s": walls[0],
-        "tokens_per_s": TRAIN_SEQ * TRAIN_BATCH / step_s,
-        "loss": [r["loss"] for r in log],
-        "grad_norm": [r["grad_norm"] for r in log],
-        "max_memory_allocated": peak, "wall_s": wall,
-        "launches": launches, "staged_copies": staged,
-        "launches_per_step": {k: launches[k] / TRAIN_STEPS
-                              for k in per_step},
-        "planned_buckets": len(outcome.order),
-        "bucket_order": outcome.order,
-        "bucket_makespan_gain_pct": res["summary"][
-            "bucket_makespan_gain_pct"],
-        "plan_s": res["plan_s"], "summary": res["summary"]}
+              f"by TMA as they lie: staged copies {staged}")
+    out["train"]["staged_copies"] = staged
+    out["train"]["summary"] = res["summary"]
+    walls, step_s = out["train"]["step_s"], out["train"]["step_s_median_2_4"]
+    peak, outcome = out["train"]["max_memory_allocated"], res["outcome"]
     print(f"16(a) {cfg.name} trained at full width "
           f"({out['train']['params']} parameters, bf16, remat "
           f"{cfg.remat}) through repro_torch.launch.train, {TRAIN_STEPS} "
@@ -2048,6 +2124,14 @@ def _training(dev, counts) -> dict:
                       f"bits")
             del runs
         tm.update(attn_bwd_bound(B, Hq, Hkv, S, S, d, True))
+        # the forward with lse: two products (S and P V) over the kept
+        # pairs, or q, k, v and the output once and lse written
+        fwd_ops = 2 * 2 * B * Hq * (S * (S + 1) // 2) * d
+        fwd_bytes = 2 * d * B * (2 * Hq * S + 2 * Hkv * S) + 4 * B * Hq * S
+        fwd = {"operations": fwd_ops / BF16_FLOPS * 1e3,
+               "bytes": fwd_bytes / HBM_BYTES_PER_S * 1e3}
+        tm["fwd_lse_bound_by"] = max(fwd, key=fwd.get)
+        tm["fwd_lse_bound_ms"] = fwd[tm["fwd_lse_bound_by"]]
         tm["bounds"] = {
             "attn_bwd_prep": {"bound_ms": 2 * 2 * B * Hq * S * d
                               / HBM_BYTES_PER_S * 1e3 + 4 * B * Hq * S
@@ -2075,7 +2159,9 @@ def _training(dev, counts) -> dict:
         print(f"16(b) K4's backward at {tm['shape']} (bf16, causal): {kern}; "
               f"whole {tm['bwd_ms']:.4f} ms ({tm['tflops']:.1f} TFLOP/s) "
               f"against its bound {tm['bound_ms']:.4f} ms, SDPA's backward "
-              f"{tm['library_ms']:.4f} ms (x{tm['vs_library']:.2f})"
+              f"{tm['library_ms']:.4f} ms (x{tm['vs_library']:.2f}); the "
+              f"forward with lse {tm['fwd_lse_ms']:.4f} ms against its bound "
+              f"{tm['fwd_lse_bound_ms']:.4f} ms by {tm['fwd_lse_bound_by']}"
               + (f", the plain version {tm['plain_ms']:.2f} ms, two runs "
                  f"the same bits: {tm['same_bits']}" if plain else ""))
         return tm
@@ -2147,21 +2233,6 @@ def _training(dev, counts) -> dict:
         grads_cmp[arch] = {"loss_rel": abs(float(lc) - float(lw))
                            / abs(float(lw)), "worst_leaf_rel": worst}
     out["smoke_grads"] = grads_cmp
-    refused = {}
-    for arch in TRAIN_RAISES:
-        scfg = get_config(arch).smoke()
-        pdev = init_params(scfg, torch.Generator(device=dev).manual_seed(0))
-        b = SyntheticTokens(scfg, DataConfig(24, 2), device=dev).batch_at(0)
-        try:
-            _value_and_grad(loss_for(scfg), pdev, b)
-        except RuntimeError as e:
-            if "no backward kernel" not in str(e):
-                raise
-            refused[arch] = str(e)
-        else:
-            _fail(f"{arch}: a gradient through ssd_scan on the card did not "
-                  f"raise")
-    out["ssm_refused"] = refused
 
     class Boom(Exception):
         pass
@@ -2170,40 +2241,267 @@ def _training(dev, counts) -> dict:
         if s == 7:
             raise Boom()
 
-    rcfg = get_config(RESUME_ARCH).smoke()
-    root = ROOT / "build" / "chip_smoke_resume"
-    shutil.rmtree(root, ignore_errors=True)
+    out["crash_resume"] = {}
+    for arch in RESUME_ARCHS:
+        rcfg = get_config(arch).smoke()
+        root = ROOT / "build" / "chip_smoke_resume"
+        shutil.rmtree(root, ignore_errors=True)
 
-    def runner(d, hook=None):
-        return TrainRunner(rcfg, OptConfig(lr=1e-3, warmup_steps=2,
-                                           total_steps=50),
-                           DataConfig(seq_len=32, global_batch=4, seed=0),
-                           FTConfig(ckpt_dir=str(root / d), ckpt_every=3),
-                           fault_hook=hook, device=dev)
+        def runner(d, hook=None):
+            return TrainRunner(rcfg, OptConfig(lr=1e-3, warmup_steps=2,
+                                               total_steps=50),
+                               DataConfig(seq_len=32, global_batch=4,
+                                          seed=0),
+                               FTConfig(ckpt_dir=str(root / d),
+                                        ckpt_every=3),
+                               fault_hook=hook, device=dev)
 
-    try:
-        runner("a", crash_at_7).run(12)
-        _fail("the fault hook did not crash the run")
-    except Boom:
-        pass
-    r2 = runner("a")
-    resumed = r2.run(12)
-    clean = runner("b").run(12)
-    equal = all(torch.equal(a, b) for a, b in zip(
-        tree_leaves(resumed.params), tree_leaves(clean.params)))
-    if r2.metrics_log[0]["step"] != 6 or not equal:
-        _fail(f"crash/resume on the card: resumed from step "
-              f"{r2.metrics_log[0]['step']}, bit-equal {equal}")
-    shutil.rmtree(root, ignore_errors=True)
-    out["crash_resume"] = {"arch": rcfg.name, "resumed_from": 6,
-                           "steps": 12, "bit_equal": equal}
+        try:
+            runner("a", crash_at_7).run(12)
+            _fail("the fault hook did not crash the run")
+        except Boom:
+            pass
+        r2 = runner("a")
+        resumed = r2.run(12)
+        clean = runner("b").run(12)
+        equal = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(resumed.params), tree_leaves(clean.params)))
+        if r2.metrics_log[0]["step"] != 6 or not equal:
+            _fail(f"crash/resume of {arch} on the card: resumed from step "
+                  f"{r2.metrics_log[0]['step']}, bit-equal {equal}")
+        shutil.rmtree(root, ignore_errors=True)
+        out["crash_resume"][rcfg.name] = {"resumed_from": 6, "steps": 12,
+                                          "bit_equal": equal}
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"16(c) card vs CPU: {ccfg.name} cut to {n_per} periods (float32, "
           f"B={Bc}, S={Sc}), one step: {json.dumps(out['card_vs_cpu_step'])}"
-          f"; smoke gradients per leaf {json.dumps(grads_cmp)}; "
-          f"{', '.join(TRAIN_RAISES)} refused on the card (K5 has no "
-          f"backward); crash at 7 / resume at 6 / run to 12 bit-equal on "
-          f"the card ({rcfg.name}).  Phase 16 took {out['wall_s']:.1f} s")
+          f"; smoke gradients per leaf {json.dumps(grads_cmp)}; crash at "
+          f"7 / resume at 6 / run to 12 bit-equal on the card "
+          f"({', '.join(out['crash_resume'])}).  16(a)-(c) took "
+          f"{out['wall_s']:.1f} s")
+    return out
+
+
+def ssd_bwd_bounds(B, S, H, G, N, P, L, nbytes=2) -> dict:
+    """The least time of each of K5's backward wrappers at (B, S, H, G, N,
+    P, L): its inputs read and outputs written once over the memory rate,
+    or its operations over the inputs' peak (bf16's for 2-byte inputs,
+    float32's outside the tensor cores for 4).  ssd_bwd_state: c, dy, loga
+    and the chunks' decay in, G (B, nC, H, N, P) float32 out; 2 L N P
+    operations a chunk and head, and the pass.  ssd_bwd_chunk: x, dy, b, c,
+    a, loga and the float32 states and G in, dx, da, db and dc out; per
+    chunk and head C B^T and dY X^T over the L (L + 1) / 2 pairs i >= j,
+    their products with dY, C and B, and three inter-chunk products of
+    L N P."""
+    nC = -(-S // L)
+    peak = BF16_FLOPS if nbytes == 2 else F32_FLOPS
+    pairs = L * (L + 1) // 2
+    blocks = B * nC * H
+    work = {
+        "ssd_bwd_state": (
+            nbytes * B * S * (G * N + H * P) + 4 * B * S * H
+            + 4 * B * nC * H + 4 * blocks * N * P,
+            2 * blocks * N * P * (L + 1)),
+        "ssd_bwd_chunk": (
+            2 * nbytes * B * S * (H * P + G * N) + 2 * 4 * B * S * H
+            + 2 * 4 * blocks * N * P + nbytes * B * S * H * P
+            + 4 * B * S * H + 2 * nbytes * B * S * G * N,
+            blocks * (2 * pairs * (3 * N + 2 * P) + 6 * L * N * P)
+            + 2 * B * S * H * N)}
+    out = {}
+    for name, (moved, ops) in work.items():
+        bound = {"bytes": moved / HBM_BYTES_PER_S * 1e3,
+                 "operations": ops / peak * 1e3}
+        by = max(bound, key=bound.get)
+        out[name] = {"bound_ms": bound[by], "bound_by": by, "flops": ops,
+                     "bytes": moved}
+    return out
+
+
+def _ssm_training(dev, counts) -> dict:
+    """Phase 16(d)-(e): mamba2-2.7b at full width through
+    ``repro_torch.launch.train``'s ``main`` (the counts set to 0 just
+    before and read just after), then K5's backward wrappers against their
+    plain versions on SSD_BWD_SHAPES and timed at the training shape.
+    ``counts`` = (zero_counts, read_counts).  Returns the record."""
+    import gc
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import (ssd_bwd_chunk, ssd_bwd_state,
+                                              ssd_scan)
+    from repro_torch.kernels.ssd_scan.ops import _forward as ssd_forward
+    from repro_torch.kernels.ssd_scan.ref import (pad_chunks,
+                                                  ssd_bwd_chunk_ref,
+                                                  ssd_bwd_ref,
+                                                  ssd_bwd_state_ref)
+
+    outputs = {"ssd_bwd_state": ("G",), "ssd_bwd_chunk": SSD_GRADS,
+               "whole": SSD_GRADS}
+    out: dict = {"max_abs_err": {k: 0.0 for k in outputs},
+                 "max_rel_err": {k: dict.fromkeys(v, 0.0)
+                                 for k, v in outputs.items()},
+                 "checked": {k: 0 for k in outputs}}
+    t_phase = time.perf_counter()
+
+    def free() -> None:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # (d) mamba2-2.7b trained at full width through the launcher ----------
+    cfg = get_config(SSM_ARCH)
+    res, out["train"] = _train_full_width(
+        dev, counts, SSM_ARCH, SSM_TRAIN_STEPS, SSM_TRAIN_SEQ,
+        SSM_TRAIN_BATCH, {"ssd_scan": 2 * cfg.n_layers,   # remat="full"
+                          **{k: cfg.n_layers for k in SSD_BWD}})
+    del res
+    free()
+    walls, step_s = out["train"]["step_s"], out["train"]["step_s_median_2_4"]
+    peak = out["train"]["max_memory_allocated"]
+    tr = out["train"]
+    print(f"16(d) {cfg.name} trained at full width ({tr['params']} "
+          f"parameters, bf16, remat {cfg.remat}) through "
+          f"repro_torch.launch.train, {SSM_TRAIN_STEPS} steps of "
+          f"{SSM_TRAIN_BATCH} x {SSM_TRAIN_SEQ} tokens: step s "
+          f"{[round(w, 4) for w in walls]} (median of 2-{SSM_TRAIN_STEPS} "
+          f"{step_s:.4f}, {tr['tokens_per_s']:.0f} tokens/s), loss "
+          f"{[round(x, 4) for x in tr['loss']]}, grad norm "
+          f"{[round(x, 4) for x in tr['grad_norm']]}, peak "
+          f"{peak / 2**30:.2f} GiB; buckets planned in {tr['plan_s']:.3f} s, "
+          f"makespan gain {tr['bucket_makespan_gain_pct']}%; launches a step "
+          f"{tr['launches_per_step']}")
+
+    # (e) K5's backward against its plain versions ------------------------
+    def inputs(shape, dtype, seed):
+        """x, a, b, c, dy as the model hands them: b and c strided views of
+        one (B, S, 2, G, N) tensor; a in (0.55, 1) float32."""
+        B, S, H, G, N, P, _ = shape
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn((B, S, H, P), generator=g, device=dev).to(dtype)
+        a = torch.rand((B, S, H), generator=g, device=dev) * 0.45 + 0.55
+        bc = (torch.randn((B, S, 2, G, N), generator=g, device=dev)
+              * 0.3).to(dtype)
+        dy = torch.randn((B, S, H, P), generator=g, device=dev).to(dtype)
+        return x, a, bc[:, :, 0], bc[:, :, 1], dy
+
+    def note(name, got, want, what, dtype):
+        """Each output against its own largest |value| and against the
+        largest over the outputs (SSD_BWD_TOL): db and dc sum the group's
+        heads (80 at mamba2) and dwarf dx, so the second alone would not
+        hold dx."""
+        own_tol, all_tol = SSD_BWD_TOL[str(dtype).split(".")[-1]]
+        top = max(float(w.float().abs().max()) for w in want) or 1.0
+        out["checked"][name] += 1
+        for key, g, w in zip(outputs[name], got, want):
+            scale = float(w.float().abs().max()) or 1.0
+            err = float((g.float() - w.float()).abs().max())
+            out["max_abs_err"][name] = max(out["max_abs_err"][name], err)
+            rel = out["max_rel_err"][name]
+            rel[key] = max(rel[key], err / scale)
+            if not (err <= own_tol * scale and err <= all_tol * top):
+                _fail(f"{name}'s {key} != plain version on {what} (max "
+                      f"|diff| {err} > {own_tol} x {scale} or {all_tol} x "
+                      f"{top})")
+
+    def check(shape, dtype):
+        B, S, H, G, N, P, L = shape
+        x, a, b, c, dy = inputs(shape, dtype, sum(shape))
+        what = f"shape {shape} {str(dtype).split('.')[-1]}"
+        with torch.no_grad():
+            loga, states, decay = ssd_forward(x, a, b, c, L, True)[1]
+        xp, ap, bp, cp, dyp = pad_chunks(min(L, S), x, a, b, c, dy)
+        Lc = min(L, S)
+        grads = ssd_bwd_state(cp, dyp, loga, decay, chunk=Lc)
+        note("ssd_bwd_state", [grads],
+             [ssd_bwd_state_ref(cp, dyp, loga, decay, Lc)], what, dtype)
+        af = ap.float().contiguous()
+        got = ssd_bwd_chunk(xp, af, loga, bp, cp, dyp, states, grads,
+                            chunk=Lc)
+        note("ssd_bwd_chunk", got, ssd_bwd_chunk_ref(
+            xp, af, loga, bp, cp, dyp, states, grads, Lc), what, dtype)
+        leaves = [t.detach().clone().requires_grad_() for t in (x, a, b, c)]
+        ssd_scan(*leaves, chunk=L).backward(dy)
+        note("whole", [t.grad for t in leaves],
+             ssd_bwd_ref(x, a, b, c, dy, chunk=L), what, dtype)
+
+    n_grid = 0
+    for shape in SSD_BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            check(shape, dtype)
+            n_grid += 1
+    free()
+    print(f"16(e) K5's backward within tolerance of its plain versions on "
+          f"{n_grid} cases ({len(SSD_BWD_SHAPES)} shapes x f32/bf16; each "
+          f"wrapper and the whole): max |diff| {out['max_abs_err']}, "
+          f"relative to each output's largest |value| "
+          f"{out['max_rel_err']}")
+
+    # each wrapper at the training shape; two runs give the same bits
+    s_ssm = cfg.ssm
+    H5 = s_ssm.expand * cfg.d_model // s_ssm.d_head
+    L5 = s_ssm.chunk
+    shape = (SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, H5, s_ssm.n_groups,
+             s_ssm.d_state, s_ssm.d_head, L5)
+    B, S, H, G, N, P, L = shape
+    x, a, b, c, dy = inputs(shape, torch.bfloat16, 5)
+    with torch.no_grad():
+        loga, states, decay = ssd_forward(x, a, b, c, L, True)[1]
+    af = a.contiguous()
+    grads = ssd_bwd_state(c, dy, loga, decay, chunk=L)
+    tm = {"shape": list(shape), "dtype": "bfloat16",
+          "ssd_bwd_state": _cuda_ms(lambda: ssd_bwd_state(
+              c, dy, loga, decay, chunk=L), reps=5, rounds=3),
+          "ssd_bwd_chunk": _cuda_ms(lambda: ssd_bwd_chunk(
+              x, af, loga, b, c, dy, states, grads, chunk=L), reps=3,
+              rounds=3),
+          "forward_kept_ms": _cuda_ms(lambda: ssd_forward(
+              x, a, b, c, L, True), reps=5, rounds=3),
+          "plain": {
+              "ssd_bwd_state": _cuda_ms(lambda: ssd_bwd_state_ref(
+                  c, dy, loga, decay, L), reps=1, rounds=2),
+              "ssd_bwd_chunk": _cuda_ms(lambda: ssd_bwd_chunk_ref(
+                  x, af, loga, b, c, dy, states, grads, L), reps=1,
+                  rounds=2)}}
+    runs = [(ssd_bwd_state(c, dy, loga, decay, chunk=L),
+             *ssd_bwd_chunk(x, af, loga, b, c, dy, states, grads, chunk=L))
+            for _ in range(2)]
+    tm["same_bits"] = all(torch.equal(u, v) for u, v in zip(*runs))
+    if not tm["same_bits"]:
+        _fail(f"two runs of K5's backward at {shape} gave different bits")
+    del runs
+    tm["bounds"] = ssd_bwd_bounds(B, S, H, G, N, P, L)
+    tm["share_of_bound"] = {k: tm["bounds"][k]["bound_ms"] / tm[k]
+                            for k in SSD_BWD}
+    tm["tflops"] = {k: tm["bounds"][k]["flops"] / tm[k] / 1e9
+                    for k in SSD_BWD}
+    tm["bwd_ms"] = sum(tm[k] for k in SSD_BWD)
+    lib = kernels.load_kernel("ssd_scan")
+    tm["attributes"] = {
+        "ssd_bwd_state": {"chunk_state_grads": _attributes(
+            lib.ssd_bwd_attributes, 1, 1, P), "reverse_pass": _attributes(
+            lib.ssd_bwd_attributes, 1, 2, P)},
+        "ssd_bwd_chunk": {"chunk_grads": _attributes(
+            lib.ssd_bwd_attributes, 1, 3, P), "group_sum": _attributes(
+            lib.ssd_bwd_attributes, 1, 4, P)}}
+    del x, a, b, c, dy, loga, states, decay, af, grads
+    free()
+    out["timing"] = tm
+    out["wall_s"] = time.perf_counter() - t_phase
+    for k in SSD_BWD:
+        print(f"16(e) {k} at {shape} (bf16): {tm[k]:.4f} ms (bound "
+              f"{tm['bounds'][k]['bound_ms']:.4f} ms by "
+              f"{tm['bounds'][k]['bound_by']}, "
+              f"{100 * tm['share_of_bound'][k]:.1f}% of it; "
+              f"{tm['tflops'][k]:.2f} TFLOP/s), the plain version "
+              f"{tm['plain'][k]:.2f} ms; kernels "
+              f"{json.dumps(tm['attributes'][k])}")
+    print(f"16(e) K5's backward at the training shape: {tm['bwd_ms']:.4f} "
+          f"ms a layer, {cfg.n_layers} a step: "
+          f"{tm['bwd_ms'] * cfg.n_layers / 1e3:.4f} s; two runs the same "
+          f"bits: {tm['same_bits']}.  16(d)-(e) took {out['wall_s']:.1f} s")
     return out
 
 
@@ -2240,7 +2538,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.ssd_scan import CUDA_LAUNCHES as \
         SSD_CUDA_LAUNCHES
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan import BWD_CUDA_LAUNCHES
+    from repro_torch.kernels.ssd_scan import (ssd_bwd_chunk, ssd_bwd_state,
+                                              ssd_scan)
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2250,7 +2550,9 @@ def main() -> int:
                 "bna_decompose": bna_decompose, "merge_fix": merge_fix,
                 "flash_attention": flash_attention, "ssd_scan": ssd_scan,
                 "attn_bwd_prep": attn_bwd_prep,
-                "attn_bwd_dkdv": attn_bwd_dkdv, "attn_bwd_dq": attn_bwd_dq}
+                "attn_bwd_dkdv": attn_bwd_dkdv, "attn_bwd_dq": attn_bwd_dq,
+                "ssd_bwd_state": ssd_bwd_state,
+                "ssd_bwd_chunk": ssd_bwd_chunk}
     record: dict = {"device": torch.cuda.get_device_name(0),
                     "host": _host_cpu()}
     t_start = time.perf_counter()
@@ -4335,9 +4637,59 @@ def main() -> int:
                                       "registers)"
                        }[name],
             **tm["attributes"][name]})
+
+    # 16(d)-(e). mamba2-2.7b trained at full width, K5's backward ----------
+    record["ssm_training"] = st = _ssm_training(dev, (zero_counts,
+                                                      read_counts))
+    k5_row = next(k for k in kernels_line if k["name"] == "ssd_scan")
+    # this slice's path is mamba2's training: K5's launches are that run's
+    k5_row["launches_by_path"] = {"lm_forward": k5_row["launches"],
+                                  f"train {SSM_ARCH}": st["train"][
+                                      "launches"]["ssd_scan"]}
+    k5_row["launches"] = st["train"]["launches"]["ssd_scan"]
+    k5_row["launches_per_train_step"] = \
+        st["train"]["launches_per_step"]["ssd_scan"]
+    stm = st["timing"]
+    for name in SSD_BWD:
+        kernels_line.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/ssd_scan/csrc/"
+                      "ssd_scan_bwd.cu",
+            "library": "ssd_scan",
+            # the reference's gradient: jax.grad of its plain chunked scan
+            "replaces": "jax.grad of _ssd_chunked_jnp, "
+                        "src/repro/models/ssm.py:110",
+            "launches": st["train"]["launches"][name],
+            "launches_per_step": st["train"]["launches_per_step"][name],
+            "max_abs_err": st["max_abs_err"][name],
+            "max_rel_err": st["max_rel_err"][name],
+            "ms": stm[name], "plain_ms": stm["plain"][name],
+            "bound_ms": stm["bounds"][name]["bound_ms"],
+            "bound_by": stm["bounds"][name]["bound_by"],
+            # no PyTorch call computes the SSD scan's gradient
+            "library_ms": None,
+            "checked_calls": st["checked"][name], "shape": stm["shape"],
+            "dtype": "bfloat16", "share_of_bound": stm["share_of_bound"][name],
+            "tflops": stm["tflops"][name],
+            "cuda_launches_per_call": BWD_CUDA_LAUNCHES[name],
+            "same_bits": stm["same_bits"],
+            "design": {"ssd_bwd_state": "one block a (chunk, head, batch): "
+                                        "U_c = sum_i e^cum_i c_i dy_i^T by "
+                                        "float32 FMAs; then one thread an "
+                                        "element of a (batch, head)'s state, "
+                                        "serial over the chunks in reverse",
+                       "ssd_bwd_chunk": "one block a (chunk, head, batch): "
+                                        "C B^T and dY X^T in shared memory, "
+                                        "dx, db, dc as float32 FMA products "
+                                        "with their decayed lower triangles, "
+                                        "dla by a serial scan; then db and "
+                                        "dc summed over each group's heads "
+                                        "in order; no atomics"}[name],
+            "kernels": stm["attributes"][name]})
     whole_keys = ("bwd_ms", "bound_ms", "bound_by", "library_ms",
                   "library_fwd_ms", "library_fwd_bwd_ms", "tflops",
-                  "vs_library", "fwd_lse_ms", "shape")
+                  "vs_library", "fwd_lse_ms", "fwd_lse_bound_ms",
+                  "fwd_lse_bound_by", "shape")
     record["attn_bwd_whole"] = {
         **{k: tm[k] for k in whole_keys}, "plain_ms": tm["plain_ms"],
         "same_bits": tm["same_bits"],
@@ -4394,6 +4746,12 @@ def main() -> int:
                                      "bucket_makespan_gain_pct", "plan_s")}))
     print("K4 backward (whole) at the training shape: "
           + json.dumps(record["attn_bwd_whole"]))
+    print("mamba2 training (full width): " + json.dumps(
+        {k: st["train"][k] for k in ("arch", "global_batch", "seq_len",
+                                     "step_s_median_2_4", "tokens_per_s",
+                                     "max_memory_allocated", "loss",
+                                     "grad_norm", "launches_per_step",
+                                     "bucket_makespan_gain_pct", "plan_s")}))
     print(f"total {record['total_s']:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels_line}))

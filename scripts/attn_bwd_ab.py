@@ -74,21 +74,23 @@ def time_root(root: Path) -> dict:
     return out
 
 
-def main() -> int:
-    if sys.argv[1:2] == ["--time"]:
-        print(json.dumps(time_root(Path(sys.argv[2]).resolve())))
-        return 0
+def run_turns(script: str, doc: str) -> int:
+    """The A/B harness of a timing script whose ``--time ROOT`` prints one
+    turn's JSON: parse ``A_ROOT [B_ROOT]`` from the command line, run the
+    turns A, B, B, A in fresh processes, print each turn and, per key, the
+    median of each root's turns and their ratio, beside the card's name and
+    power limit."""
     import torch
 
     if not torch.cuda.is_available() or len(sys.argv) < 2:
-        print(__doc__, file=sys.stderr)
+        print(doc, file=sys.stderr)
         return 2
     roots = {"A": Path(sys.argv[1]).resolve(),
              "B": Path(sys.argv[2] if len(sys.argv) > 2
                        else Path(__file__).resolve().parents[1]).resolve()}
     turns = []
     for name in ("A", "B", "B", "A"):
-        r = subprocess.run([sys.executable, __file__, "--time",
+        r = subprocess.run([sys.executable, script, "--time",
                             str(roots[name])], capture_output=True,
                            text=True, timeout=900)
         if r.returncode != 0:
@@ -109,6 +111,13 @@ def main() -> int:
     print(smi)
     print(json.dumps(summary))
     return 0
+
+
+def main() -> int:
+    if sys.argv[1:2] == ["--time"]:
+        print(json.dumps(time_root(Path(sys.argv[2]).resolve())))
+        return 0
+    return run_turns(__file__, __doc__)
 
 
 if __name__ == "__main__":

@@ -28,7 +28,11 @@ Kernels (what each one replaces is named in its source note):
                   chunk-parallel in three launches (chunk states, the state
                   pass over the chunks, chunk outputs): bfloat16 on the
                   tensor cores (bf16 and TF32 mma.sync), float32 as float32
-                  FMAs
+                  FMAs; and its backward (``ssd_scan/csrc/ssd_scan_bwd.cu``,
+                  a second source of the ``ssd_scan`` library: the chunk
+                  state gradients and their reverse pass, then dx, da and
+                  the per-head db, dc a chunk, summed over each state
+                  group; no atomics), float32 FMAs for both types
 Headers shared between kernels (``*/csrc/*.cuh``) are included by path:
 ``flash_attention/csrc/tensor_core.cuh`` holds the mma.sync, ldmatrix and
 cp.async primitives of K4 and K5, ``flash_attention/csrc/hopper.cuh`` the
@@ -41,11 +45,13 @@ Dispatch is by device, never by a knob: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises.  Nothing here falls
 back.
 
-Build: at first use, ``nvcc -gencode arch=compute_90a,code=sm_90a -shared``
-compiles each source into ``build/repro_torch_kernels/`` at the root of the
-checkout (listed in ``.gitignore``); the library is loaded with ``ctypes``.
-The file name carries a hash of the source and of every shared header, so
-an edited kernel or header rebuilds.
+Build: at first use, ``nvcc -gencode arch=compute_90a,code=sm_90a``
+compiles each kernel's sources (every ``<name>/csrc/*.cu``, each source in
+its own process, all at once) and links them into one library a kernel
+under ``build/repro_torch_kernels/`` at the root of the checkout (listed in
+``.gitignore``); the library is loaded with ``ctypes``.  The
+file name carries a hash of the sources and of every shared header, so an
+edited kernel or header rebuilds.
 No PyTorch header is compiled, which keeps a build to seconds.
 """
 from __future__ import annotations
@@ -63,8 +69,9 @@ __all__ = ["BUILD_DIR", "resolve_device", "build_kernels", "load_kernel"]
 
 _KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -85,12 +92,14 @@ def resolve_device(device: "str | torch.device") -> torch.device:
     return dev
 
 
-def _source(name: str) -> Path:
-    return _KERNELS_DIR / name / "csrc" / f"{name}.cu"
+def _sources(name: str) -> list[Path]:
+    return sorted((_KERNELS_DIR / name / "csrc").glob("*.cu"))
 
 
 def _library_path(name: str) -> Path:
-    h = hashlib.sha256(_source(name).read_bytes())
+    h = hashlib.sha256()
+    for source in _sources(name):
+        h.update(source.read_bytes())
     for header in sorted(_KERNELS_DIR.glob("*/csrc/*.cuh")):
         h.update(header.read_bytes())
     digest = h.hexdigest()[:16]
@@ -111,30 +120,43 @@ def _nvcc() -> str:
 
 
 def build_kernels(names: "list[str]") -> dict[str, str]:
-    """Compile every named kernel that is not built yet, one ``nvcc`` per
-    source, all started together.  Returns name -> the compiler's
-    ``-Xptxas -v`` report (registers, shared memory, spills); an empty
-    string for a library that was already built.  Raises on any failure."""
+    """Compile every named kernel that is not built yet: one ``nvcc -c`` per
+    source, all started together, then one ``nvcc -shared`` a library to
+    link its objects.  Returns name -> the compiler's ``-Xptxas -v`` report
+    (registers, shared memory, spills); an empty string for a library that
+    was already built.  Raises on any failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    pid = os.getpid()
+    jobs = {}
     for name in names:
         out = _library_path(name)
         if out.exists():
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_source(name))]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        objs = [out.with_suffix(f".{i}.{pid}.o")
+                for i in range(len(_sources(name)))]
+        procs = [subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for obj, src in zip(objs, _sources(name))]
+        jobs[name] = (procs, objs, out)
     reports = {name: "" for name in names}
     failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        reports[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name} (exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)
+    for name, (procs, objs, out) in jobs.items():
+        reports[name] = "".join(proc.communicate()[0] for proc in procs)
+        rc = next((proc.returncode for proc in procs if proc.returncode), 0)
+        if rc == 0:
+            tmp = out.with_suffix(f".{pid}.tmp")
+            link = subprocess.run(
+                [_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                 *map(str, objs)], capture_output=True, text=True)
+            reports[name] += link.stdout + link.stderr
+            rc = link.returncode
+            if rc == 0:
+                os.replace(tmp, out)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if rc != 0:
+            failed.append(f"{name} (exit {rc}):\n{reports[name]}")
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return reports

@@ -1,12 +1,11 @@
-"""Wrapper for the ssd_scan kernel (K5): checks, chunk padding, dispatch by
-device and the launch counter.
+"""Wrappers for the ssd_scan kernel (K5) and its backward: checks, chunk
+padding, dispatch by device, autograd and the launch counters.
 
 ``ssd_scan`` computes what ``repro/kernels/ssd_scan/ops.py::ssd_scan``
 computes, the Mamba2 SSD scan over x (B, S, H, P), the decay a (B, S, H)
 and the state-group inputs b, c (B, S, G, N).  A CPU tensor takes the plain
 version (``ref.ssd_ref``, the sequential recurrence); a CUDA tensor
-launches the kernels in ``csrc/ssd_scan.cu`` or raises (as it does when a
-gradient is wanted: K5 has no backward kernel yet).  Before the launch
+launches the kernels in ``csrc/ssd_scan.cu`` or raises.  Before the launch
 it does what the reference's wrapper does: L = min(chunk, S), x, b and c
 padded with zeros and a with 1 to a multiple of L (padded steps leave the
 state unchanged), loga = log(max(a, 1e-37)) in float32, the output sliced
@@ -23,22 +22,43 @@ current stream: chunk states, the state pass over the chunks, chunk
 outputs.  The wrapper allocates their float32 scratch with ``torch.empty``:
 the chunk states (B, S / L, H, N, P), 168 MB at mamba2-2.7b's B=2, S=4096,
 and each chunk's summed log decay (B, S / L, H).
-``ssd_scan.launches`` counts the wrapper's calls that launched the kernels.
+
+When a gradient is wanted (grad mode on and an input that requires it),
+``ssd_scan`` is a ``torch.autograd.Function`` whose backward is what
+``jax.vjp`` of the reference's ``_ssd_chunked_jnp`` computes (``ref.py``
+writes it out).  On a card the forward keeps its scratch, the state
+entering each chunk (335 MB at B=4, S=4096; under remat "full" only the
+layer being differentiated holds one), and the backward is the kernels of
+``csrc/ssd_scan_bwd.cu`` (built into the same library as the forward)
+behind two wrappers, which ``ssd_scan_bwd`` chains: ``ssd_bwd_state`` (the
+gradient of the state leaving each chunk: a chunk kernel, then a reverse
+pass) and ``ssd_bwd_chunk`` (dx, da and each head's db and dc a chunk, then
+db and dc summed over each state group's heads in a fixed order; float32
+partials (B, S, H, N), 671 MB each at mamba2's B=4).  The three take CUDA
+tensors only.  On the CPU the forward keeps nothing and the backward is
+``ref.ssd_bwd_ref``, the chunked backward in tensor ops.  Without a
+gradient no autograd node is made and nothing is kept.  No atomics: a
+gradient has the same bits on every run.
+
+``ssd_scan.launches`` counts the forward's calls that launched its kernels;
+``ssd_bwd_state.launches`` and ``ssd_bwd_chunk.launches`` the backward's
+(one each a backward on a card).
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from .. import load_kernel
-from .ref import ssd_ref
+from .ref import log_decay, pad_chunks, ssd_bwd_ref, ssd_ref
 
-__all__ = ["ssd_scan", "MAX_TILE", "CUDA_LAUNCHES"]
+__all__ = ["ssd_scan", "ssd_scan_bwd", "ssd_bwd_state", "ssd_bwd_chunk",
+           "MAX_TILE", "CUDA_LAUNCHES", "BWD_CUDA_LAUNCHES"]
 
 MAX_TILE = 128              # the kernels' largest chunk L, d_state N, d_head P
-CUDA_LAUNCHES = 3           # kernels a call launches
+CUDA_LAUNCHES = 3           # kernels a forward call launches
+BWD_CUDA_LAUNCHES = {"ssd_bwd_state": 2, "ssd_bwd_chunk": 2}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -61,19 +81,10 @@ def _check(x, a, b, c) -> None:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
-def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-             c: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
-    """Chunked SSD scan; (B, S, H, P) out, x's type."""
-    _check(x, a, b, c)
-    if x.device.type == "cpu":
-        return ssd_ref(x, a, b, c)
+def _check_cuda(x, a, b, c, chunk: int) -> int:
+    """The kernels' own limits; returns L."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cpu or cuda, not {x.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, a, b, c)):
-        raise RuntimeError(
-            "ssd_scan has no backward kernel yet: its CUDA path cannot give "
-            "a gradient (the plain CPU path can)")
     if x.dtype not in _DTYPES:
         raise TypeError(f"the ssd_scan kernel takes float32 or bfloat16, "
                         f"got {x.dtype}")
@@ -82,49 +93,221 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             raise TypeError(f"{name} is {t.dtype} but x is {x.dtype}")
     if not a.is_floating_point():
         raise TypeError(f"a must be floating point, got {a.dtype}")
-    B, S, H, P = x.shape
-    G, N = b.shape[2], b.shape[3]
-    if x.numel() == 0:
-        return torch.empty_like(x)
+    S = x.shape[1]
+    N, P = b.shape[3], x.shape[3]
     L = min(chunk, S)
-    if L < 1 or L > MAX_TILE or N > MAX_TILE or P > MAX_TILE:
+    if x.numel() and (L < 1 or L > MAX_TILE or N > MAX_TILE
+                      or P > MAX_TILE):
         raise ValueError(
             f"the ssd_scan kernel takes chunk, d_state and d_head in "
             f"1..{MAX_TILE}, got L={L}, N={N}, P={P}")
-    pad = (-S) % L
-    if pad:
-        # padded steps use decay 1 (log 0) and zero inputs: state unchanged
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        a = F.pad(a, (0, 0, 0, pad), value=1.0)
-        b = F.pad(b, (0, 0, 0, 0, 0, pad))
-        c = F.pad(c, (0, 0, 0, 0, 0, pad))
-    for name, t in (("x", x), ("b", b), ("c", c)):
+    return L
+
+
+def _contiguous_last(**tensors) -> None:
+    for name, t in tensors.items():
         if t.stride(3) != 1:
             raise ValueError(f"{name}'s last dim must be contiguous "
                              f"(stride {t.stride(3)})")
-    Sp = S + pad
-    loga = torch.log(torch.clamp(a.float(), min=1e-37)).contiguous()
+
+
+def _strides(*tensors) -> list[int]:
+    return [t.stride(i) for t in tensors for i in range(3)]
+
+
+def _cuda_only(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} launches CUDA kernels, got a tensor on "
+                         f"{t.device}; ssd_scan's backward takes "
+                         f"ref.ssd_bwd_ref on the CPU")
+
+
+def _launch(fn, name: str, device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _forward(x, a, b, c, chunk: int, keep: bool):
+    """(y, kept): kept is (loga, states, decay) on a card when `keep`, the
+    forward's log decay and scratch (states: the state entering each chunk,
+    (B, nC, H, N, P) float32; decay: each chunk's summed log decay; three
+    Nones for an empty x), else ()."""
+    if x.device.type == "cpu":
+        return ssd_ref(x, a, b, c), ()
+    L = _check_cuda(x, a, b, c, chunk)
+    if x.numel() == 0:
+        return torch.empty_like(x), ((None,) * 3 if keep else ())
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    x, a, b, c = pad_chunks(L, x, a, b, c)
+    _contiguous_last(x=x, b=b, c=c)
+    Sp = x.shape[1]
+    loga = log_decay(a.float()).contiguous()
     y = torch.empty((B, Sp, H, P), dtype=x.dtype, device=x.device)
     nC = Sp // L
     states = torch.empty((B, nC, H, N, P), dtype=torch.float32,
                          device=x.device)
     decay = torch.empty((B, nC, H), dtype=torch.float32, device=x.device)
-    lib = load_kernel("ssd_scan")
-    fn = lib.ssd_scan_launch
+    fn = load_kernel("ssd_scan").ssd_scan_launch
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                    + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    strides = [t.stride(i) for t in (x, b, c) for i in range(3)]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), loga.data_ptr(), b.data_ptr(), c.data_ptr(),
-                 y.data_ptr(), states.data_ptr(), decay.data_ptr(),
-                 int(x.dtype == torch.bfloat16), B, Sp, H, G, P, N, L,
-                 *strides, stream)
-    if err != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
+    _launch(fn, "ssd_scan", x.device, x.data_ptr(), loga.data_ptr(),
+            b.data_ptr(), c.data_ptr(), y.data_ptr(), states.data_ptr(),
+            decay.data_ptr(), int(x.dtype == torch.bfloat16), B, Sp, H, G,
+            P, N, L, *_strides(x, b, c))
     ssd_scan.launches += 1
-    return y[:, :S]
+    return y[:, :S], ((loga, states, decay) if keep else ())
+
+
+class _SSDScan(torch.autograd.Function):
+    """The scan, and its gradient in x, a, b and c."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, c, chunk: int):
+        # the CPU's backward (ssd_bwd_ref) recomputes what it needs
+        y, kept = _forward(x, a, b, c, chunk, x.device.type == "cuda")
+        ctx.save_for_backward(x, a, b, c, *kept)
+        ctx.chunk = chunk
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        x, a, b, c, *kept = ctx.saved_tensors
+        if x.device.type == "cpu":
+            return (*ssd_bwd_ref(x, a, b, c, dy, chunk=ctx.chunk), None)
+        return (*ssd_scan_bwd(x, a, b, c, dy, *kept, chunk=ctx.chunk), None)
+
+
+def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
+    """Chunked SSD scan; (B, S, H, P) out, x's type.  Differentiable in x,
+    a, b and c."""
+    _check(x, a, b, c)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, a, b, c)):
+        return _SSDScan.apply(x, a, b, c, int(chunk))
+    return _forward(x, a, b, c, int(chunk), False)[0]
 
 
 ssd_scan.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+def ssd_bwd_state(c: torch.Tensor, dy: torch.Tensor, loga: torch.Tensor,
+                  decay: torch.Tensor, *, chunk: int) -> torch.Tensor:
+    """G_c (B, nC, H, N, P) float32, the gradient of the state leaving each
+    chunk, from c (B, S, G, N), dy (B, S, H, P), loga (B, S, H) and the
+    forward's decay (B, nC, H), S a multiple of `chunk`: two kernels, CUDA
+    tensors only (dy and c of one type; c through its strides, the rest
+    dense).  Its plain version is ``ref.ssd_bwd_state_ref``."""
+    _cuda_only("ssd_bwd_state", c)
+    B, S, H, P = dy.shape
+    G, N = c.shape[2], c.shape[3]
+    if not (dy.is_contiguous() and loga.is_contiguous()
+            and decay.is_contiguous()):
+        raise ValueError("ssd_bwd_state takes dense dy, loga and decay")
+    if c.dtype != dy.dtype or c.dtype not in _DTYPES \
+            or loga.dtype != torch.float32:
+        raise TypeError(f"ssd_bwd_state takes c and dy of one type (float32 "
+                        f"or bfloat16) and float32 loga, got {c.dtype}, "
+                        f"{dy.dtype}, {loga.dtype}")
+    _contiguous_last(c=c)
+    grads = torch.empty((B, S // chunk, H, N, P), dtype=torch.float32,
+                        device=c.device)
+    if grads.numel() == 0:
+        return grads
+    fn = load_kernel("ssd_scan").ssd_bwd_state_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    _launch(fn, "ssd_bwd_state", c.device, c.data_ptr(), dy.data_ptr(),
+            loga.data_ptr(), decay.data_ptr(), grads.data_ptr(),
+            int(c.dtype == torch.bfloat16), B, S, H, G, P, N, chunk,
+            *_strides(c))
+    ssd_bwd_state.launches += 1
+    return grads
+
+
+ssd_bwd_state.launches = 0
+
+
+def ssd_bwd_chunk(x, a, loga, b, c, dy, states, grads, *, chunk: int):
+    """(dx, da, db, dc) from x (B, S, H, P), a and loga (B, S, H), b and c
+    (B, S, G, N), dy (B, S, H, P), the states entering the chunks and the
+    gradients leaving them ((B, nC, H, N, P) float32), S a multiple of
+    `chunk`: dx in x's type, da in loga's, db and dc in b's, summed over
+    each group's heads.  Two kernels, CUDA tensors only (x, b, c through
+    their strides; a float32; the rest dense).  Its plain version is
+    ``ref.ssd_bwd_chunk_ref``."""
+    _cuda_only("ssd_bwd_chunk", x)
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    if not all(t.is_contiguous() for t in (a, loga, dy, states, grads)):
+        raise ValueError("ssd_bwd_chunk takes dense a, loga, dy, states and "
+                         "grads")
+    if a.dtype != torch.float32 or loga.dtype != torch.float32 \
+            or states.dtype != torch.float32 or grads.dtype != torch.float32:
+        raise TypeError("ssd_bwd_chunk takes float32 a, loga, states and "
+                        "grads")
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (b, c, dy)):
+        raise TypeError(f"ssd_bwd_chunk takes x, b, c and dy of one type "
+                        f"(float32 or bfloat16), got {x.dtype}, {b.dtype}, "
+                        f"{c.dtype}, {dy.dtype}")
+    _contiguous_last(x=x, b=b, c=c)
+    dev = x.device
+    dx = torch.empty((B, S, H, P), dtype=x.dtype, device=dev)
+    da = torch.empty((B, S, H), dtype=torch.float32, device=dev)
+    db = torch.empty((B, S, G, N), dtype=b.dtype, device=dev)
+    dc = torch.empty((B, S, G, N), dtype=b.dtype, device=dev)
+    if dx.numel() == 0 or db.numel() == 0:
+        return dx.zero_(), da.zero_(), db.zero_(), dc.zero_()
+    dbp = torch.empty((B, S, H, N), dtype=torch.float32, device=dev)
+    dcp = torch.empty_like(dbp)
+    fn = load_kernel("ssd_scan").ssd_bwd_chunk_launch
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    _launch(fn, "ssd_bwd_chunk", dev, x.data_ptr(), a.data_ptr(),
+            loga.data_ptr(), b.data_ptr(), c.data_ptr(), dy.data_ptr(),
+            states.data_ptr(), grads.data_ptr(), dx.data_ptr(),
+            da.data_ptr(), dbp.data_ptr(), dcp.data_ptr(), db.data_ptr(),
+            dc.data_ptr(), int(x.dtype == torch.bfloat16), B, S, H, G, P, N,
+            chunk, *_strides(x, b, c))
+    ssd_bwd_chunk.launches += 1
+    return dx, da, db, dc
+
+
+ssd_bwd_chunk.launches = 0
+
+
+def ssd_scan_bwd(x, a, b, c, dy, loga, states, decay, *, chunk: int = 128):
+    """(dx, da, db, dc) of ``ssd_scan(x, a, b, c, chunk=chunk)`` at `dy`,
+    each in its input's type, from what the card's forward kept (``_forward
+    (..., keep=True)``: loga, states, decay), through ``ssd_bwd_state`` and
+    ``ssd_bwd_chunk``.  CUDA tensors only; the CPU's backward is
+    ``ref.ssd_bwd_ref``."""
+    _cuda_only("ssd_scan_bwd", x)
+    _check(x, a, b, c)
+    if tuple(dy.shape) != tuple(x.shape):
+        raise ValueError(f"dy is {tuple(dy.shape)}, x {tuple(x.shape)}")
+    L = _check_cuda(x, a, b, c, chunk)
+    S = x.shape[1]
+    if x.numel() == 0 or b.numel() == 0:
+        return (torch.zeros_like(x), torch.zeros_like(a), torch.zeros_like(b),
+                torch.zeros_like(c))
+    x, a, b, c, dy = pad_chunks(L, x, a, b, c, dy.to(x.dtype))
+    dy = dy.contiguous()
+    af = a.float().contiguous()
+    grads = ssd_bwd_state(c, dy, loga, decay, chunk=L)
+    dx, da, db, dc = ssd_bwd_chunk(x, af, loga, b, c, dy, states, grads,
+                                   chunk=L)
+    return dx[:, :S], da[:, :S].to(a.dtype), db[:, :S], dc[:, :S]
+

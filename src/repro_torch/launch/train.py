@@ -4,7 +4,9 @@
       --smoke --steps 50 --ckpt-dir build/ckpt --device cpu
 
 ``--device`` defaults to ``cuda``: on a card every attention of the step
-runs the flash_attention kernel (K4) forward and backward.  ``--smoke``
+runs the flash_attention kernel (K4) forward and backward, and every
+mamba layer the ssd_scan kernel (K5) forward and backward, so mamba2-2.7b
+and the hybrids (jamba) train on the card as the dense LMs do.  ``--smoke``
 trains the reduced same-family config; a full-size config of another
 family than the decoder-only LMs is refused, as the reference refuses it.
 The run resumes from the newest checkpoint under ``--ckpt-dir``.

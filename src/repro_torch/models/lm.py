@@ -17,7 +17,8 @@ Entry points:
 
 On a card every attention of ``lm_forward``, ``lm_loss`` and ``prefill``
 goes through the flash_attention kernel (K4) and every mamba layer of
-``lm_forward`` and ``lm_loss`` through the ssd_scan kernel (K5); prefill's
+``lm_forward`` and ``lm_loss`` through the ssd_scan kernel (K5), forward
+and, in training, backward; prefill's
 mamba layers run the plain chunked form and decode the recurrence, as the
 reference's do.  MoE layers (``models/moe.py``) are plain tensor code on
 both devices.  ``cfg.remat`` applies the reference's rematerialisation

@@ -4,11 +4,15 @@ RMSNorm, out_proj.  Decode keeps O(1) state per layer: (h: (B, H, N, P)
 float32, conv window: (B, d_conv-1, conv_channels)).
 
 Plain functions over a parameter dict, as ``layers``.  ``mamba_block``
-without ``return_state`` (``lm_forward``) goes through ``ssd_scan``, which
-dispatches by device: the ssd_scan kernel (K5) for a CUDA tensor, the
-sequential recurrence for a CPU tensor.  With ``return_state`` (prefill) it
-runs the plain chunked form ``_ssd_chunked`` on both devices, and decode the
-recurrence ``ssd_decode_step``, as the reference does on every backend.
+without ``return_state`` (``lm_forward``, ``lm_loss`` and training) goes
+through ``ssd_scan``, which dispatches by device: the ssd_scan kernel (K5)
+for a CUDA tensor, the sequential recurrence for a CPU tensor; when a
+gradient is wanted it is an autograd Function whose backward is K5's
+backward kernels on a card and the plain chunked backward on the CPU
+(``kernels/ssd_scan/ref.py::ssd_bwd_ref``).  With ``return_state``
+(prefill) it runs the plain chunked form ``_ssd_chunked`` on both devices,
+and decode the recurrence ``ssd_decode_step``, as the reference does on
+every backend.
 """
 from __future__ import annotations
 
@@ -16,7 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd_scan import ssd_scan
-from ..kernels.ssd_scan.ref import ssd_decode_step
+from ..kernels.ssd_scan.ref import (pad_chunks, ssd_decode_step,
+                                    ssd_states_ref)
 from .common import DTYPES, ArchConfig
 from .layers import init_norm, randn, rms_norm
 
@@ -138,21 +143,18 @@ def _ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     G, N = b.shape[2], b.shape[3]
     rep = H // G
     L = min(chunk, S)
-    pad = (-S) % L
-    if pad:
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        a = F.pad(a, (0, 0, 0, pad), value=1.0)
-        b = F.pad(b, (0, 0, 0, 0, 0, pad))
-        c = F.pad(c, (0, 0, 0, 0, 0, pad))
+    x, a, b, c = pad_chunks(L, x, a, b, c)
     Sp = x.shape[1]
     nC = Sp // L
+    la = torch.log(torch.clamp(a, min=1e-37)).float()            # (B, Sp, H)
+    # the state entering each chunk, S_c = sum_i exp(tot - cum_i) b_i x_i^T
+    # carried as h_c = A_c h_{c-1} + S_c (h before chunk 0 is 0)
+    h_in, _, h = ssd_states_ref(x, la, b, L)
     xf = x.reshape(B, nC, L, H, P).float()
-    la = torch.log(torch.clamp(a, min=1e-37)).reshape(B, nC, L, H).float()
     bf = b.repeat_interleave(rep, dim=2).reshape(B, nC, L, H, N).float()
     cf = c.repeat_interleave(rep, dim=2).reshape(B, nC, L, H, N).float()
 
-    cum = torch.cumsum(la, dim=2)                      # (B, nC, L, H)
-    tot = cum[:, :, -1, :]                             # per-chunk log decay
+    cum = torch.cumsum(la.reshape(B, nC, L, H), dim=2)  # (B, nC, L, H)
     tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
 
     # intra-chunk (batched over chunks)
@@ -160,20 +162,6 @@ def _ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     mask = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
     scores = torch.einsum("bclhn,bckhn->bclkh", cf, bf) * mask
     y = torch.einsum("bclkh,bckhp->bclhp", scores, xf)
-
-    # per-chunk state contribution S_c = sum_i exp(tot - cum_i) b_i x_i^T
-    wb = bf * torch.exp(tot[:, :, None, :] - cum)[..., None]
-    Sc = torch.einsum("bclhn,bclhp->bchnp", wb, xf)     # (B, nC, H, N, P)
-
-    # inter-chunk recurrence h_c = A_c h_{c-1} + S_c; the state entering
-    # chunk c is h_{c-1}, and h before chunk 0 is 0
-    A = torch.exp(tot)                                 # (B, nC, H)
-    h = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
-    h_in = []
-    for ci in range(nC):
-        h_in.append(h)
-        h = A[:, ci, :, None, None] * h + Sc[:, ci]
-    h_in = torch.stack(h_in, dim=1)
     y = y + torch.exp(cum)[..., None] * torch.einsum("bclhn,bchnp->bclhp",
                                                      cf, h_in)
     y = y.reshape(B, Sp, H, P)[:, :S]

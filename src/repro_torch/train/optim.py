@@ -71,6 +71,20 @@ def _global_norm(grads: dict) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+SLICE = 1 << 26             # elements of a leaf that AdamW updates at once
+
+
+def _slices(t: torch.Tensor):
+    """Leading-dim ranges of `t` holding at most SLICE elements each (one
+    row at least; the whole of a 0-d tensor)."""
+    if t.dim() == 0:
+        yield ...
+        return
+    rows = max(1, SLICE // max(1, t[0].numel()))
+    for i in range(0, t.shape[0], rows):
+        yield slice(i, i + rows)
+
+
 @torch.no_grad()
 def adamw_update(params: dict, grads: dict, opt_state: dict,
                  cfg: OptConfig):
@@ -78,7 +92,12 @@ def adamw_update(params: dict, grads: dict, opt_state: dict,
     the new parameters and moments into the given tensors (and returns the
     same dicts) with a new step tensor: a functional update, as the
     reference's, would hold the old and the new float32 moments at once
-    (16 GB more at qwen3-1.7b).  The values are the reference's."""
+    (16 GB more at qwen3-1.7b).  A leaf is updated in slices of its leading
+    dim of at most SLICE elements, so the float32 temporaries stay near 2 GB
+    whatever its size (mamba2-2.7b's stacked in_proj, 1.73 G elements, took
+    seven 6.9 GB temporaries at once and ran the card out of memory); the
+    update is elementwise, so the slices change no bit.  The values are
+    the reference's."""
     step = opt_state["step"] + 1
     lr = lr_at(cfg, step)
     gnorm = _global_norm(grads)
@@ -97,15 +116,16 @@ def adamw_update(params: dict, grads: dict, opt_state: dict,
             raise ValueError(f"adamw_update: shapes disagree: param "
                              f"{tuple(p.shape)}, grad {tuple(g.shape)}, "
                              f"moments {tuple(m.shape)}, {tuple(v.shape)}")
-        g = g.float() * scale
-        m_new = b1 * m + (1 - b1) * g
-        v_new = b2 * v + (1 - b2) * g * g
-        mh = m_new / c1
-        vh = v_new / c2
-        pf = p.float()
-        delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * pf
-        p.copy_((pf - lr * delta).to(p.dtype))
-        m.copy_(m_new)
-        v.copy_(v_new)
+        for sl in _slices(p):
+            gs = g[sl].float() * scale
+            m_new = b1 * m[sl] + (1 - b1) * gs
+            v_new = b2 * v[sl] + (1 - b2) * gs * gs
+            mh = m_new / c1
+            vh = v_new / c2
+            pf = p[sl].float()
+            delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * pf
+            p[sl].copy_((pf - lr * delta).to(p.dtype))
+            m[sl].copy_(m_new)
+            v[sl].copy_(v_new)
     return params, {"m": opt_state["m"], "v": opt_state["v"],
                     "step": step}, {"grad_norm": gnorm, "lr": lr}

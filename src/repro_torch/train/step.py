@@ -13,8 +13,10 @@ per-bucket all-reduce would be issued (``_apply_bucket_order``).  Neither
 changes a value.
 
 On a card every attention of the loss runs the flash_attention kernel (K4)
-forward and backward; the gradient of a mamba layer through the ssd_scan
-kernel (K5) raises, as K5 has no backward kernel yet.
+forward and backward, and every mamba layer the ssd_scan kernel (K5)
+forward and backward (``kernels/ssd_scan``: the chunk state gradients,
+the reverse pass, the chunk gradients and the group sum); on the CPU the
+plain versions, K5's backward ``ssd_bwd_ref``.
 """
 from __future__ import annotations
 

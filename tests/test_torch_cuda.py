@@ -28,8 +28,11 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref)
 from repro_torch.kernels.merge_fix import merge_fix
 from repro_torch.kernels.merge_fix.ref import merge_fix_ref
-from repro_torch.kernels.ssd_scan import ssd_scan
-from repro_torch.kernels.ssd_scan.ref import ssd_ref
+from repro_torch.kernels.ssd_scan import (ssd_bwd_chunk, ssd_bwd_state,
+                                          ssd_scan, ssd_scan_bwd)
+from repro_torch.kernels.ssd_scan.ref import (pad_chunks, ssd_bwd_chunk_ref,
+                                              ssd_bwd_ref, ssd_bwd_state_ref,
+                                              ssd_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -424,21 +427,121 @@ def test_flash_attention_serve_path_writes_no_lse():
     assert out.grad_fn is not None
 
 
-def test_ssd_scan_refuses_a_gradient_on_the_card():
-    """K5 has no backward kernel yet: a CUDA call that would need one
-    raises, where the CPU path stays differentiable."""
-    x = torch.randn((1, 32, 2, 8), requires_grad=True)
-    a = torch.rand((1, 32, 2)) * 0.5 + 0.5
-    b = torch.randn((1, 32, 1, 8))
-    c = torch.randn((1, 32, 1, 8))
-    ssd_scan(x, a, b, c, chunk=16).sum().backward()
-    assert x.grad is not None
+# K5's backward: (B, S, H, G, N, P, L).  mamba2-2.7b's heads at S in {1,
+# 127, 128, 129, 4096}, jamba-1.5-large's full-width heads (H 256 in 8
+# groups) at a small B S, the smoke configs' (N 16, P 8, L 16) and G = 3.
+# Tolerances of each output's own largest |value| (dx, da, db and dc apart:
+# db and dc sum the group's heads and dwarf dx): float32 2e-5 (K4's
+# backward's; both sum in float32 in other orders), bf16 1e-2 (set from
+# readings: 3.4e-3 at most, dx at S = 4096, where the card's forward keeps
+# TF32-rounded states and the gradients are rounded to bf16)
+_SSD_BWD_SHAPES = [(1, S, 80, 1, 128, 64, 128)
+                   for S in (1, 127, 128, 129, 4096)] \
+    + [(1, 384, 256, 8, 128, 64, 128), (2, 24, 16, 1, 16, 8, 16),
+       (2, 50, 6, 3, 16, 8, 16)]
+_SSD_BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+def _ssd_bwd_inputs(shape, dtype, dev, seed):
+    """x, a, b, c, dy from numpy; b and c strided views of one (B, S, 2, G,
+    N) tensor, as models.ssm splits them out of one projection."""
+    B, S, H, G, N, P, _ = shape
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.normal(size=(B, S, H, P)), dtype=dtype,
+                        device=dev)
+    a = torch.as_tensor(rng.uniform(0.55, 1.0, size=(B, S, H)),
+                        dtype=torch.float32, device=dev)
+    bc = torch.as_tensor(rng.normal(size=(B, S, 2, G, N)) * 0.3, dtype=dtype,
+                         device=dev)
+    dy = torch.as_tensor(rng.normal(size=(B, S, H, P)), dtype=dtype,
+                         device=dev)
+    return x, a, bc[:, :, 0], bc[:, :, 1], dy
+
+
+def _grads_close(got, want, tol):
+    """Each gradient within `tol` of its own largest |value|: dx, da, db and
+    dc differ in size (db and dc sum the group's heads, 80 at mamba2), so
+    one scale pooled over the four would not hold dx."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        scale = float(w.float().abs().max()) or 1.0
+        assert float((g.float() - w.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("shape", _SSD_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_backward_kernels_equal_plain(shape, dtype):
+    """ssd_bwd_state and ssd_bwd_chunk on the card against their plain
+    versions on the same inputs (the forward's kept states), and the
+    autograd gradient of ssd_scan against ssd_bwd_ref: one launch of each
+    wrapper a backward, each within its tolerance."""
+    from repro_torch.kernels.ssd_scan.ops import _forward
+
     dev = _card()
-    xd = x.detach().to(dev).requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        ssd_scan(xd, a.to(dev), b.to(dev), c.to(dev), chunk=16)
+    B, S, H, G, N, P, L = shape
+    x, a, b, c, dy = _ssd_bwd_inputs(shape, dtype, dev, sum(shape))
+    tol = _SSD_BWD_TOL[dtype]
     with torch.no_grad():
-        ssd_scan(xd, a.to(dev), b.to(dev), c.to(dev), chunk=16)
+        loga, states, decay = _forward(x, a, b, c, L, True)[1]
+    Lc = min(L, S)
+    xp, ap, bp, cp, dyp = pad_chunks(Lc, x, a, b, c, dy)
+    grads = ssd_bwd_state(cp, dyp, loga, decay, chunk=Lc)
+    _grads_close([grads], [ssd_bwd_state_ref(cp, dyp, loga, decay, Lc)],
+                 tol)
+    af = ap.contiguous()
+    _grads_close(ssd_bwd_chunk(xp, af, loga, bp, cp, dyp, states, grads,
+                               chunk=Lc),
+                 ssd_bwd_chunk_ref(xp, af, loga, bp, cp, dyp, states, grads,
+                                   Lc), tol)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, a, b, c)]
+    before = (ssd_bwd_state.launches, ssd_bwd_chunk.launches)
+    ssd_scan(*leaves, chunk=L).backward(dy)
+    torch.cuda.synchronize()
+    assert (ssd_bwd_state.launches, ssd_bwd_chunk.launches) == \
+        (before[0] + 1, before[1] + 1)
+    _grads_close([t.grad for t in leaves],
+                 ssd_bwd_ref(x, a, b, c, dy, chunk=L), tol)
+
+
+def test_ssd_scan_backward_gives_the_same_bits_twice():
+    """No atomics: two backwards of one input at mamba2's head shape (two
+    batches, eight chunks) give the same bits, bf16 and float32."""
+    from repro_torch.kernels.ssd_scan.ops import _forward
+
+    dev = _card()
+    for dtype in (torch.bfloat16, torch.float32):
+        x, a, b, c, dy = _ssd_bwd_inputs((2, 1024, 80, 1, 128, 64, 128),
+                                         dtype, dev, 3)
+        with torch.no_grad():
+            kept = _forward(x, a, b, c, 128, True)[1]
+        runs = [ssd_scan_bwd(x, a, b, c, dy, *kept, chunk=128)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        for u, v in zip(*runs):
+            assert torch.equal(u, v)
+
+
+def test_ssd_scan_backward_refuses_what_it_does_not_take():
+    """The backward wrappers check their operands before any launch."""
+    dev = _card()
+    x, a, b, c, dy = _ssd_bwd_inputs((1, 32, 4, 2, 16, 8, 16),
+                                     torch.float32, dev, 0)
+    loga = torch.log(a)
+    decay = torch.zeros((1, 2, 4), device=dev)
+    before = (ssd_bwd_state.launches, ssd_bwd_chunk.launches)
+    with pytest.raises(ValueError, match="dense"):
+        ssd_bwd_state(c, dy.transpose(2, 3).contiguous().transpose(2, 3),
+                      loga, decay, chunk=16)
+    with pytest.raises(TypeError, match="one type"):
+        ssd_bwd_state(c.bfloat16(), dy, loga, decay, chunk=16)
+    states = torch.zeros((1, 2, 4, 16, 8), device=dev)
+    with pytest.raises(TypeError, match="float32 a"):
+        ssd_bwd_chunk(x, a.double(), loga, b, c, dy, states, states,
+                      chunk=16)
+    with pytest.raises(TypeError, match="one type"):
+        ssd_bwd_chunk(x, a, loga, b, c, dy.bfloat16(), states, states,
+                      chunk=16)
+    assert (ssd_bwd_state.launches, ssd_bwd_chunk.launches) == before
 
 
 def test_smoke_prefill_and_serve_on_card_equal_cpu():
@@ -1481,13 +1584,15 @@ def _grads_on(cfg, params, batch):
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-1.7b",
                                   "granite-moe-3b", "whisper-large-v3",
-                                  "llava-next-mistral-7b"])
+                                  "llava-next-mistral-7b", "mamba2-2.7b",
+                                  "jamba-1.5-large"])
 def test_smoke_loss_gradient_on_card_equals_cpu(arch):
     """loss_for(cfg) and every gradient leaf of a float32 smoke config on
-    the card (K4 forward and backward in every attention) against the CPU
-    (autograd through the plain attention): loss within 1e-5 relative,
-    each leaf within 1e-4 of its largest |gradient|.  K4's backward
-    kernels launch once per attention layer."""
+    the card (K4 forward and backward in every attention, K5 forward and
+    backward in every mamba layer) against the CPU (autograd through the
+    plain attention, the plain scan's backward): loss within 1e-5
+    relative, each leaf within 1e-4 of its largest |gradient|.  K4's and
+    K5's backward kernels launch once per attention and mamba layer."""
     from repro_torch.configs import get_config
     from repro_torch.models.lm import tree_leaves, tree_map
     from repro_torch.train.step import init_params, leaf_paths
@@ -1497,13 +1602,15 @@ def test_smoke_loss_gradient_on_card_equals_cpu(arch):
     cpu = init_params(cfg, torch.Generator().manual_seed(0))
     card = tree_map(lambda x: x.to(dev), cpu)
     batch = _smoke_batch(cfg)
-    before = attn_bwd_dq.launches
+    before = (attn_bwd_dq.launches, ssd_bwd_chunk.launches)
     loss, grads = _grads_on(cfg, card, {k: v.to(dev)
                                         for k, v in batch.items()})
     torch.cuda.synchronize()
-    n_attn = (cfg.n_layers if cfg.family != "encdec"
+    kinds = [spec.kind for spec in cfg.period] * cfg.n_periods
+    n_attn = (kinds.count("attn") if cfg.family != "encdec"
               else cfg.n_encoder_layers + 2 * cfg.n_layers)
-    assert attn_bwd_dq.launches - before == n_attn
+    assert attn_bwd_dq.launches - before[0] == n_attn
+    assert ssd_bwd_chunk.launches - before[1] == kinds.count("mamba")
     loss_c, grads_c = _grads_on(cfg, cpu, batch)
     assert abs(float(loss) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
     for path, g, w in zip(leaf_paths(grads), tree_leaves(grads),
@@ -1534,20 +1641,42 @@ def test_smoke_attention_projection_gradient_on_card():
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-1.5-large"])
-def test_smoke_ssm_gradient_on_card_raises(arch):
-    """K5 has no backward kernel yet: a mamba layer's gradient on the card
-    raises K5's error rather than losing the scan's gradient."""
+def test_smoke_ssm_gradient_on_card_takes_no_plain_version(arch,
+                                                           monkeypatch):
+    """A mamba layer's gradient on the card goes through K5's kernels
+    alone: with the plain scans, the plain backward and the chunked form
+    made to raise, the smoke gradient still runs, with two K5 forwards per
+    mamba layer under remat (the recomputed one) and one of each backward
+    wrapper."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_refs
+    from repro_torch.models import ssm
     from repro_torch.models.lm import tree_map
     from repro_torch.train.step import init_params
 
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod, name in ((ops, "ssd_ref"), (ops, "ssd_bwd_ref"),
+                      (ssd_refs, "ssd_bwd_state_ref"),
+                      (ssd_refs, "ssd_bwd_chunk_ref"),
+                      (ssd_refs, "ssd_ref"), (ssd_refs, "ssd_bwd_ref"),
+                      (ssm, "_ssd_chunked")):
+        monkeypatch.setattr(mod, name, refuse)
     dev = _card()
     cfg = get_config(arch).smoke()
     card = tree_map(lambda x: x.to(dev),
                     init_params(cfg, torch.Generator().manual_seed(0)))
     batch = {k: v.to(dev) for k, v in _smoke_batch(cfg).items()}
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        _grads_on(cfg, card, batch)
+    before = (ssd_scan.launches, ssd_bwd_state.launches,
+              ssd_bwd_chunk.launches)
+    _grads_on(cfg, card, batch)
+    torch.cuda.synchronize()
+    n = [spec.kind for spec in cfg.period].count("mamba") * cfg.n_periods
+    fwd = n if cfg.remat == "none" else 2 * n
+    assert (ssd_scan.launches - before[0], ssd_bwd_state.launches
+            - before[1], ssd_bwd_chunk.launches - before[2]) == (fwd, n, n)
 
 
 def test_smoke_train_step_on_card_equals_cpu():
@@ -1585,10 +1714,12 @@ def test_smoke_train_step_on_card_equals_cpu():
     assert float((diff <= 1e-5).float().mean()) >= 0.999
 
 
-def test_crash_resume_on_card_is_bit_exact(tmp_path):
-    """The reference's crash/resume protocol on the card (tinyllama smoke):
-    crash at step 7, resume from the step-6 checkpoint, run to 12; every
-    parameter bit-equal to an uninterrupted run."""
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "jamba-1.5-large"])
+def test_crash_resume_on_card_is_bit_exact(tmp_path, arch):
+    """The reference's crash/resume protocol on the card (tinyllama's smoke
+    config, and jamba's: K4, K5 and the MoE layer in one run): crash at
+    step 7, resume from the step-6 checkpoint, run to 12; every parameter
+    bit-equal to an uninterrupted run."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig
     from repro_torch.ft import FTConfig, TrainRunner
@@ -1596,7 +1727,7 @@ def test_crash_resume_on_card_is_bit_exact(tmp_path):
     from repro_torch.train.optim import OptConfig
 
     dev = _card()
-    cfg = get_config("tinyllama-1.1b").smoke()
+    cfg = get_config(arch).smoke()
 
     class Boom(Exception):
         pass

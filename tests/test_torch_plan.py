@@ -258,6 +258,20 @@ def test_port_imports_neither_jax_nor_repro():
         "                '2', '--seq-len', '16', '--global-batch', '2',\n"
         "                '--plan-buckets', '2', '--ckpt-every', '1',\n"
         "                '--ckpt-dir', d, '--device', 'cpu'])\n"
+        "import repro_torch.kernels.ssd_scan.ref\n"
+        "from repro_torch.kernels.ssd_scan import (\n"
+        "    ssd_bwd_chunk, ssd_bwd_state, ssd_scan_bwd)\n"
+        "cfg = get_config('mamba2-2.7b').smoke()\n"
+        "p = init_lm(cfg, torch.Generator().manual_seed(0))\n"
+        "for leaf in p['stack']['l0']['mamba'].values():\n"
+        "    if isinstance(leaf, torch.Tensor):\n"
+        "        leaf.requires_grad_()\n"
+        "lm_loss(cfg, p, t, t).backward()\n"
+        "assert p['stack']['l0']['mamba']['a_log'].grad is not None\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    train.main(['--arch', 'mamba2-2.7b', '--smoke', '--steps', '1',\n"
+        "                '--seq-len', '20', '--global-batch', '2',\n"
+        "                '--ckpt-dir', d, '--device', 'cpu'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith('jax.') or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"

@@ -134,6 +134,38 @@ def test_adamw_update_equals_reference(grad_scale):
             assert np.abs(g.numpy() - w).max() <= 1e-6 * np.abs(w).max()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_slices_change_no_bit(dtype, monkeypatch):
+    """AdamW updates a leaf in slices of its leading dim (SLICE elements at
+    most, so a stacked leaf's float32 temporaries stay small); the update
+    is elementwise, so any slicing gives the same bits as one slice: a
+    3-d leaf, a 0-d leaf and a vector, bf16 and float32 parameters."""
+    from repro_torch.train import optim
+    from repro_torch.train.optim import adamw_init
+
+    rng = np.random.default_rng(4)
+    shapes = {"a": (70, 3, 5), "b": (), "c": (9,)}
+    base = {k: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            .to(dtype) for k, s in shapes.items()}
+    grads = {k: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+             .to(dtype) for k, s in shapes.items()}
+    cfg = OptConfig(lr=1e-2, warmup_steps=1, total_steps=10)
+    runs = []
+    for slice_elems in (optim.SLICE, 7, 1):
+        monkeypatch.setattr(optim, "SLICE", slice_elems)
+        params = {k: v.clone() for k, v in base.items()}
+        opt = adamw_init(params)
+        for _ in range(2):
+            params, opt, _ = adamw_update(params, grads, opt, cfg)
+        runs.append((params, opt))
+    for params, opt in runs[1:]:
+        for key in shapes:
+            assert torch.equal(params[key], runs[0][0][key])
+            assert torch.equal(opt["m"][key], runs[0][1]["m"][key])
+            assert torch.equal(opt["v"][key], runs[0][1]["v"][key])
+    assert not torch.equal(runs[0][0]["a"], base["a"])
+
+
 def test_compress_decompress_equals_reference():
     """Per-tensor int8 quantise-dequantise, equal to the reference's on
     float32 leaves, the ties x.5 (round half to even) included; an int
