@@ -323,7 +323,8 @@ Phases; any failure exits non-zero and prints no result line:
       4 x 4096 tokens with ``--plan-buckets 8``, the counts set to 0 just
       before and read just after: 128 K5 forward calls a step (64 and 64
       recomputed) and 64 of each backward wrapper (``ssd_bwd_state``,
-      ``ssd_bwd_chunk``, two CUDA launches each).  Prints the step's wall
+      ``ssd_bwd_chunk``; in bf16 one and four CUDA launches, on the
+      tensor cores).  Prints the step's wall
       (median of steps 2-4), tokens/s, peak memory, loss and grad norm.
    e. K5's backward wrappers against their plain versions
       (``ssd_bwd_state_ref``, ``ssd_bwd_chunk_ref``, on the same inputs,
@@ -335,8 +336,12 @@ Phases; any failure exits non-zero and prints no result line:
       |value| and of the largest over the outputs (float32 1e-4 and
       2e-5, bf16 1e-2).  Then each wrapper at the
       training shape (B=4, S=4096, H=80, bf16): ms, bound, the plain
-      version's ms, registers, local and shared memory of each CUDA
-      kernel; two runs must give the same bits.
+      version's ms and its outputs held against the wrapper's, registers,
+      local and shared memory of each CUDA kernel
+      (``ssd_scan.BWD_KERNELS``, named by ``ssd_bwd_kernel_name``; a bf16
+      kernel with local memory fails), and the CUDA launches one call of
+      each wrapper makes under the profiler (each named kernel once, none
+      other, or it fails); two runs must give the same bits.
 
 float32 matrix products run in full float32 (``allow_tf32`` is set False,
 PyTorch's default, for matmul and cuDNN).
@@ -2327,9 +2332,12 @@ def _ssm_training(dev, counts) -> dict:
     import gc
 
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import kernels
     from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import BWD_KERNELS as SSD_BWD_KERNELS
     from repro_torch.kernels.ssd_scan import (ssd_bwd_chunk, ssd_bwd_state,
                                               ssd_scan)
     from repro_torch.kernels.ssd_scan.ops import _forward as ssd_forward
@@ -2471,7 +2479,15 @@ def _ssm_training(dev, counts) -> dict:
     tm["same_bits"] = all(torch.equal(u, v) for u, v in zip(*runs))
     if not tm["same_bits"]:
         _fail(f"two runs of K5's backward at {shape} gave different bits")
+    # the training shape's outputs against the plain versions' too: the bf16
+    # chunk kernels' grid and their per-slice partials grow with B
+    what = f"the training shape {shape} bfloat16"
+    note("ssd_bwd_state", runs[0][:1],
+         [ssd_bwd_state_ref(c, dy, loga, decay, L)], what, torch.bfloat16)
+    note("ssd_bwd_chunk", runs[0][1:], ssd_bwd_chunk_ref(
+        x, af, loga, b, c, dy, states, grads, L), what, torch.bfloat16)
     del runs
+    free()
     tm["bounds"] = ssd_bwd_bounds(B, S, H, G, N, P, L)
     tm["share_of_bound"] = {k: tm["bounds"][k]["bound_ms"] / tm[k]
                             for k in SSD_BWD}
@@ -2479,13 +2495,52 @@ def _ssm_training(dev, counts) -> dict:
                     for k in SSD_BWD}
     tm["bwd_ms"] = sum(tm[k] for k in SSD_BWD)
     lib = kernels.load_kernel("ssd_scan")
+    lib.ssd_bwd_kernel_name.argtypes = [ctypes.c_int]
+    lib.ssd_bwd_kernel_name.restype = ctypes.c_char_p
+    names = {w: [lib.ssd_bwd_kernel_name(k).decode() for k in ids]
+             for w, ids in SSD_BWD_KERNELS[torch.bfloat16].items()}
     tm["attributes"] = {
-        "ssd_bwd_state": {"chunk_state_grads": _attributes(
-            lib.ssd_bwd_attributes, 1, 1, P), "reverse_pass": _attributes(
-            lib.ssd_bwd_attributes, 1, 2, P)},
-        "ssd_bwd_chunk": {"chunk_grads": _attributes(
-            lib.ssd_bwd_attributes, 1, 3, P), "group_sum": _attributes(
-            lib.ssd_bwd_attributes, 1, 4, P)}}
+        w: {n: _attributes(lib.ssd_bwd_attributes, k, L, N, P)
+            for n, k in zip(names[w], SSD_BWD_KERNELS[torch.bfloat16][w])}
+        for w in SSD_BWD}
+    # the CUDA launches one call of each wrapper makes, counted by the
+    # profiler: each kernel BWD_KERNELS names once, and no other of K5's
+    # backward.  The spins pad the window's start, as 11's profiled pass
+    # does (this late in the process the profiler has dropped a window's
+    # first device events)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(1024):
+            torch.cuda._sleep(1000)
+        torch.cuda._sleep(2_000_000_000)
+        torch.cuda.synchronize()
+        ssd_bwd_state(c, dy, loga, decay, chunk=L)
+        ssd_bwd_chunk(x, af, loga, b, c, dy, states, grads, chunk=L)
+        torch.cuda.synchronize()
+    ran = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and "ssd_bwd" in e.key]
+
+    def launched(n: str) -> int:
+        return sum(e.count for e in ran
+                   if f"::{n}<" in e.key or f"::{n}(" in e.key)
+
+    tm["cuda_launches"] = {w: {n: launched(n) for n in ns}
+                           for w, ns in names.items()}
+    tm["cuda_launches_per_call"] = {w: sum(v.values())
+                                    for w, v in tm["cuda_launches"].items()}
+    other = sum(e.count for e in ran) - sum(
+        tm["cuda_launches_per_call"].values())
+    if other or any(n != 1 for v in tm["cuda_launches"].values()
+                    for n in v.values()):
+        _fail(f"one call of each of K5's backward wrappers at {shape} "
+              f"(bf16) launched {tm['cuda_launches']} and {other} other "
+              f"ssd_bwd kernels, expected each of {names} once")
+    del prof, ran
+    spilled = {k: v["local_bytes"] for kinds in tm["attributes"].values()
+               for k, v in kinds.items() if v["local_bytes"]}
+    if spilled:
+        _fail(f"K5's bf16 backward kernels use local memory: {spilled}")
     del x, a, b, c, dy, loga, states, decay, af, grads
     free()
     out["timing"] = tm
@@ -2496,7 +2551,10 @@ def _ssm_training(dev, counts) -> dict:
               f"{tm['bounds'][k]['bound_by']}, "
               f"{100 * tm['share_of_bound'][k]:.1f}% of it; "
               f"{tm['tflops'][k]:.2f} TFLOP/s), the plain version "
-              f"{tm['plain'][k]:.2f} ms; kernels "
+              f"{tm['plain'][k]:.2f} ms, held against it there (max "
+              f"|diff| relative to each output's largest "
+              f"{out['max_rel_err'][k]}); CUDA launches a call (profiled) "
+              f"{tm['cuda_launches'][k]}; kernels "
               f"{json.dumps(tm['attributes'][k])}")
     print(f"16(e) K5's backward at the training shape: {tm['bwd_ms']:.4f} "
           f"ms a layer, {cfg.n_layers} a step: "
@@ -2538,7 +2596,6 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.ssd_scan import CUDA_LAUNCHES as \
         SSD_CUDA_LAUNCHES
-    from repro_torch.kernels.ssd_scan import BWD_CUDA_LAUNCHES
     from repro_torch.kernels.ssd_scan import (ssd_bwd_chunk, ssd_bwd_state,
                                               ssd_scan)
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
@@ -2556,6 +2613,13 @@ def main() -> int:
     record: dict = {"device": torch.cuda.get_device_name(0),
                     "host": _host_cpu()}
     t_start = time.perf_counter()
+    phase_at: dict = {}
+
+    def mark(phase: str) -> None:
+        """The second at which a phase starts, printed and kept in the
+        record: the run has to end within its time limit."""
+        phase_at[phase] = time.perf_counter() - t_start
+        print(f"[{phase_at[phase]:.1f} s] phase {phase}", flush=True)
 
     def zero_counts() -> None:
         for fn in wrappers.values():
@@ -2565,6 +2629,7 @@ def main() -> int:
         return {name: fn.launches for name, fn in wrappers.items()}
 
     # 1. build --------------------------------------------------------------
+    mark("1")
     t0 = time.perf_counter()
     kernels.build_kernels(list(KERNELS))
     record["build_s"] = time.perf_counter() - t0
@@ -2587,6 +2652,7 @@ def main() -> int:
             _fail(f"{name} != plain version on {what} (max |diff| {err})")
 
     # 2. bna_step on random states, bna_decompose on random buckets ----------
+    mark("2")
     def random_state(rng, B, w):
         d = rng.integers(0, 40, size=(B, w, w))
         d[rng.random((B, w, w)) > 0.6] = 0
@@ -2705,6 +2771,7 @@ def main() -> int:
           "and 2048")
 
     # 3. python path, both kernels checked at every call ---------------------
+    mark("3")
     largest = {name: None for name in KERNELS}
     orig_alphas = backend.edge_interval_alphas
 
@@ -2780,6 +2847,7 @@ def main() -> int:
           f"sets, K={big.shape[0]}, 2m={big.shape[1]} and 2m=2000")
 
     # 4. pipeline path, both kernels checked at every call -------------------
+    mark("4")
     orig_decompose = pipeline.bna_decompose
     orig_merge_fix_step = backend.merge_fix_step
 
@@ -2857,6 +2925,7 @@ def main() -> int:
           f"sets (K up to {events.size - 1}, 2m up to 2000)")
 
     # 5. the main path: python path (card vs CPU), then the pipeline ---------
+    mark("5")
     def plans_equal(got, want) -> bool:
         a = transcript_to_arrays(got.transcript())
         b = transcript_to_arrays(want.transcript())
@@ -2980,6 +3049,7 @@ def main() -> int:
     # a rerun of the main path's gdm plan (python path: K2; pipeline: K3),
     # the counts set to 0 just before: each of a kernel's CUDA kernels must
     # run once a call
+    mark("5b")
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3010,6 +3080,7 @@ def main() -> int:
           f"{SCALES['gdm']}): {json.dumps(record['merge_cuda_launches'])}")
 
     # 6. the paper's full trace size through the pipeline --------------------
+    mark("6")
     full_runs = {}
     widest: dict = {}
 
@@ -3126,6 +3197,7 @@ def main() -> int:
 
     # 6b. a switch of m = 1000 ports, past the 908 whose scan tile once
     # overflowed a block's shared memory: both paths on the card == CPU
+    mark("6b")
     inst_w = paper_workload(m=1000, mu_bar=2, seed=0, scale=0.01)
     wide_runs = {}
     for plan_backend in ("pipeline", "python"):
@@ -3186,6 +3258,7 @@ def main() -> int:
     # first replan of every run through checked bna_decompose and merge_fix
     # (plain versions on CPU copies of the same inputs).  Run in this
     # process while phase 6c's workers run (defined here, called there)
+    mark("6d")
     online_checked = {"bna_decompose": 0, "merge_fix": 0}
     online_check_s = [0.0]
 
@@ -3269,6 +3342,7 @@ def main() -> int:
     # The host's packet sweep and the python path's host repair dominate
     # these runs, so all but the pipeline's 0.1 runs (this process) go to
     # spawned workers that share the host and the card with it
+    mark("6c")
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -3406,6 +3480,7 @@ def main() -> int:
                           for s_, r in bf_large.items()}
 
     # 6d (cont.): the pair's record, then gdm at scale 1.0 alone ----------
+    mark("6d-cont")
     def online_keep(r) -> dict:
         return {k: v for k, v in r.items() if k != "job_completions"}
 
@@ -3438,6 +3513,7 @@ def main() -> int:
         "pair_s": online_pair_s, "full": online_keep(full_online)}
 
     # 6e. card against CPU at 0.1, both plan backends (phase 6c's pool) ----
+    mark("6e")
     counts_keys = ("reschedules", "repairs", "full_replans", "repair_rejects",
                    "groups_reused", "groups_replanned")
     for sched in ONLINE_CPU_SCHEDS:
@@ -3462,6 +3538,7 @@ def main() -> int:
                                  for j in online_jobs]
 
     # 6f. BENCH_serve's cells through the streaming harness (the pool) ----
+    mark("6f")
     bench_rows = {r["cell"]: r for r in json.loads(
         (ROOT / "benchmarks" / "results" / "BENCH_serve.json").read_text()
     )["rows"]}
@@ -3487,6 +3564,7 @@ def main() -> int:
         "poisson_om_alg", "mmpp_om_alg"], "workers": BF_WORKERS}
 
     # 6g. the zoo: (a), (c)-(e) card == CPU (the CPU side in the pool) ----
+    mark("6g")
     from repro_torch import scenarios
 
     smi_zoo = _nvidia_smi()
@@ -3653,6 +3731,7 @@ def main() -> int:
                 for r in rs if r["launches"][name]}
 
     # 7. flash_attention (K4) against its plain version --------------------
+    mark("7")
     from repro_torch.configs import get_config
     from repro_torch.models import decode_step, init_lm, layers, prefill
     from repro_torch.models.lm import tree_map
@@ -3695,6 +3774,7 @@ def main() -> int:
           f"causal or not; max |diff| {max_err['flash_attention']:.3g})")
 
     # 8. serve qwen3-1.7b at full width -------------------------------------
+    mark("8")
     cfg = get_config(SERVE_ARCH)
     t0 = time.perf_counter()
     params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0))
@@ -3814,6 +3894,7 @@ def main() -> int:
     # admitted at step s must be the first, by (planned completion under
     # the replayed frontier in force at s, arrival, rid), of the arrived
     # requests not yet admitted
+    mark("8b")
     import math
 
     from repro_torch.core import SchedulerSession
@@ -3928,6 +4009,7 @@ def main() -> int:
           "slot): " + json.dumps(record["serve_profile"]))
 
     # 9. the same weights on the CPU ----------------------------------------
+    mark("9")
     toks = torch.as_tensor(np.random.default_rng(9).integers(
         1, cfg.vocab, size=(1, 64)))
     with torch.inference_mode():
@@ -3953,6 +4035,7 @@ def main() -> int:
           f"{cpu_prefill_s:.1f} s")
 
     # 10. ssd_scan (K5) against its plain version ---------------------------
+    mark("10")
     from repro_torch.models import lm_forward, ssm
 
     ssd_rel_max = 0.0
@@ -4002,6 +4085,7 @@ def main() -> int:
           f"max |y| {ssd_rel_max:.3g})")
 
     # 11. mamba2-2.7b lm_forward at full width ------------------------------
+    mark("11")
     scfg = get_config(SSM_ARCH)
     del params, eng                             # qwen3's weights
     torch.cuda.empty_cache()
@@ -4127,6 +4211,7 @@ def main() -> int:
     # the decode recurrence) compute one function: float32 copies of the
     # weights hold them to 0.1%; in bf16, 64 layers of rounding move the
     # logits by 6.2-6.4% whichever form runs, K5 or its plain version
+    mark("12")
     sparams32 = tree_map(lambda x: x.float(), sparams)
     P_tf, D_tf = 64, 16
     ttoks = torch.as_tensor(np.random.default_rng(12).integers(
@@ -4169,6 +4254,7 @@ def main() -> int:
           f"{tf16['argmax_agree']} of {tf16['positions']}")
 
     # 13. the same weights on the CPU ---------------------------------------
+    mark("13")
     ctoks = torch.as_tensor(np.random.default_rng(13).integers(
         1, scfg.vocab, size=(1, 64)))
     cpu_cmp = {}
@@ -4210,6 +4296,7 @@ def main() -> int:
           "(bf16)")
 
     # 14. serve mamba2-2.7b at full width -----------------------------------
+    mark("14")
     H_ssd = scfg.ssm.expand * scfg.d_model // scfg.ssm.d_head
     mrng = np.random.default_rng(0)
     m_reqs = [Request(rid=i, tokens=mrng.integers(
@@ -4238,10 +4325,12 @@ def main() -> int:
     # 14b. the MoE, encoder-decoder and VLM families at full width ---------
     # free the earlier models: mamba2's weights (sparams, and p_card and
     # meng that hold them) and qwen3's (held by the coflow serve's engine)
+    mark("14b")
     del sparams, meng, p_card, co_eng
     record["families"] = _families(dev, note_attn, (zero_counts, read_counts))
 
     # 15. timings -----------------------------------------------------------
+    mark("15")
     kernels_line = []
     _, state = largest["bna_step"]
     B, w = state[0].shape[0], state[0].shape[1]
@@ -4584,6 +4673,7 @@ def main() -> int:
     del x5, a5, b5, c5
 
     # 16. training: qwen3-1.7b at full width, K4's backward ------------------
+    mark("16")
     record["training"] = tr = _training(dev, (zero_counts, read_counts))
     tm = tr["timing"]
     k4_row = next(k for k in kernels_line if k["name"] == "flash_attention")
@@ -4639,6 +4729,7 @@ def main() -> int:
             **tm["attributes"][name]})
 
     # 16(d)-(e). mamba2-2.7b trained at full width, K5's backward ----------
+    mark("16(d)-(e)")
     record["ssm_training"] = st = _ssm_training(dev, (zero_counts,
                                                       read_counts))
     k5_row = next(k for k in kernels_line if k["name"] == "ssd_scan")
@@ -4653,8 +4744,10 @@ def main() -> int:
     for name in SSD_BWD:
         kernels_line.append({
             "name": name, "route": "cuda",
+            # the bf16 kernels timed here; ssd_scan_bwd.cu holds the entry
+            # points and the float32 route
             "source": "src/repro_torch/kernels/ssd_scan/csrc/"
-                      "ssd_scan_bwd.cu",
+                      "ssd_scan_bwd_mma.cu",
             "library": "ssd_scan",
             # the reference's gradient: jax.grad of its plain chunked scan
             "replaces": "jax.grad of _ssd_chunked_jnp, "
@@ -4671,20 +4764,33 @@ def main() -> int:
             "checked_calls": st["checked"][name], "shape": stm["shape"],
             "dtype": "bfloat16", "share_of_bound": stm["share_of_bound"][name],
             "tflops": stm["tflops"][name],
-            "cuda_launches_per_call": BWD_CUDA_LAUNCHES[name],
+            "cuda_launches_per_call": stm["cuda_launches_per_call"][name],
+            "cuda_launches": stm["cuda_launches"][name],
             "same_bits": stm["same_bits"],
-            "design": {"ssd_bwd_state": "one block a (chunk, head, batch): "
-                                        "U_c = sum_i e^cum_i c_i dy_i^T by "
-                                        "float32 FMAs; then one thread an "
-                                        "element of a (batch, head)'s state, "
-                                        "serial over the chunks in reverse",
-                       "ssd_bwd_chunk": "one block a (chunk, head, batch): "
-                                        "C B^T and dY X^T in shared memory, "
-                                        "dx, db, dc as float32 FMA products "
-                                        "with their decayed lower triangles, "
-                                        "dla by a serial scan; then db and "
-                                        "dc summed over each group's heads "
-                                        "in order; no atomics"}[name],
+            "design": {"ssd_bwd_state": "one launch, one block a (head, "
+                                        "batch) walking the chunks from the "
+                                        "last with G in the accumulators: "
+                                        "G += (e^cum c)^T dy on the tensor "
+                                        "cores (TF32 mma.sync, ldmatrix.trans "
+                                        "fragments), c and dy by cp.async "
+                                        "two chunks ahead; U_c never leaves "
+                                        "the registers",
+                       "ssd_bwd_chunk": "three role kernels (dx, db, dc), a "
+                                        "block a (slice of 8 heads of a "
+                                        "group, chunk, batch) walking its "
+                                        "heads with two heads' x, dy, G or h "
+                                        "in flight by cp.async; C B^T and "
+                                        "dY X^T as bf16 mma.sync on the "
+                                        "tiles at or under the diagonal, "
+                                        "the decayed triangles and the "
+                                        "inter-chunk products as TF32 "
+                                        "mma.sync from the accumulators; "
+                                        "db, dc summed over the slice in "
+                                        "registers, dla's sums from the "
+                                        "fragments by shuffles and warp "
+                                        "scans; then the slices summed in "
+                                        "order and da finished; no "
+                                        "atomics"}[name],
             "kernels": stm["attributes"][name]})
     whole_keys = ("bwd_ms", "bound_ms", "bound_by", "library_ms",
                   "library_fwd_ms", "library_fwd_bwd_ms", "tflops",
@@ -4704,6 +4810,7 @@ def main() -> int:
     smi = _nvidia_smi()
     record["nvidia_smi"] = smi
     record["total_s"] = time.perf_counter() - t_start
+    record["phase_start_s"] = phase_at
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -77,9 +77,9 @@ def time_root(root: Path) -> dict:
 def run_turns(script: str, doc: str) -> int:
     """The A/B harness of a timing script whose ``--time ROOT`` prints one
     turn's JSON: parse ``A_ROOT [B_ROOT]`` from the command line, run the
-    turns A, B, B, A in fresh processes, print each turn and, per key, the
-    median of each root's turns and their ratio, beside the card's name and
-    power limit."""
+    turns A, B, B, A in fresh processes, print each turn and, per numeric
+    key that every turn has, the median of each root's turns and their
+    ratio, beside the card's name and power limit."""
     import torch
 
     if not torch.cuda.is_available() or len(sys.argv) < 2:
@@ -103,7 +103,10 @@ def run_turns(script: str, doc: str) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     summary = {}
+    # the numbers every turn has (a turn may add others, as a dict)
     for key in turns[0][1]:
+        if not all(isinstance(t.get(key), (int, float)) for _, t in turns):
+            continue
         med = {n: statistics.median(t[key] for m, t in turns if m == n)
                for n in ("A", "B")}
         summary[key] = {"A": med["A"], "B": med["B"],

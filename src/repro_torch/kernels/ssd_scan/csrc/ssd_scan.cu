@@ -69,6 +69,7 @@
 #include <stdint.h>
 
 #include "../../flash_attention/csrc/tensor_core.cuh"
+#include "ssd_chunk.cuh"
 
 namespace {
 
@@ -78,41 +79,6 @@ constexpr int kThreads = 256;
 constexpr int kMaxL = 128;
 constexpr int kR = 16;        // FMA: rows of y (and of c and the scores) a tile
 constexpr int kNB = 8;        // FMA: state rows a thread in the state product
-
-struct Strides {
-  long long b, s, h;   // batch, seq, head (x) or state group (b, c)
-};
-
-struct Dims {
-  int S, H, rep, P, N, L, nC;
-};
-
-__host__ __device__ __forceinline__ int round_up(int v, int m) {
-  return (v + m - 1) / m * m;
-}
-
-// cum[0 .. 128) = prefix sums of log a over the chunk's L steps (held flat
-// past L): warp 0, four steps a lane
-__device__ __forceinline__ void chunk_cum(float* cum, const float* lb, int H,
-                                          int L, int lane) {
-  float v[4];
-  float run = 0.f;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const int j = 4 * lane + t;
-    run += (j < L) ? lb[static_cast<long long>(j) * H] : 0.f;
-    v[t] = run;
-  }
-  float incl = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float up = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += up;
-  }
-  const float excl = incl - run;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) cum[4 * lane + t] = excl + v[t];
-}
 
 // ---------------------------------------------------------------------------
 // kernel 2: the state recurrence over the chunks (both types)

@@ -1,7 +1,8 @@
-// ssd_scan_bwd: the gradient of the Mamba2 SSD chunked scan (K5's backward),
-// in four kernels, float32 FMAs for float32 and bfloat16 inputs alike.
-// A second source of the ssd_scan library: it is compiled beside
-// ssd_scan.cu into one shared object.
+// ssd_scan_bwd: the gradient of the Mamba2 SSD chunked scan (K5's backward):
+// the entry points for both types, and for float32 inputs four kernels of
+// float32 FMAs (1-4 below).  bfloat16 inputs go to the tensor-core kernels
+// of ssd_scan_bwd_mma.cu (5-9).  Both are sources of the ssd_scan library:
+// they are compiled beside ssd_scan.cu into one shared object.
 //
 // Replaces no Pallas kernel: the reference trains through jax.grad of its
 // plain chunked form (src/repro/models/ssm.py, _ssd_chunked_jnp), and its
@@ -57,25 +58,25 @@
 // each warp runs only its own part of the triangle, over an operand staged
 // whole (no barrier inside), and the two warps on one scheduler hold
 // complementary row blocks, so the skipped upper half is work saved.
-// Tensor cores are later work.
+// (TF32 would not hold float32's tolerance, 1e-4, as in the forward.)
 //
-// Bound on the card: mamba2-2.7b's training shape (B = 4, S = 4096, H = 80,
-// N = 128, P = 64, bf16) needs about 15 MFLOP a (batch, head, chunk), 0.15
-// TFLOP a layer; kernel 3 reads the float32 states and their gradients
-// (0.67 GB), so its bound is bytes.  chip_smoke.py computes both bounds.
+// Bound on the card: mamba2-2.7b's shape (B = 4, S = 4096, H = 80, N =
+// 128, P = 64) needs about 15 MFLOP a (batch, head, chunk), 0.15 TFLOP a
+// layer; the chunk gradients read the float32 states and their gradients
+// (0.67 GB), so the bound is bytes.  chip_smoke.py computes both bounds (for
+// bf16, the training path's type: ssd_scan_bwd_mma.cu).
 //
 // Strides: x, b and c are read through their (batch, seq, head or group)
 // strides with 64-bit offsets (the views models.ssm splits out of one
 // projection); dy, loga, a and the outputs are dense.  S is a multiple of L
 // (the wrapper pads with a = 1 and zeros), L, N, P <= 128.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "ssd_chunk.cuh"
 
-typedef __nv_bfloat16 bf16;
+namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxL = 128;     // largest L, N, P
@@ -84,47 +85,8 @@ constexpr int kKt = 32;        // depth of a staged tile
 constexpr int kPassU = 8;      // chunks the reverse pass loads ahead
 constexpr float kFloor = 1e-37f;
 
-struct Strides {
-  long long b, s, h;   // batch, seq, head (x) or state group (b, c)
-};
-
-struct Dims {
-  int S, H, rep, P, N, L, nC;
-};
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const bf16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(bf16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-// cum[0 .. 128) = prefix sums of log a over the chunk's L steps (held flat
-// past L): warp 0, four steps a lane, as the forward's
-__device__ __forceinline__ void chunk_cum(float* cum, const float* lb, int H,
-                                          int L, int lane) {
-  float v[4];
-  float run = 0.f;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const int j = 4 * lane + t;
-    run += (j < L) ? lb[static_cast<long long>(j) * H] : 0.f;
-    v[t] = run;
-  }
-  float incl = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float up = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += up;
-  }
-  const float excl = incl - run;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) cum[4 * lane + t] = excl + v[t];
 }
 
 // A thread's place in a 128-row output: rows row0 + r (r < 8), columns
@@ -154,8 +116,7 @@ constexpr int kBatch = 16;
 // stage[kk][r] = rscale[r] kscale[k] src[r][k] for k = k0 + kk, kk < kKt,
 // from a source whose k index is contiguous (row r at r * rstride); zero
 // past R rows or K.  A warp reads 32 consecutive k of a row.
-template <typename T>
-__device__ __forceinline__ void stage_rk(float* stg, const T* src,
+__device__ __forceinline__ void stage_rk(float* stg, const float* src,
                                          long long rstride, int R, int K,
                                          int k0, const float* rscale,
                                          const float* kscale, int tid) {
@@ -166,7 +127,7 @@ __device__ __forceinline__ void stage_rk(float* stg, const T* src,
 #pragma unroll
   for (int it = 0; it < kPer; ++it) {
     const int r = tid / kKt + it * (kThreads / kKt);
-    v[it] = (r < R && k < K) ? ld(src + r * rstride + k) : 0.f;
+    v[it] = (r < R && k < K) ? src[r * rstride + k] : 0.f;
   }
 #pragma unroll
   for (int it = 0; it < kPer; ++it) {
@@ -183,8 +144,8 @@ __device__ __forceinline__ void stage_rk(float* stg, const T* src,
 // stage[kk][col] = kscale[k] src[k][col] for k = k0 + kk, kk < DEPTH, from
 // a source whose column index is contiguous (row k at k * kstride); zero
 // past C columns or K.  Consecutive threads read consecutive columns.
-template <int DEPTH, typename T>
-__device__ __forceinline__ void stage_kc(float* stg, const T* src,
+template <int DEPTH>
+__device__ __forceinline__ void stage_kc(float* stg, const float* src,
                                          long long kstride, int C, int K,
                                          int k0, const float* kscale,
                                          int tid) {
@@ -197,7 +158,7 @@ __device__ __forceinline__ void stage_kc(float* stg, const T* src,
 #pragma unroll
     for (int it = 0; it < kBatch; ++it) {
       const int k = k0 + tid / kMaxL + (b0 + it) * (kThreads / kMaxL);
-      v[it] = (col < C && k < K) ? ld(src + k * kstride + col) : 0.f;
+      v[it] = (col < C && k < K) ? src[k * kstride + col] : 0.f;
     }
 #pragma unroll
     for (int it = 0; it < kBatch; ++it) {
@@ -249,10 +210,11 @@ __device__ __forceinline__ void zero(float (&acc)[8][TN]) {
 // row dot of the tile with v[row][col] (columns < C), summed over the 16
 // threads of the row in a fixed shuffle tree; written to out[row] by the
 // thread with tx = 0 for rows < R
-template <int TN, typename T>
-__device__ __forceinline__ void row_dots(const float (&acc)[8][TN], const T* v,
-                                         long long vstride, int R, int C,
-                                         float* out, const Place& pl) {
+template <int TN>
+__device__ __forceinline__ void row_dots(const float (&acc)[8][TN],
+                                         const float* v, long long vstride,
+                                         int R, int C, float* out,
+                                         const Place& pl) {
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int row = pl.row0 + r;
@@ -261,7 +223,7 @@ __device__ __forceinline__ void row_dots(const float (&acc)[8][TN], const T* v,
 #pragma unroll
       for (int q = 0; q < TN; ++q) {
         const int col = pl.col(q);
-        if (col < C) s = fmaf(acc[r][q], ld(v + row * vstride + col), s);
+        if (col < C) s = fmaf(acc[r][q], v[row * vstride + col], s);
       }
     }
 #pragma unroll
@@ -271,10 +233,10 @@ __device__ __forceinline__ void row_dots(const float (&acc)[8][TN], const T* v,
   }
 }
 
-template <int TN, typename T>
-__device__ __forceinline__ void store_tile(const float (&acc)[8][TN], T* dst,
-                                           long long rstride, int R, int C,
-                                           const Place& pl) {
+template <int TN>
+__device__ __forceinline__ void store_tile(const float (&acc)[8][TN],
+                                           float* dst, long long rstride,
+                                           int R, int C, const Place& pl) {
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int row = pl.row0 + r;
@@ -282,7 +244,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[8][TN], T* dst,
 #pragma unroll
     for (int q = 0; q < TN; ++q) {
       const int col = pl.col(q);
-      if (col < C) st(dst + row * rstride + col, acc[r][q]);
+      if (col < C) dst[row * rstride + col] = acc[r][q];
     }
   }
 }
@@ -295,9 +257,9 @@ struct StateLayout {   // floats: As, Bs [kKt][kLd]; cum, e^cum [128]
   static constexpr size_t floats() { return 2 * kKt * kLd + 2 * kMaxL; }
 };
 
-template <typename T, int TNP>
+template <int TNP>
 __global__ void __launch_bounds__(kThreads, 2)
-ssd_bwd_chunk_state(const T* __restrict__ cm, const T* __restrict__ dy,
+ssd_bwd_chunk_state(const float* __restrict__ cm, const float* __restrict__ dy,
                     const float* __restrict__ loga, float* __restrict__ u,
                     Dims dm, Strides cs) {
   extern __shared__ float4 smem4[];
@@ -311,8 +273,8 @@ ssd_bwd_chunk_state(const T* __restrict__ cm, const T* __restrict__ dy,
   const int c0 = cc * dm.L;
   const int grp = hh / dm.rep;
   const long long dys = static_cast<long long>(dm.H) * dm.P;   // dy's seq
-  const T* cg = cm + bb * cs.b + grp * cs.h + c0 * cs.s;
-  const T* dyb = dy + (static_cast<long long>(bb) * dm.S + c0) * dys +
+  const float* cg = cm + bb * cs.b + grp * cs.h + c0 * cs.s;
+  const float* dyb = dy + (static_cast<long long>(bb) * dm.S + c0) * dys +
                  static_cast<long long>(hh) * dm.P;
   if (tid < 32) {
     chunk_cum(cum, loga + (static_cast<long long>(bb) * dm.S + c0) * dm.H + hh,
@@ -390,13 +352,13 @@ struct ChunkLayout {
   }
 };
 
-template <typename T, int TNP>
+template <int TNP>
 __global__ void __launch_bounds__(kThreads, 1)
-ssd_bwd_chunk(const T* __restrict__ x, const float* __restrict__ a,
-              const float* __restrict__ loga, const T* __restrict__ bm,
-              const T* __restrict__ cm, const T* __restrict__ dy,
+ssd_bwd_chunk(const float* __restrict__ x, const float* __restrict__ a,
+              const float* __restrict__ loga, const float* __restrict__ bm,
+              const float* __restrict__ cm, const float* __restrict__ dy,
               const float* __restrict__ states,
-              const float* __restrict__ grads, T* __restrict__ dx,
+              const float* __restrict__ grads, float* __restrict__ dx,
               float* __restrict__ da, float* __restrict__ dbp,
               float* __restrict__ dcp, Dims dm, Strides xs, Strides bs,
               Strides cs) {
@@ -426,10 +388,10 @@ ssd_bwd_chunk(const T* __restrict__ x, const float* __restrict__ a,
   const long long hp = static_cast<long long>(dm.H) * P;   // dy, dx seq
   const long long hn = static_cast<long long>(dm.H) * N;   // dbp, dcp seq
   const long long row0 = static_cast<long long>(bb) * dm.S + c0;
-  const T* xb = x + bb * xs.b + hh * xs.h + c0 * xs.s;
-  const T* bg = bm + bb * bs.b + grp * bs.h + c0 * bs.s;
-  const T* cg = cm + bb * cs.b + grp * cs.h + c0 * cs.s;
-  const T* dyb = dy + row0 * hp + static_cast<long long>(hh) * P;
+  const float* xb = x + bb * xs.b + hh * xs.h + c0 * xs.s;
+  const float* bg = bm + bb * bs.b + grp * bs.h + c0 * bs.s;
+  const float* cg = cm + bb * cs.b + grp * cs.h + c0 * cs.s;
+  const float* dyb = dy + row0 * hp + static_cast<long long>(hh) * P;
   const long long sbase =
       ((static_cast<long long>(bb) * dm.nC + cc) * dm.H + hh) * N * P;
   const float* hb = states + sbase;
@@ -606,10 +568,10 @@ ssd_bwd_chunk(const T* __restrict__ x, const float* __restrict__ a,
 // kernel 4: db, dc = the per-head partials summed over each group's heads
 // ---------------------------------------------------------------------------
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ssd_bwd_group_sum(const float* __restrict__ dbp, const float* __restrict__ dcp,
-                  T* __restrict__ db, T* __restrict__ dc, long long total,
+                  float* __restrict__ db, float* __restrict__ dc,
+                  long long total,
                   int H, int G, int N, int rep) {
   const long long e = static_cast<long long>(blockIdx.x) * kThreads +
                       threadIdx.x;
@@ -624,8 +586,8 @@ ssd_bwd_group_sum(const float* __restrict__ dbp, const float* __restrict__ dcp,
     sb += dbp[base + static_cast<long long>(r) * N];
     sc += dcp[base + static_cast<long long>(r) * N];
   }
-  st(db + e, sb);
-  st(dc + e, sc);
+  db[e] = sb;
+  dc[e] = sc;
 }
 
 // ---------------------------------------------------------------------------
@@ -644,16 +606,16 @@ bool dims_ok(int G, int H, int N, int P, int L, int S) {
          N <= kMaxL && P <= kMaxL && S % L == 0;
 }
 
-template <typename T, int TNP>
+template <int TNP>
 int state_t(const void* c, const void* dy, const void* loga,
             const void* decay, void* grads, int B, const Dims& dm,
             Strides cs, cudaStream_t st) {
   const size_t smem = StateLayout::floats() * 4;
-  cudaError_t err = allow_smem(ssd_bwd_chunk_state<T, TNP>, smem);
+  cudaError_t err = allow_smem(ssd_bwd_chunk_state<TNP>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   float* g = static_cast<float*>(grads);
-  ssd_bwd_chunk_state<T, TNP><<<dim3(dm.nC, dm.H, B), kThreads, smem, st>>>(
-      static_cast<const T*>(c), static_cast<const T*>(dy),
+  ssd_bwd_chunk_state<TNP><<<dim3(dm.nC, dm.H, B), kThreads, smem, st>>>(
+      static_cast<const float*>(c), static_cast<const float*>(dy),
       static_cast<const float*>(loga), g, dm, cs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -663,39 +625,58 @@ int state_t(const void* c, const void* dy, const void* loga,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int TNP>
+template <int TNP>
 int chunk_t(const void* x, const void* a, const void* loga, const void* b,
             const void* c, const void* dy, const void* states,
             const void* grads, void* dx, void* da, void* dbp, void* dcp,
             void* db, void* dc, int B, int G, const Dims& dm, Strides xs,
             Strides bs, Strides cs, cudaStream_t st) {
   const size_t smem = ChunkLayout::floats() * 4;
-  cudaError_t err = allow_smem(ssd_bwd_chunk<T, TNP>, smem);
+  cudaError_t err = allow_smem(ssd_bwd_chunk<TNP>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_chunk<T, TNP><<<dim3(dm.nC, dm.H, B), kThreads, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const float*>(a),
-      static_cast<const float*>(loga), static_cast<const T*>(b),
-      static_cast<const T*>(c), static_cast<const T*>(dy),
+  ssd_bwd_chunk<TNP><<<dim3(dm.nC, dm.H, B), kThreads, smem, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(a),
+      static_cast<const float*>(loga), static_cast<const float*>(b),
+      static_cast<const float*>(c), static_cast<const float*>(dy),
       static_cast<const float*>(states), static_cast<const float*>(grads),
-      static_cast<T*>(dx), static_cast<float*>(da), static_cast<float*>(dbp),
-      static_cast<float*>(dcp), dm, xs, bs, cs);
+      static_cast<float*>(dx), static_cast<float*>(da),
+      static_cast<float*>(dbp), static_cast<float*>(dcp), dm, xs, bs, cs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long total = static_cast<long long>(B) * dm.S * G * dm.N;
   const long long blocks = (total + kThreads - 1) / kThreads;
-  ssd_bwd_group_sum<T><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+  ssd_bwd_group_sum<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
       static_cast<const float*>(dbp), static_cast<const float*>(dcp),
-      static_cast<T*>(db), static_cast<T*>(dc), total, dm.H, G, dm.N, dm.rep);
+      static_cast<float*>(db), static_cast<float*>(dc), total, dm.H, G, dm.N,
+      dm.rep);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Kernels 1 and 2: grads (B, S / L, H, N, P) float32, dense, gets G_c, the
-// gradient of the state leaving each chunk.  c is (B, S, G, N) through its
-// (batch, seq, group) strides; dy (B, S, H, P) dense, c's type (bf16 when
-// is_bf16, else float32); loga (B, S, H) and decay (B, S / L, H, the
-// forward's summed log decay a chunk) float32, dense.  Two launches.
+// the bf16 kernels, in ssd_scan_bwd_mma.cu
+namespace ssd_bwd_mma {
+int parts(int rep);
+int state(const void* c, const void* dy, const void* loga, const void* decay,
+          void* grads, int B, int S, int H, int G, int P, int N, int L,
+          long long csb, long long css, long long csh, cudaStream_t st);
+int chunk(const void* x, const void* a, const void* loga, const void* b,
+          const void* c, const void* dy, const void* states,
+          const void* grads, void* dx, void* da, void* dsuf, void* dbp,
+          void* dcp, void* db, void* dc, int B, int S, int H, int G, int P,
+          int N, int L, long long xsb, long long xss, long long xsh,
+          long long bsb, long long bss, long long bsh, long long csb,
+          long long css, long long csh, cudaStream_t st);
+bool entry(int kernel, int L, int N, int P, const char** name,
+           const void** fn, long long* smem);
+}  // namespace ssd_bwd_mma
+
+// grads (B, S / L, H, N, P) float32, dense, gets G_c, the gradient of the
+// state leaving each chunk.  c is (B, S, G, N) through its (batch, seq,
+// group) strides; dy (B, S, H, P) dense, c's type (bf16 when is_bf16, else
+// float32); loga (B, S, H) and decay (B, S / L, H, the forward's summed log
+// decay a chunk) float32, dense.  bf16: one launch (kernel 5, G rounded to
+// TF32); float32: kernels 1 and 2.
 extern "C" int ssd_bwd_state_launch(const void* c, const void* dy,
                                     const void* loga, const void* decay,
                                     void* grads, int is_bf16, int B, int S,
@@ -709,23 +690,30 @@ extern "C" int ssd_bwd_state_launch(const void* c, const void* dy,
   const Strides cs{csb, css, csh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return P <= 64
-               ? state_t<bf16, 4>(c, dy, loga, decay, grads, B, dm, cs, st)
-               : state_t<bf16, 8>(c, dy, loga, decay, grads, B, dm, cs, st);
+    return ssd_bwd_mma::state(c, dy, loga, decay, grads, B, S, H, G, P, N, L,
+                              csb, css, csh, st);
   return P <= 64
-             ? state_t<float, 4>(c, dy, loga, decay, grads, B, dm, cs, st)
-             : state_t<float, 8>(c, dy, loga, decay, grads, B, dm, cs, st);
+             ? state_t<4>(c, dy, loga, decay, grads, B, dm, cs, st)
+             : state_t<8>(c, dy, loga, decay, grads, B, dm, cs, st);
 }
 
-// Kernels 3 and 4: dx (B, S, H, P, x's type), da (B, S, H, float32), db and
-// dc (B, S, G, N, b's type), all dense; dbp and dcp (B, S, H, N) float32
-// scratch for the per-head partials.  x, b, c through their strides; a
-// (padded with 1), loga, states and grads (B, S / L, H, N, P) float32 dense.
-// Two launches.
+// The rows of the db and dc partials a (batch, seq, group): a head's each
+// for float32 (kernel 3), a slice of heads' each for bf16 (kernels 7, 8).
+extern "C" int ssd_bwd_parts(int is_bf16, int H, int G) {
+  if (G <= 0 || H % G != 0) return -1;
+  return is_bf16 ? ssd_bwd_mma::parts(H / G) : H / G;
+}
+
+// dx (B, S, H, P, x's type), da (B, S, H, float32), db and dc (B, S, G, N,
+// b's type), all dense; dbp and dcp (B, S, G, parts, N) float32 scratch for
+// the partials (parts from ssd_bwd_parts), dsuf (B, S, H) float32 scratch
+// (bf16 only).  x, b, c through their strides; a (padded with 1), loga,
+// states and grads (B, S / L, H, N, P) float32 dense.  Kernels 6-9 (bf16)
+// or 3 and 4 (float32).
 extern "C" int ssd_bwd_chunk_launch(
     const void* x, const void* a, const void* loga, const void* b,
     const void* c, const void* dy, const void* states, const void* grads,
-    void* dx, void* da, void* dbp, void* dcp, void* db, void* dc,
+    void* dx, void* da, void* dsuf, void* dbp, void* dcp, void* db, void* dc,
     int is_bf16, int B, int S, int H, int G, int P, int N, int L,
     long long xsb, long long xss, long long xsh, long long bsb,
     long long bss, long long bsh, long long csb, long long css,
@@ -737,55 +725,74 @@ extern "C" int ssd_bwd_chunk_launch(
   const Strides xs{xsb, xss, xsh}, bs{bsb, bss, bsh}, cs{csb, css, csh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return P <= 64
-               ? chunk_t<bf16, 4>(x, a, loga, b, c, dy, states, grads, dx, da,
-                                  dbp, dcp, db, dc, B, G, dm, xs, bs, cs, st)
-               : chunk_t<bf16, 8>(x, a, loga, b, c, dy, states, grads, dx, da,
-                                  dbp, dcp, db, dc, B, G, dm, xs, bs, cs, st);
+    return ssd_bwd_mma::chunk(x, a, loga, b, c, dy, states, grads, dx, da,
+                              dsuf, dbp, dcp, db, dc, B, S, H, G, P, N, L, xsb,
+                              xss, xsh, bsb, bss, bsh, csb, css, csh, st);
   return P <= 64
-             ? chunk_t<float, 4>(x, a, loga, b, c, dy, states, grads, dx, da,
+             ? chunk_t<4>(x, a, loga, b, c, dy, states, grads, dx, da,
                                  dbp, dcp, db, dc, B, G, dm, xs, bs, cs, st)
-             : chunk_t<float, 8>(x, a, loga, b, c, dy, states, grads, dx, da,
+             : chunk_t<8>(x, a, loga, b, c, dy, states, grads, dx, da,
                                  dbp, dcp, db, dc, B, G, dm, xs, bs, cs, st);
 }
 
-// kernel 1 (chunk state gradients), 2 (reverse pass), 3 (chunk gradients) or
-// 4 (group sum) as a call with d_head P runs it: its registers a thread, its
-// local memory a thread (spills), and the dynamic shared memory the launch
-// requests
-extern "C" int ssd_bwd_attributes(int is_bf16, int kernel, int P, int* regs,
-                                  int* local_bytes, long long* smem) {
-  cudaFuncAttributes attr;
-  cudaError_t err;
+// The backward's kernels, by number, in the one table the name and the
+// attributes lookups read (ops.BWD_KERNELS lists each wrapper's): float32 1
+// (chunk state gradients), 2 (reverse pass), 3 (chunk gradients), 4 (group
+// sum) here; bf16 on the tensor cores 5-9 in ssd_scan_bwd_mma.cu.  Kernel
+// k's name, its function as a launch at chunk L, d_state N and d_head P
+// runs it, and the dynamic shared memory that launch requests; false for
+// another number.
+static bool bwd_kernel(int kernel, int L, int N, int P, const char** name,
+                       const void** fn, long long* smem) {
   const bool narrow = P <= 64;
-  if (kernel == 1) {
-    err = is_bf16 ? (narrow ? cudaFuncGetAttributes(
-                                  &attr, ssd_bwd_chunk_state<bf16, 4>)
-                            : cudaFuncGetAttributes(
-                                  &attr, ssd_bwd_chunk_state<bf16, 8>))
-                  : (narrow ? cudaFuncGetAttributes(
-                                  &attr, ssd_bwd_chunk_state<float, 4>)
-                            : cudaFuncGetAttributes(
-                                  &attr, ssd_bwd_chunk_state<float, 8>));
-    *smem = StateLayout::floats() * 4;
-  } else if (kernel == 2) {
-    err = cudaFuncGetAttributes(&attr, ssd_bwd_pass);
-    *smem = 0;
-  } else if (kernel == 3) {
-    err = is_bf16
-              ? (narrow ? cudaFuncGetAttributes(&attr, ssd_bwd_chunk<bf16, 4>)
-                        : cudaFuncGetAttributes(&attr, ssd_bwd_chunk<bf16, 8>))
-              : (narrow ? cudaFuncGetAttributes(&attr, ssd_bwd_chunk<float, 4>)
-                        : cudaFuncGetAttributes(&attr,
-                                                ssd_bwd_chunk<float, 8>));
-    *smem = ChunkLayout::floats() * 4;
-  } else if (kernel == 4) {
-    err = is_bf16 ? cudaFuncGetAttributes(&attr, ssd_bwd_group_sum<bf16>)
-                  : cudaFuncGetAttributes(&attr, ssd_bwd_group_sum<float>);
-    *smem = 0;
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  switch (kernel) {
+    case 1:
+      *name = "ssd_bwd_chunk_state";
+      *fn = narrow ? reinterpret_cast<const void*>(ssd_bwd_chunk_state<4>)
+                   : reinterpret_cast<const void*>(ssd_bwd_chunk_state<8>);
+      *smem = StateLayout::floats() * 4;
+      return true;
+    case 2:
+      *name = "ssd_bwd_pass";
+      *fn = reinterpret_cast<const void*>(ssd_bwd_pass);
+      *smem = 0;
+      return true;
+    case 3:
+      *name = "ssd_bwd_chunk";
+      *fn = narrow ? reinterpret_cast<const void*>(ssd_bwd_chunk<4>)
+                   : reinterpret_cast<const void*>(ssd_bwd_chunk<8>);
+      *smem = ChunkLayout::floats() * 4;
+      return true;
+    case 4:
+      *name = "ssd_bwd_group_sum";
+      *fn = reinterpret_cast<const void*>(ssd_bwd_group_sum);
+      *smem = 0;
+      return true;
+    default:
+      return ssd_bwd_mma::entry(kernel, L, N, P, name, fn, smem);
   }
+}
+
+// kernel k's name, or null for another number
+extern "C" const char* ssd_bwd_kernel_name(int kernel) {
+  const char* name;
+  const void* fn;
+  long long smem;
+  return bwd_kernel(kernel, 128, 128, 64, &name, &fn, &smem) ? name
+                                                             : nullptr;
+}
+
+// kernel k as a call at chunk L, d_state N and d_head P runs it: its
+// registers a thread, its local memory a thread (spills), and the dynamic
+// shared memory the launch requests
+extern "C" int ssd_bwd_attributes(int kernel, int L, int N, int P, int* regs,
+                                  int* local_bytes, long long* smem) {
+  const char* name;
+  const void* fn;
+  if (!bwd_kernel(kernel, L, N, P, &name, &fn, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);
   *regs = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);

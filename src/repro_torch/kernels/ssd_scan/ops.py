@@ -29,20 +29,25 @@ When a gradient is wanted (grad mode on and an input that requires it),
 writes it out).  On a card the forward keeps its scratch, the state
 entering each chunk (335 MB at B=4, S=4096; under remat "full" only the
 layer being differentiated holds one), and the backward is the kernels of
-``csrc/ssd_scan_bwd.cu`` (built into the same library as the forward)
-behind two wrappers, which ``ssd_scan_bwd`` chains: ``ssd_bwd_state`` (the
-gradient of the state leaving each chunk: a chunk kernel, then a reverse
-pass) and ``ssd_bwd_chunk`` (dx, da and each head's db and dc a chunk, then
-db and dc summed over each state group's heads in a fixed order; float32
-partials (B, S, H, N), 671 MB each at mamba2's B=4).  The three take CUDA
-tensors only.  On the CPU the forward keeps nothing and the backward is
+``csrc/ssd_scan_bwd.cu`` and ``csrc/ssd_scan_bwd_mma.cu`` (built into the
+same library as the forward) behind two wrappers, which ``ssd_scan_bwd``
+chains: ``ssd_bwd_state`` (the gradient of the state leaving each chunk)
+and ``ssd_bwd_chunk`` (dx, da, db and dc a chunk, then db and dc summed
+over each state group's partials in a fixed order).  bfloat16 runs on the
+tensor cores: the state gradients in one launch that walks the chunks, and
+the chunk gradients by blocks that each walk 8 heads of a group, so the
+float32 partials are (B, S, G, ceil(heads a group / 8), N), 84 MB each at
+mamba2's B=4.  float32 runs float32 FMAs: a chunk kernel and a reverse
+pass, and per-head partials (B, S, H, N), 671 MB each.  ``BWD_KERNELS``
+names each wrapper's kernels by type.  The three take CUDA tensors only.
+On the CPU the forward keeps nothing and the backward is
 ``ref.ssd_bwd_ref``, the chunked backward in tensor ops.  Without a
 gradient no autograd node is made and nothing is kept.  No atomics: a
 gradient has the same bits on every run.
 
 ``ssd_scan.launches`` counts the forward's calls that launched its kernels;
 ``ssd_bwd_state.launches`` and ``ssd_bwd_chunk.launches`` the backward's
-(one each a backward on a card).
+(one each a backward on a card, whatever the CUDA launches a call makes).
 """
 from __future__ import annotations
 
@@ -54,11 +59,17 @@ from .. import load_kernel
 from .ref import log_decay, pad_chunks, ssd_bwd_ref, ssd_ref
 
 __all__ = ["ssd_scan", "ssd_scan_bwd", "ssd_bwd_state", "ssd_bwd_chunk",
-           "MAX_TILE", "CUDA_LAUNCHES", "BWD_CUDA_LAUNCHES"]
+           "MAX_TILE", "CUDA_LAUNCHES", "BWD_KERNELS"]
 
 MAX_TILE = 128              # the kernels' largest chunk L, d_state N, d_head P
 CUDA_LAUNCHES = 3           # kernels a forward call launches
-BWD_CUDA_LAUNCHES = {"ssd_bwd_state": 2, "ssd_bwd_chunk": 2}
+# the kernels each backward wrapper launches, in order, by their numbers in
+# csrc/ssd_scan_bwd.cu's table of the backward's kernels (``bwd_kernel``,
+# read through ``ssd_bwd_kernel_name`` and ``ssd_bwd_attributes``)
+BWD_KERNELS = {torch.bfloat16: {"ssd_bwd_state": (5,),
+                                "ssd_bwd_chunk": (6, 7, 8, 9)},
+               torch.float32: {"ssd_bwd_state": (1, 2),
+                               "ssd_bwd_chunk": (3, 4)}}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -205,9 +216,11 @@ def ssd_bwd_state(c: torch.Tensor, dy: torch.Tensor, loga: torch.Tensor,
                   decay: torch.Tensor, *, chunk: int) -> torch.Tensor:
     """G_c (B, nC, H, N, P) float32, the gradient of the state leaving each
     chunk, from c (B, S, G, N), dy (B, S, H, P), loga (B, S, H) and the
-    forward's decay (B, nC, H), S a multiple of `chunk`: two kernels, CUDA
-    tensors only (dy and c of one type; c through its strides, the rest
-    dense).  Its plain version is ``ref.ssd_bwd_state_ref``."""
+    forward's decay (B, nC, H), S a multiple of `chunk` (``BWD_KERNELS``
+    names the kernels; for bfloat16 G comes rounded to TF32, as the chunk
+    kernel's products take it), CUDA tensors only (dy and c of one type; c
+    through its strides, the rest dense).  Its plain version is
+    ``ref.ssd_bwd_state_ref``."""
     _cuda_only("ssd_bwd_state", c)
     B, S, H, P = dy.shape
     G, N = c.shape[2], c.shape[3]
@@ -244,8 +257,9 @@ def ssd_bwd_chunk(x, a, loga, b, c, dy, states, grads, *, chunk: int):
     (B, S, G, N), dy (B, S, H, P), the states entering the chunks and the
     gradients leaving them ((B, nC, H, N, P) float32), S a multiple of
     `chunk`: dx in x's type, da in loga's, db and dc in b's, summed over
-    each group's heads.  Two kernels, CUDA tensors only (x, b, c through
-    their strides; a float32; the rest dense).  Its plain version is
+    each group's heads.  The kernels ``BWD_KERNELS`` names (bf16: four,
+    float32: two), CUDA tensors only (x, b, c through their strides; a
+    float32; the rest dense).  Its plain version is
     ``ref.ssd_bwd_chunk_ref``."""
     _cuda_only("ssd_bwd_chunk", x)
     B, S, H, P = x.shape
@@ -269,18 +283,27 @@ def ssd_bwd_chunk(x, a, loga, b, c, dy, states, grads, *, chunk: int):
     dc = torch.empty((B, S, G, N), dtype=b.dtype, device=dev)
     if dx.numel() == 0 or db.numel() == 0:
         return dx.zero_(), da.zero_(), db.zero_(), dc.zero_()
-    dbp = torch.empty((B, S, H, N), dtype=torch.float32, device=dev)
+    lib = load_kernel("ssd_scan")
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    lib.ssd_bwd_parts.argtypes = [ctypes.c_int] * 3
+    lib.ssd_bwd_parts.restype = ctypes.c_int
+    parts = lib.ssd_bwd_parts(is_bf16, H, G)
+    dbp = torch.empty((B, S, G, parts, N), dtype=torch.float32, device=dev)
     dcp = torch.empty_like(dbp)
-    fn = load_kernel("ssd_scan").ssd_bwd_chunk_launch
-    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
+    # the suffix term of dla, which the bf16 chunk kernel adds in its last
+    # launch (float32 does not read it)
+    dsuf = torch.empty((B, S, H) if is_bf16 else (0,), dtype=torch.float32,
+                       device=dev)
+    fn = lib.ssd_bwd_chunk_launch
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 8
                    + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     _launch(fn, "ssd_bwd_chunk", dev, x.data_ptr(), a.data_ptr(),
             loga.data_ptr(), b.data_ptr(), c.data_ptr(), dy.data_ptr(),
             states.data_ptr(), grads.data_ptr(), dx.data_ptr(),
-            da.data_ptr(), dbp.data_ptr(), dcp.data_ptr(), db.data_ptr(),
-            dc.data_ptr(), int(x.dtype == torch.bfloat16), B, S, H, G, P, N,
-            chunk, *_strides(x, b, c))
+            da.data_ptr(), dsuf.data_ptr(), dbp.data_ptr(), dcp.data_ptr(),
+            db.data_ptr(), dc.data_ptr(), is_bf16, B, S, H, G, P, N, chunk,
+            *_strides(x, b, c))
     ssd_bwd_chunk.launches += 1
     return dx, da, db, dc
 

@@ -435,10 +435,21 @@ def test_flash_attention_serve_path_writes_no_lse():
 # backward's; both sum in float32 in other orders), bf16 1e-2 (set from
 # readings: 3.4e-3 at most, dx at S = 4096, where the card's forward keeps
 # TF32-rounded states and the gradients are rounded to bf16)
+# the edges of the bf16 tensor-core kernels (csrc/ssd_scan_bwd_mma.cu):
+# chunks of 64 and 48 (partial 32-column score tiles), N 64 with P 128 (the
+# wide-P accumulators and one stage in flight), a group of two heads and one
+# of twelve (a walk of 8 heads, then one of 4), a padded last chunk at
+# mamba2's heads, N and P not multiples of 8 (element-wise staging, 16-wide
+# padding)
+_SSD_BWD_EDGES = [(2, 256, 16, 2, 128, 64, 64), (1, 240, 12, 4, 72, 40, 48),
+                  (1, 256, 8, 1, 64, 128, 128), (2, 300, 6, 3, 128, 64, 128),
+                  (1, 128, 24, 2, 64, 32, 64), (1, 257, 80, 1, 128, 64, 128),
+                  (1, 100, 4, 2, 20, 12, 32)]
 _SSD_BWD_SHAPES = [(1, S, 80, 1, 128, 64, 128)
                    for S in (1, 127, 128, 129, 4096)] \
     + [(1, 384, 256, 8, 128, 64, 128), (2, 24, 16, 1, 16, 8, 16),
-       (2, 50, 6, 3, 16, 8, 16)]
+       (2, 50, 6, 3, 16, 8, 16)] \
+    + _SSD_BWD_EDGES
 _SSD_BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 
 
@@ -519,6 +530,60 @@ def test_ssd_scan_backward_gives_the_same_bits_twice():
         torch.cuda.synchronize()
         for u, v in zip(*runs):
             assert torch.equal(u, v)
+
+
+def test_ssd_scan_backward_runs_the_tensor_core_kernels():
+    """bf16 runs the tensor-core kernels and float32 the FMA kernels, as
+    BWD_KERNELS names them: the library reports each one's name, registers
+    and shared memory (the bf16 ones within 255 registers and without local
+    memory at mamba2's shape and at P = 128), and the profiler sees exactly
+    the named kernels run in a backward of each type."""
+    import ctypes
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import load_kernel
+    from repro_torch.kernels.ssd_scan import BWD_KERNELS
+    from repro_torch.kernels.ssd_scan.ops import _forward
+
+    dev = _card()
+    lib = load_kernel("ssd_scan")
+    lib.ssd_bwd_kernel_name.argtypes = [ctypes.c_int]
+    lib.ssd_bwd_kernel_name.restype = ctypes.c_char_p
+    names = {dt: {w: [lib.ssd_bwd_kernel_name(k).decode() for k in ks]
+                  for w, ks in kinds.items()}
+             for dt, kinds in BWD_KERNELS.items()}
+    assert names[torch.bfloat16] == {
+        "ssd_bwd_state": ["ssd_bwd_state_mma"],
+        "ssd_bwd_chunk": ["ssd_bwd_dx_mma", "ssd_bwd_db_mma",
+                          "ssd_bwd_dc_mma", "ssd_bwd_finish"]}
+    assert names[torch.float32] == {
+        "ssd_bwd_state": ["ssd_bwd_chunk_state", "ssd_bwd_pass"],
+        "ssd_bwd_chunk": ["ssd_bwd_chunk", "ssd_bwd_group_sum"]}
+    for L, N, P in ((128, 128, 64), (128, 64, 128), (16, 16, 8)):
+        for ks in BWD_KERNELS[torch.bfloat16].values():
+            for k in ks:
+                regs, local = ctypes.c_int(), ctypes.c_int()
+                smem = ctypes.c_longlong()
+                assert lib.ssd_bwd_attributes(
+                    k, L, N, P, ctypes.byref(regs), ctypes.byref(local),
+                    ctypes.byref(smem)) == 0
+                assert 0 < regs.value <= 255 and local.value == 0
+                assert 0 <= smem.value <= 232448
+    for dtype in (torch.bfloat16, torch.float32):
+        x, a, b, c, dy = _ssd_bwd_inputs((1, 256, 16, 2, 64, 32, 128), dtype,
+                                         dev, 7)
+        with torch.no_grad():
+            kept = _forward(x, a, b, c, 128, True)[1]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ssd_scan_bwd(x, a, b, c, dy, *kept, chunk=128)
+            torch.cuda.synchronize()
+        ran = {e.key for e in prof.key_averages() if "ssd_bwd" in e.key}
+        want = [n for ns in names[dtype].values() for n in ns]
+        for n in want:
+            assert any(f"::{n}<" in k or f"::{n}(" in k for k in ran), (n, ran)
+        assert len(ran) == len(want), ran
 
 
 def test_ssd_scan_backward_refuses_what_it_does_not_take():

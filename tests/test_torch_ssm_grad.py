@@ -127,6 +127,49 @@ def test_four_term_dla_equals_float64_autograd(shape, chunk):
             1e-10 * float(t.grad.abs().max())
 
 
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32: to nearest on 10 mantissa bits, ties away
+    from zero (the card's cvt.rna.tf32.f32); other types as they are."""
+    if t.dtype != torch.float32:
+        return t
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32).view(t.shape)
+
+
+def test_tf32_operands_keep_the_bf16_backward_within_its_budget(
+        monkeypatch):
+    """The bf16 backward kernels (csrc/ssd_scan_bwd_mma.cu) take TF32 for
+    every product but C B^T and dY X^T.  The plain versions with every
+    float32 operand of their products rounded to TF32 (the decayed
+    triangles, G, h, the e^cum-scaled c; the bf16-valued C, B, dY, X are
+    exact in TF32) against the same versions unrounded, on bf16-valued
+    inputs at one mamba2 chunk width: each of dx, da, db, dc and G within
+    1e-3 of its own largest |value| (the bf16 budget is 1e-2), float32
+    outputs so that no bf16 rounding of the outputs hides the effect, and
+    every one of them moved."""
+    shape, L = (1, 512, 16, 1, 128, 64), 128
+    x, a, b, c, dy = (torch.from_numpy(v).bfloat16().float()
+                      for v in _inputs(shape, 25))
+    loga = log_decay(a)
+    states, decay, _ = ssd_states_ref(x, loga, b, L)
+
+    def backward():
+        grads = ssd_bwd_state_ref(c, dy, loga, decay, L)
+        return (*ssd_bwd_chunk_ref(x, a, loga, b, c, dy, states, grads, L),
+                grads)
+
+    plain = backward()
+    einsum = torch.einsum
+    monkeypatch.setattr(torch, "einsum", lambda eq, *ops: einsum(
+        eq, *(_tf32(o) for o in ops)))
+    rounded = backward()
+    for name, got, want in zip(("dx", "da", "db", "dc", "G"), rounded,
+                               plain):
+        assert got.dtype == torch.float32, name
+        err = float((got - want).abs().max())
+        assert 0.0 < err <= 1e-3 * float(want.abs().max()), (name, err)
+
+
 def test_no_gradient_no_autograd_node():
     """Without a gradient (no_grad, or no input that requires one) the scan
     makes no autograd node and keeps nothing."""
