@@ -342,6 +342,30 @@ Phases; any failure exits non-zero and prints no result line:
       kernel with local memory fails), and the CUDA launches one call of
       each wrapper makes under the profiler (each named kernel once, none
       other, or it fails); two runs must give the same bits.
+17. The mesh (``_mesh``): the dry run and its collectives on the card.
+   a. ``python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape
+      train_4k``, on the 16 x 16 mesh and, with ``--multi-pod``, on the
+      2 x 16 x 16 mesh, two subprocesses started together with the card
+      hidden from them: a fake process group of 256 or 512 ranks, ``meta``
+      tensors, full width, global batch 256 x 4096.  Prints each mesh's
+      FLOPs per device, argument bytes per device, collectives per kind
+      (count and bytes), the H100 roofline terms, the bottleneck and the
+      trace's seconds: figures of a trace, rank 0's share, not of a run.
+   b. The 16 x 16 trace's collective program through
+      ``coflows_from_step(ops, rows=16, cols=16, n_buckets=8)``, planned
+      with ``plan(inst, device="cuda")`` on the pipeline (the counts set
+      to 0 just before and read just after: ``bna_decompose`` and
+      ``merge_fix`` must launch), equal with no tolerance to the same plan
+      on the CPU's pipeline (order, planner and naive makespans); then
+      ``bucket_order_from_plan`` over qwen3-1.7b's leaf paths.
+   c. A real process group: NCCL, world size 1, over a ``HashStore``; a
+      (1, 1) ("data", "model") mesh; one qwen3-1.7b training step at full
+      width, 1 x 4096 tokens, the parameters and moments distributed by
+      the rule table, the gradients redistributed in (b)'s bucket order,
+      K4 through ``local_map`` on the card (the counts set to 0 just
+      before and read just after), against the same step without a mesh
+      from the same seed and batch: the loss must be the same bits, and
+      K4 must launch as often; the grad norm's difference is printed.
 
 float32 matrix products run in full float32 (``allow_tf32`` is set False,
 PyTorch's default, for matmul and cuDNN).
@@ -523,6 +547,13 @@ ATTN_BWD_SHAPES = [(1, 16, 8, S, S, 128) for S in (1, 127, 128, 129, 4096)] \
 # an H100).  bf16 (1e-2, 1e-2), set from readings: 3.4e-3 at most, dx at S
 # = 4096
 SSM_TRAIN_STEPS, SSM_TRAIN_SEQ, SSM_TRAIN_BATCH = 4, 4096, 4
+# phase 17, the mesh: qwen3-1.7b's train_4k cell traced by the dry run (host
+# subprocesses, killed past MESH_TRACE_TIMEOUT s), its 16 x 16 collective
+# program planned in MESH_BUCKETS buckets, and one full-width step of
+# MESH_STEP = (B, S) tokens on a (1, 1) NCCL mesh
+MESH_ARCH, MESH_SHAPE, MESH_BUCKETS, MESH_STEP = "qwen3-1.7b", "train_4k", \
+    8, (1, 4096)
+MESH_TRACE_TIMEOUT = 300
 SSD_BWD = ("ssd_bwd_state", "ssd_bwd_chunk")
 SSD_GRADS = ("dx", "da", "db", "dc")
 SSD_BWD_TOL = {"float32": (1e-4, 2e-5), "bfloat16": (1e-2, 1e-2)}
@@ -2560,6 +2591,257 @@ def _ssm_training(dev, counts) -> dict:
           f"ms a layer, {cfg.n_layers} a step: "
           f"{tm['bwd_ms'] * cfg.n_layers / 1e3:.4f} s; two runs the same "
           f"bits: {tm['same_bits']}.  16(d)-(e) took {out['wall_s']:.1f} s")
+    return out
+
+
+def _dryrun_cells() -> dict:
+    """Phase 17(a): ``python -m repro_torch.launch.dryrun`` of MESH_ARCH x
+    MESH_SHAPE on each mesh, in subprocesses started together (the card
+    hidden from them: the trace runs on the host), each killed if it
+    outlives MESH_TRACE_TIMEOUT.  Returns mesh name -> the cell's
+    record."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    procs = {}
+    for mp in (False, True):
+        name = "2x16x16" if mp else "16x16"
+        out = ROOT / "build" / f"chip_smoke_dryrun_{name}.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               MESH_ARCH, "--shape", MESH_SHAPE, "--out", str(out)]
+        procs[name] = (subprocess.Popen(
+            cmd + (["--multi-pod"] if mp else []), env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), out)
+    cells = {}
+    for name, (proc, out) in procs.items():
+        try:
+            _, err = proc.communicate(timeout=MESH_TRACE_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for p, _ in procs.values():
+                p.kill()
+                p.communicate()
+            _fail(f"17(a) the {name} dry run outlived "
+                  f"{MESH_TRACE_TIMEOUT} s")
+        if proc.returncode != 0:
+            _fail(f"17(a) the {name} dry run exited {proc.returncode}: "
+                  f"{err[-2000:]}")
+        cell = json.loads(out.read_text())[-1]
+        if cell["status"] != "ok":
+            _fail(f"17(a) the {name} cell is {cell['status']}: "
+                  f"{cell.get('trace', cell.get('reason'))}")
+        cells[name] = cell
+    return cells
+
+
+def _mesh(dev, counts) -> dict:
+    """Phase 17: (a) the dry run of qwen3-1.7b's full-width train step on
+    both production meshes (host subprocesses), (b) its 16 x 16 collective
+    program planned on the card's pipeline, equal to the CPU's plan, (c)
+    one full-width step on a (1, 1) NCCL mesh against the same step with
+    no mesh.  ``counts`` = (zero_counts, read_counts).  Returns the
+    record."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.dist.partition import (batch_pspecs, distribute,
+                                            distribute_state)
+    from repro_torch.dist.planner import (CollectiveOp,
+                                          bucket_order_from_plan,
+                                          coflows_from_step, plan)
+    from repro_torch.launch.mesh import (make_production_mesh, mesh_rules,
+                                         one_rank_group)
+    from repro_torch.launch.specs import abstract_params
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.models.sharding import mesh_context
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.step import (build_train_step, init_train_state,
+                                        leaf_paths)
+
+    zero_counts, read_counts = counts
+    out: dict = {}
+    t_phase = time.perf_counter()
+
+    # (a) both traces run on the host while (c)'s step without a mesh runs
+    # on the card; the cells are read before (b)
+    import threading
+    traced: dict = {}
+    tracer = threading.Thread(target=lambda: traced.update(
+        cells=_dryrun_cells()))
+    tracer.start()
+
+    cfg = get_config(MESH_ARCH)
+    B, S = MESH_STEP
+    batch = SyntheticTokens(cfg, DataConfig(seq_len=S, global_batch=B,
+                                            seed=0), device=dev).batch_at(0)
+
+    def fresh_state():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return init_train_state(cfg, torch.Generator(dev).manual_seed(0),
+                                device=dev)
+
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    @torch.no_grad()
+    def fingerprint(state):
+        """Per leaf of the parameters and both moments, in leaf order: the
+        float64 sum and the float64 sum weighted by (flat index mod 1021)
+        + 1, so a moved element shows too.  Held at 0, since equal bits
+        give equal sums."""
+        sums = []
+        for tree in (state.params, state.opt["m"], state.opt["v"]):
+            for t in tree_leaves(tree):
+                x = whole(t).reshape(-1).double()
+                w = torch.arange(x.numel(), device=x.device,
+                                 dtype=torch.float64).remainder_(1021)
+                sums += [x.sum(), (x * w.add_(1)).sum()]
+                del x, w
+        return torch.stack(sums).cpu()
+
+    def timed_step(step, state, b, mesh=None):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mesh is None:
+            state, metrics = step(state, b)
+        else:
+            with mesh_context(mesh, mesh_rules(mesh)):
+                state, metrics = step(state, b)
+        loss = whole(metrics["loss"])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0, read_counts(), loss.clone(),
+                metrics["grad_norm"].clone(), state)
+
+    opt = OptConfig(warmup_steps=1)
+    plain = timed_step(build_train_step(cfg, opt), fresh_state(), batch)
+    plain_fp = fingerprint(plain[-1])
+    plain = plain[:-1]
+    tracer.join()
+    if "cells" not in traced:
+        _fail("17(a) the dry run did not finish")
+    cells = out["dryrun"] = traced["cells"]
+    for name, cell in cells.items():
+        kinds: dict = {}
+        for kind, nbytes, _ in cell["collective_ops"]:
+            k = kinds.setdefault(kind, [0, 0.0])
+            k[0] += 1
+            k[1] += nbytes
+        r = cell["roofline"]
+        print(f"17(a) dry run {MESH_ARCH} {MESH_SHAPE} on {name} (a trace "
+              f"on a fake group of {'512' if name == '2x16x16' else '256'} "
+              f"ranks, rank 0's share): FLOPs/device "
+              f"{cell['cost']['flops']:.6e}, argument bytes/device "
+              f"{cell['memory']['argument_size_in_bytes']}, peak live "
+              f"bytes {cell['memory']['peak_live_bytes']}, collectives "
+              f"(count, bytes) {json.dumps(kinds)}, H100 roofline compute "
+              f"{r['compute_s']:.6f} s, memory {r['memory_s']:.6f} s, "
+              f"collective {r['collective_s']:.6f} s, bottleneck "
+              f"{r['bottleneck']}; traced in {cell['trace_s']} s")
+        cell["kinds"] = kinds
+
+    # (b) the traced program planned on the card, equal to the CPU's plan
+    ops = [CollectiveOp(kind, nbytes, i, axis) for i, (kind, nbytes, axis)
+           in enumerate(cells["16x16"]["collective_ops"])]
+    inst = coflows_from_step(ops, rows=16, cols=16, n_buckets=MESH_BUCKETS)
+    zero_counts()
+    t0 = time.perf_counter()
+    card = plan(inst, device="cuda")
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    launches = read_counts()
+    t0 = time.perf_counter()
+    cpu = plan(inst, device="cpu", plan_backend="pipeline")
+    cpu_s = time.perf_counter() - t0
+    same = (card.order == cpu.order
+            and card.planner_makespan == cpu.planner_makespan
+            and card.naive_makespan == cpu.naive_makespan)
+    if not same:
+        _fail(f"17(b) card plan != CPU plan: {card.order} "
+              f"{card.planner_makespan} {card.naive_makespan} vs "
+              f"{cpu.order} {cpu.planner_makespan} {cpu.naive_makespan}")
+    if launches["bna_decompose"] < 1 or launches["merge_fix"] < 1:
+        _fail(f"17(b) the plan did not run the card's pipeline: {launches}")
+    order = bucket_order_from_plan(card, leaf_paths(abstract_params(cfg)))
+    out["plan"] = {"ops": len(ops), "coflows": sum(len(j.coflows)
+                                                   for j in inst.jobs),
+                   "order": card.order,
+                   "planner_makespan": card.planner_makespan,
+                   "naive_makespan": card.naive_makespan,
+                   "plan_s_cuda": plan_s, "plan_s_cpu": cpu_s,
+                   "launches": {k: launches[k] for k in ("bna_decompose",
+                                                         "merge_fix")},
+                   "buckets": [len(b) for b in order]}
+    print(f"17(b) {len(ops)} traced collectives as {out['plan']['coflows']} "
+          f"coflows in {MESH_BUCKETS} buckets on the 16 x 16 fabric: card "
+          f"plan == CPU plan (order {card.order}, makespan "
+          f"{card.planner_makespan} vs naive {card.naive_makespan}); "
+          f"bna_decompose {launches['bna_decompose']}, merge_fix "
+          f"{launches['merge_fix']} launches; {plan_s:.3f} s on the card, "
+          f"{cpu_s:.3f} s on the CPU")
+
+    # (c) one full-width step on a (1, 1) NCCL mesh
+    with one_rank_group("nccl"):
+        mesh = make_production_mesh(shape=(1, 1), device_type="cuda")
+        state = distribute_state(fresh_state(), mesh)
+        b = distribute(batch, batch_pspecs(batch, mesh), mesh)
+        mesh_step = build_train_step(cfg, opt, bucket_order=order)
+        meshed = timed_step(mesh_step, state, b, mesh)
+        mesh_fp = fingerprint(meshed[-1])
+        # a second step on the same mesh, timed only: the first one is
+        # also the first on its communicator and DTensor's caches
+        second_s = timed_step(mesh_step, meshed[-1], b, mesh)[0]
+        meshed = meshed[:-1]
+        del state, b
+    p_s, p_launch, p_loss, p_norm = plain
+    m_s, m_launch, m_loss, m_norm = meshed
+    fp_diff = (plain_fp - mesh_fp).abs()
+    out["step"] = {
+        "arch": cfg.name, "tokens": B * S, "plain_s": p_s, "mesh_s": m_s,
+        "mesh_second_s": second_s,
+        "loss": [float(p_loss), float(m_loss)],
+        "grad_norm": [float(p_norm), float(m_norm)],
+        "loss_same_bits": bool(torch.equal(p_loss, m_loss)),
+        "grad_norm_same_bits": bool(torch.equal(p_norm, m_norm)),
+        "grad_norm_diff": float((p_norm - m_norm).abs()),
+        "state_sums": len(plain_fp),
+        "state_same_sums": bool(torch.equal(plain_fp, mesh_fp)),
+        "state_sums_max_diff": float(fp_diff.max()),
+        "launches": {"plain": p_launch, "mesh": m_launch}}
+    if not out["step"]["loss_same_bits"]:
+        _fail(f"17(c) the (1, 1) mesh step's loss {float(m_loss)!r} != "
+              f"{float(p_loss)!r} without a mesh")
+    if not out["step"]["grad_norm_same_bits"]:
+        _fail(f"17(c) the (1, 1) mesh step's grad norm {float(m_norm)!r} "
+              f"!= {float(p_norm)!r} without a mesh")
+    if not out["step"]["state_same_sums"]:
+        bad = int(fp_diff.argmax())
+        _fail(f"17(c) the updated parameters and moments differ from the "
+              f"step without a mesh: {int((fp_diff > 0).sum())} of "
+              f"{len(plain_fp)} per-leaf sums, the largest by "
+              f"{float(fp_diff[bad])!r} (sum {bad})")
+    for name in ("flash_attention", *BWD_KERNELS):
+        if m_launch[name] < 1 or m_launch[name] != p_launch[name]:
+            _fail(f"17(c) {name} launched {m_launch[name]} times on the "
+                  f"mesh, {p_launch[name]} without")
+    print(f"17(c) {cfg.name} at full width, {B} x {S} tokens, on a (1, 1) "
+          f"NCCL mesh (world size 1): loss {float(m_loss)!r} (no mesh "
+          f"{float(p_loss)!r}, same bits), grad norm {float(m_norm)!r} "
+          f"(no mesh {float(p_norm)!r}, same bits: "
+          f"{out['step']['grad_norm_same_bits']}); updated parameters "
+          f"and moments: {len(plain_fp)} per-leaf float64 sums, the same; "
+          f"K4 launches {m_launch['flash_attention']} through local_map "
+          f"({p_launch['flash_attention']} without); step {m_s:.3f} s on "
+          f"the mesh, {p_s:.3f} s without (first steps), a second mesh "
+          f"step {second_s:.3f} s")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"17 took {out['wall_s']:.1f} s")
     return out
 
 
@@ -4800,6 +5082,17 @@ def main() -> int:
         **{k: tm[k] for k in whole_keys}, "plain_ms": tm["plain_ms"],
         "same_bits": tm["same_bits"],
         "d64": {k: tm["d64"][k] for k in whole_keys}}
+    # 17. the mesh: the dry run, its collectives planned, a (1, 1) step ----
+    mark("17")
+    record["mesh"] = ms = _mesh(dev, (zero_counts, read_counts))
+    for name, row in ((n, k) for k in kernels_line for n in (k["name"],)):
+        if name in ("bna_decompose", "merge_fix"):
+            row.setdefault("launches_by_path", {})["mesh plan"] = \
+                ms["plan"]["launches"][name]
+        if name in ("flash_attention", *BWD_KERNELS):
+            row.setdefault("launches_by_path", {})["mesh step (1, 1)"] = \
+                ms["step"]["launches"]["mesh"][name]
+
     # the modelled fields go to the record: the line keeps bound_ms and
     # what this run measured
     record["kernel_models"] = {

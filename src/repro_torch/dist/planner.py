@@ -4,7 +4,10 @@ the paper's engine (``repro.dist.planner`` on the port's session).
   1. A step's collective program is a list of :class:`CollectiveOp` in
      program order: kind, payload bytes, and the mesh axis its groups span
      ("model" = the minor axis, consecutive device ids; "data" = strided).
-     `synthetic_collective_ops` makes a seeded one when no step is at hand.
+     `record_collectives(mesh)` records the one a step run on a DTensor
+     mesh issues (dispatch order); `extract_collectives(hlo)` parses the
+     reference's compiled XLA HLO text; `synthetic_collective_ops` makes a
+     seeded one when no step is at hand.
   2. `coflows_from_step(ops, rows, cols, n_buckets)` translates it to a
      coflow Instance on the rows x cols pod fabric: ops are bucketed into
      jobs (contiguous program order, one job per gradient bucket); each op
@@ -20,16 +23,34 @@ the paper's engine (``repro.dist.planner`` on the port's session).
 """
 from __future__ import annotations
 
+import re
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..core.types import Coflow, Instance, Job
 
-__all__ = ["CollectiveOp", "coflows_from_step", "synthetic_collective_ops",
-           "plan", "PlanOutcome", "bucket_order_from_plan"]
+__all__ = ["CollectiveOp", "extract_collectives", "CollectiveRecorder",
+           "record_collectives", "coflows_from_step",
+           "synthetic_collective_ops", "plan", "PlanOutcome",
+           "bucket_order_from_plan"]
 
 _BYTES_PER_UNIT = float(2 ** 20)   # one demand unit == 1 MiB on the fabric
+
+_DTYPE_BYTES = {
+    "f64": 8, "f32": 4, "f16": 2, "bf16": 2, "f8e4m3fn": 1, "f8e5m2": 1,
+    "s64": 8, "u64": 8, "s32": 4, "u32": 4, "s16": 2, "u16": 2,
+    "s8": 1, "u8": 1, "pred": 1, "c64": 8, "c128": 16,
+}
+
+_OP_RE = re.compile(
+    r"=\s*([a-z0-9]+)\[([0-9,]*)\]\S*\s+"
+    r"(all-reduce|all-gather|reduce-scatter|all-to-all|collective-permute)"
+    r"(?:-start)?(?:\.\d+)?\(")
+_GROUPS_RE = re.compile(r"replica_groups=\{\{([0-9,]+)\}")
 
 
 @dataclass
@@ -41,6 +62,124 @@ class CollectiveOp:
     bytes: float
     idx: int
     axis: str = "model"
+
+
+def extract_collectives(hlo_text: str) -> list[CollectiveOp]:
+    """Collectives of a compiled (post-SPMD) XLA HLO module, program order:
+    the reference's text parser, kept as it is (kind, the result's bytes,
+    and "model" when the first replica group's ids are consecutive)."""
+    ops: list[CollectiveOp] = []
+    for line in hlo_text.splitlines():
+        m = _OP_RE.search(line)
+        if not m:
+            continue
+        dtype, dims, kind = m.group(1), m.group(2), m.group(3)
+        numel = int(np.prod([int(d) for d in dims.split(",")])) if dims else 1
+        nbytes = float(numel * _DTYPE_BYTES.get(dtype, 4))
+        axis = "model"
+        g = _GROUPS_RE.search(line)
+        if g:
+            ids = [int(x) for x in g.group(1).split(",")]
+            consecutive = all(b - a == 1 for a, b in zip(ids, ids[1:]))
+            axis = "model" if consecutive or len(ids) < 2 else "data"
+        ops.append(CollectiveOp(kind, nbytes, len(ops), axis))
+    return ops
+
+
+# the functional collectives DTensor issues, by the kind the planner knows
+COLLECTIVE_KINDS = {
+    "all_reduce": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",   # DTensor's Shard(i) -> Shard(j)
+}
+# ops of the collective namespaces that move nothing
+_NOT_COLLECTIVES = ("wait_tensor", "_wrap_tensor_autograd")
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d_functional", "c10d",
+                          "_dtensor")
+
+
+def _is_dtensor_type(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return issubclass(t, DTensor)
+
+
+def _is_fake(x) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(x, FakeTensor)
+
+
+class CollectiveRecorder(TorchDispatchMode):
+    """The collectives a step issues on a DTensor mesh, as the reference's
+    ``extract_collectives`` reads them from HLO: a ``TorchDispatchMode``
+    that stands below DTensor's dispatch (it declines every op on a
+    DTensor, so DTensor runs it and the mode sees the local ops and the
+    functional collectives of its redistributions) and appends one
+    :class:`CollectiveOp` a collective, in dispatch order:
+
+    * kind: ``all_reduce`` -> "all-reduce", ``all_gather_into_tensor`` ->
+      "all-gather", ``reduce_scatter_tensor`` -> "reduce-scatter",
+      ``all_to_all_single`` -> "all-to-all"; any other collective raises;
+    * bytes: the result's local numel times its element size (the
+      reference's convention: the result tensor of the post-SPMD op);
+    * axis: "model" when the op's group is the mesh's "model" dim, "data"
+      for any other (the reference's consecutive-ids rule read from the
+      mesh, not from replica groups).
+
+    DTensor's sharding propagation runs ops on fake tensors of the global
+    shapes to learn output shapes; those are not the step's and are
+    skipped.  Subclasses see every local op through ``observe``."""
+
+    def __init__(self, mesh):
+        super().__init__()
+        self.ops: list[CollectiveOp] = []
+        names = tuple(mesh.mesh_dim_names or ())
+        self.model_group = (mesh.get_group("model").group_name
+                            if "model" in names else None)
+
+    def _record(self, func, args, kwargs, out) -> None:
+        name = func._opname
+        if name in _NOT_COLLECTIVES:
+            return
+        kind = COLLECTIVE_KINDS.get(name)
+        if kind is None:
+            raise ValueError(f"CollectiveRecorder: unknown collective "
+                             f"{func} (known: {sorted(COLLECTIVE_KINDS)})")
+        schema = [a.name for a in func._schema.arguments]
+        bound = dict(zip(schema, args))
+        bound.update(kwargs)
+        group = bound.get("group_name")
+        res = out[0] if isinstance(out, (list, tuple)) else out
+        nbytes = float(res.numel() * res.element_size())
+        axis = "model" if group == self.model_group else "data"
+        self.ops.append(CollectiveOp(kind, nbytes, len(self.ops), axis))
+
+    def observe(self, func, args, kwargs, out) -> None:
+        """Called with every local op the step runs (collectives too)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if any(_is_dtensor_type(t) for t in types):
+            return NotImplemented
+        out = func(*args, **kwargs)
+        if _is_fake(out) or any(_is_fake(a) for a in args):
+            return out
+        if func.namespace in _COLLECTIVE_NAMESPACES:
+            self._record(func, args, kwargs, out)
+        self.observe(func, args, kwargs, out)
+        return out
+
+
+@contextmanager
+def record_collectives(mesh):
+    """``with record_collectives(mesh) as ops:`` run a step on `mesh`; `ops`
+    is then its collective program (a list of :class:`CollectiveOp`)."""
+    rec = CollectiveRecorder(mesh)
+    with rec:
+        yield rec.ops
 
 
 def synthetic_collective_ops(

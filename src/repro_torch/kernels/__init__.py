@@ -28,11 +28,15 @@ Kernels (what each one replaces is named in its source note):
                   chunk-parallel in three launches (chunk states, the state
                   pass over the chunks, chunk outputs): bfloat16 on the
                   tensor cores (bf16 and TF32 mma.sync), float32 as float32
-                  FMAs; and its backward (``ssd_scan/csrc/ssd_scan_bwd.cu``,
-                  a second source of the ``ssd_scan`` library: the chunk
-                  state gradients and their reverse pass, then dx, da and
-                  the per-head db, dc a chunk, summed over each state
-                  group; no atomics), float32 FMAs for both types
+                  FMAs; and its backward (the chunk state gradients and
+                  their reverse pass, then dx, da and the per-head db, dc
+                  a chunk, summed over each state group; no atomics):
+                  bfloat16 on the tensor cores in
+                  ``ssd_scan/csrc/ssd_scan_bwd_mma.cu`` (the state walk,
+                  the dx, db and dc role kernels and the finish), float32
+                  as float32 FMAs in ``ssd_scan/csrc/ssd_scan_bwd.cu``,
+                  which also holds the backward's entry points; both are
+                  sources of the one ``ssd_scan`` library
 Headers shared between kernels (``*/csrc/*.cuh``) are included by path:
 ``flash_attention/csrc/tensor_core.cuh`` holds the mma.sync, ldmatrix and
 cp.async primitives of K4 and K5, ``flash_attention/csrc/hopper.cuh`` the
@@ -65,13 +69,18 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "resolve_device", "build_kernels", "load_kernel"]
+__all__ = ["BUILD_DIR", "PLAIN_DEVICES", "resolve_device", "build_kernels",
+           "load_kernel"]
 
 _KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+
+# devices whose tensors take the kernels' plain versions: the CPU, and
+# ``meta`` (shapes only: the dry run traces a step without running it)
+PLAIN_DEVICES = ("cpu", "meta")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -43,7 +43,7 @@ import ctypes
 
 import torch
 
-from .. import load_kernel
+from .. import PLAIN_DEVICES, load_kernel
 from .ref import (attention_bwd_prep_ref, attention_bwd_ref, attention_ref,
                   attention_lse_ref)
 
@@ -95,13 +95,13 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     no key."""
     B, Hq, Sq, d = q.shape
     _, Hkv, Sk, _ = k.shape
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         out = attention_ref(q, k, v, causal=causal, scale=scale)
         lse = attention_lse_ref(q, k, causal=causal, scale=scale) \
             if with_lse else None
         return out, lse
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+        raise ValueError(f"flash_attention runs on cpu, meta or cuda, not "
                          f"{q.device}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"the flash_attention kernel takes float32 or "
@@ -211,7 +211,7 @@ def _bwd_checks(q, k, v, dout, lse) -> None:
 
 def attn_bwd_prep(o: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     """D = rowsum(dO o O) in float32, (B, Hq, Sq)."""
-    if o.device.type == "cpu":
+    if o.device.type in PLAIN_DEVICES:
         return attention_bwd_prep_ref(o, dout)
     B, Hq, Sq, d = o.shape
     D = torch.empty((B, Hq, Sq), dtype=torch.float32, device=o.device)
@@ -381,7 +381,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     if dout.stride(3) != 1:
         dout = dout.contiguous()
     _bwd_checks(q, k, v, dout, lse)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return attention_bwd_ref(q, k, v, dout, causal=causal, scale=scale)
     D = attn_bwd_prep(out, dout)
     dk, dv = attn_bwd_dkdv(q, k, v, dout, lse, D, causal=causal, scale=scale)

@@ -55,7 +55,7 @@ import ctypes
 
 import torch
 
-from .. import load_kernel
+from .. import PLAIN_DEVICES, load_kernel
 from .ref import log_decay, pad_chunks, ssd_bwd_ref, ssd_ref
 
 __all__ = ["ssd_scan", "ssd_scan_bwd", "ssd_bwd_state", "ssd_bwd_chunk",
@@ -95,7 +95,8 @@ def _check(x, a, b, c) -> None:
 def _check_cuda(x, a, b, c, chunk: int) -> int:
     """The kernels' own limits; returns L."""
     if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan runs on cpu or cuda, not {x.device}")
+        raise ValueError(f"ssd_scan runs on cpu, meta or cuda, not "
+                         f"{x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"the ssd_scan kernel takes float32 or bfloat16, "
                         f"got {x.dtype}")
@@ -146,7 +147,7 @@ def _forward(x, a, b, c, chunk: int, keep: bool):
     forward's log decay and scratch (states: the state entering each chunk,
     (B, nC, H, N, P) float32; decay: each chunk's summed log decay; three
     Nones for an empty x), else ()."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ssd_ref(x, a, b, c), ()
     L = _check_cuda(x, a, b, c, chunk)
     if x.numel() == 0:
@@ -189,7 +190,7 @@ class _SSDScan(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dy):
         x, a, b, c, *kept = ctx.saved_tensors
-        if x.device.type == "cpu":
+        if x.device.type in PLAIN_DEVICES:
             return (*ssd_bwd_ref(x, a, b, c, dy, chunk=ctx.chunk), None)
         return (*ssd_scan_bwd(x, a, b, c, dy, *kept, chunk=ctx.chunk), None)
 

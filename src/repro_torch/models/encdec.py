@@ -22,7 +22,8 @@ import torch
 from .common import DTYPES, ArchConfig
 from .layers import (_qkv, attention, decode_attention, init_attn, init_mlp,
                      init_norm, mlp_block, randn, rms_norm)
-from .lm import _positions, tree_map
+from .lm import _positions, lookup, token_nll, tree_map
+from .sharding import merge_dims, shard, split_dim
 
 __all__ = ["init_encdec", "encdec_forward", "encdec_loss", "encdec_prefill",
            "encdec_decode_step", "init_encdec_cache", "sinusoidal", "encode"]
@@ -68,11 +69,10 @@ def _layer(stack: dict, n: int) -> dict:
 def _self_attn(cfg: ArchConfig, p: dict, h: torch.Tensor,
                pos: torch.Tensor, causal: bool):
     """Pre-norm self-attention without rope; also returns k and v."""
-    B, S, _ = h.shape
     hn = rms_norm(h, p["norm"], cfg.norm_eps)
     q, k, v = _qkv(cfg, p, hn, pos, rope_on=False)
     o = attention(cfg, q, k, v, causal=causal)
-    return h + o.reshape(B, S, cfg.n_heads * cfg.d_head) @ p["wo"], k, v
+    return h + merge_dims(o, 2) @ p["wo"], k, v
 
 
 def encode(cfg: ArchConfig, params: dict,
@@ -81,6 +81,7 @@ def encode(cfg: ArchConfig, params: dict,
     B, T, _ = frames.shape
     pos = _positions(B, T, frames.device)
     x = frames + sinusoidal(pos, cfg.d_model, frames.dtype)
+    x = shard(x, ("dp", None, None))
     for n in range(cfg.n_encoder_layers):
         lp = _layer(params["enc_stack"], n)
         x, _, _ = _self_attn(cfg, lp["attn"], x, pos, causal=False)
@@ -95,7 +96,7 @@ def _cross_kv(cfg: ArchConfig, lp: dict, enc_out: torch.Tensor):
     v = enc_out @ lp["wv"]
     if "bk" in lp:
         k, v = k + lp["bk"], v + lp["bv"]
-    return k.reshape(B, T, hkv, dh), v.reshape(B, T, hkv, dh)
+    return split_dim(k, 2, (hkv, dh)), split_dim(v, 2, (hkv, dh))
 
 
 def _cross_q(cfg: ArchConfig, lp: dict, h: torch.Tensor) -> torch.Tensor:
@@ -104,26 +105,26 @@ def _cross_q(cfg: ArchConfig, lp: dict, h: torch.Tensor) -> torch.Tensor:
     q = hn @ lp["wq"]
     if "bq" in lp:
         q = q + lp["bq"]
-    return q.reshape(B, S, cfg.n_heads, cfg.d_head)
+    return split_dim(q, 2, (cfg.n_heads, cfg.d_head))
 
 
 def _dec_layer(cfg: ArchConfig, lp: dict, h: torch.Tensor,
                pos: torch.Tensor, enc_out: torch.Tensor):
     """One decoder layer over a whole prompt -> (h, self k, self v,
     cross k, cross v)."""
-    B, S, _ = h.shape
     h, k, v = _self_attn(cfg, lp["attn"], h, pos, causal=True)
     qc = _cross_q(cfg, lp["cross"], h)
     kc, vc = _cross_kv(cfg, lp["cross"], enc_out)
     o = attention(cfg, qc, kc, vc, causal=False)
-    h = h + o.reshape(B, S, cfg.n_heads * cfg.d_head) @ lp["cross"]["wo"]
+    h = h + merge_dims(o, 2) @ lp["cross"]["wo"]
     return mlp_block(cfg, lp["mlp"], h), k, v, kc, vc
 
 
 def _embed(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
            pos: torch.Tensor) -> torch.Tensor:
     emb = params["embed"]
-    return emb[tokens] + sinusoidal(pos, cfg.d_model, emb.dtype)
+    return lookup(emb, tokens, lambda t, e: e[t]) \
+        + sinusoidal(pos, cfg.d_model, emb.dtype)
 
 
 def encdec_forward(cfg: ArchConfig, params: dict, frames: torch.Tensor,
@@ -132,12 +133,12 @@ def encdec_forward(cfg: ArchConfig, params: dict, frames: torch.Tensor,
     enc_out = encode(cfg, params, frames)
     B, S = tokens.shape
     pos = _positions(B, S, tokens.device)
-    x = _embed(cfg, params, tokens, pos)
+    x = shard(_embed(cfg, params, tokens, pos), ("dp", None, None))
     for n in range(cfg.n_periods):
         x = _dec_layer(cfg, _layer(params["dec_stack"], n), x, pos,
                        enc_out)[0]
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return h @ params["unembed"]
+    return shard(h @ params["unembed"], ("dp", None, "model"))
 
 
 def encdec_loss(cfg: ArchConfig, params: dict, frames: torch.Tensor,
@@ -148,11 +149,8 @@ def encdec_loss(cfg: ArchConfig, params: dict, frames: torch.Tensor,
     vocab_mask = torch.arange(cfg.padded_vocab,
                               device=logits.device) < cfg.vocab
     logits = torch.where(vocab_mask, logits, -1e30)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        labels.clamp(min=0).long()[..., None])[..., 0]
     valid = labels >= 0
-    return torch.where(valid, logz - gold, 0.0).sum() \
+    return torch.where(valid, token_nll(logits, labels), 0.0).sum() \
         / torch.clamp(valid.sum(), min=1)
 
 
@@ -202,7 +200,7 @@ def encdec_prefill(cfg: ArchConfig, params: dict, frames: torch.Tensor,
 
     h = rms_norm(h[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = (h @ params["unembed"])[:, 0, :cfg.vocab]
-    return logits, {"self_k": stacked(0, cap), "self_v": stacked(1, cap),
+    return shard(logits, ("dp", None)), {"self_k": stacked(0, cap), "self_v": stacked(1, cap),
                     "cross_k": stacked(2), "cross_v": stacked(3),
                     "length": S}
 
@@ -226,12 +224,12 @@ def encdec_decode_step(cfg: ArchConfig, params: dict, cache: dict,
         sv[:, length] = v[:, 0].to(sv.dtype)
         o = decode_attention(q, sk, sv, length + 1, scale,
                              layout=cfg.decode_cache_layout)
-        h = h + o.reshape(B, 1, cfg.n_heads * cfg.d_head) @ lp["attn"]["wo"]
+        h = h + merge_dims(o, 2) @ lp["attn"]["wo"]
         qc = _cross_q(cfg, lp["cross"], h)
         o = decode_attention(qc, cache["cross_k"][n], cache["cross_v"][n],
                              n_cross, scale, layout=cfg.decode_cache_layout)
-        h = h + o.reshape(B, 1, cfg.n_heads * cfg.d_head) @ lp["cross"]["wo"]
+        h = h + merge_dims(o, 2) @ lp["cross"]["wo"]
         h = mlp_block(cfg, lp["mlp"], h)
     h = rms_norm(h[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = (h @ params["unembed"])[:, 0, :cfg.vocab]
-    return logits, dict(cache, length=length + 1)
+    return shard(logits, ("dp", None)), dict(cache, length=length + 1)

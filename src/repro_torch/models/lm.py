@@ -37,6 +37,9 @@ from .common import DTYPES, ArchConfig
 from .layers import (_qkv, attention, decode_attention, init_attn, init_mlp,
                      init_norm, mlp_block, randn, rms_norm)
 from .moe import init_moe, moe_block
+from .sharding import (fit_spec, index_on, is_dtensor, logical_spec,
+                       merge_dims, pad, placements, reduce_partial, shard,
+                       sharded_call)
 from .ssm import (init_mamba, init_mamba_state, mamba_block,
                   mamba_decode_step)
 
@@ -112,8 +115,7 @@ def _attn_layer(cfg: ArchConfig, p: dict, x: torch.Tensor,
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     q, k, v = _qkv(cfg, p, h, positions)
     o = attention(cfg, q, k, v, causal=causal)
-    B, S, _, _ = o.shape
-    return x + o.reshape(B, S, cfg.n_heads * cfg.d_head) @ p["wo"], k, v
+    return x + merge_dims(o, 2) @ p["wo"], k, v
 
 
 def _apply_period(cfg: ArchConfig, pp: dict, x: torch.Tensor,
@@ -142,6 +144,9 @@ def _apply_period(cfg: ArchConfig, pp: dict, x: torch.Tensor,
         elif spec.mlp == "moe":
             x, a = moe_block(cfg, lp["moe"], x)
             aux = a if aux is None else aux + a
+        # Megatron-SP: keep the residual stream sequence-sharded on the TP
+        # axis between blocks (under a mesh; a no-op without one)
+        x = shard(x, ("dp", "model" if cfg.seq_parallel else None, None))
     return x, aux
 
 
@@ -197,7 +202,42 @@ def embed_tokens(cfg: ArchConfig, params: dict,
     """The rows of the embedding (``F.embedding``: the same gather as
     ``embed[tokens]``, and a backward that sums into the table in a fixed
     order on a card, where indexing's backward accumulates with atomics)."""
-    return F.embedding(tokens, params["embed"])
+    return shard(lookup(params["embed"], tokens, F.embedding),
+                 ("dp", None, None))
+
+
+def lookup(table: torch.Tensor, tokens: torch.Tensor, take) -> torch.Tensor:
+    """``take(tokens, table)``, the rows of `table` at `tokens`.  On a
+    DTensor table split over its rows (vocab TP) each rank looks up the
+    tokens that fall in its own rows and zeros the rest, and the result is
+    a ``Partial`` sum over those mesh dims (the vocab-parallel embedding;
+    DTensor's own rule for it cannot take a gradient back through a
+    second use of the table).  The rows a rank holds travel as an arange
+    placed like the table, so no rank needs its coordinate."""
+    if not is_dtensor(table):
+        return take(tokens, table)
+    from torch.distributed.tensor import Partial
+
+    mesh = table.device_mesh
+    rows = index_on(torch.arange(table.shape[0],
+                                 device=table.to_local().device),
+                    table.placements, 0, mesh)
+    row_pl = tuple(rows.placements)
+    dp = (logical_spec(("dp",)) or (None,))[0]
+    tok_spec = fit_spec((dp,), tokens.shape, mesh, drop_trivial=True)
+    out_pl = [Partial() if pl.is_shard() else tp for pl, tp in
+              zip(row_pl, placements(tok_spec, mesh))]
+
+    def local(tok, tab, own):
+        idx = tok - own[0]
+        hit = (idx >= 0) & (idx < own.shape[0])
+        out = take(idx.clamp(0, own.shape[0] - 1), tab)
+        return torch.where(hit[..., None], out, torch.zeros((), dtype=out.dtype,
+                                                            device=out.device))
+
+    return sharded_call(local, (tokens, table, rows),
+                        (tok_spec, tuple(table.placements), row_pl),
+                        tuple(out_pl), mesh)
 
 
 def unembed_matrix(cfg: ArchConfig, params: dict) -> torch.Tensor:
@@ -216,7 +256,44 @@ def lm_forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
         positions = _positions(B, S, tokens.device)
     h, aux = hidden_states(cfg, params, embed_tokens(cfg, params, tokens),
                            positions)
-    return h @ unembed_matrix(cfg, params), aux
+    return shard(h @ unembed_matrix(cfg, params), ("dp", None, "model")), aux
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logsumexp(logits) - logits[label] at each position (labels clamped
+    at 0).  When the logits are a DTensor sharded on the vocabulary, the
+    vocab-parallel form: the max and the sum of exponentials reduce over
+    the shards (two small all-reduces) and the gold logit is a masked sum,
+    where a gather across shards would move the logits; otherwise
+    ``logsumexp`` and ``gather``, so no bit moves on one card."""
+    lb = labels.clamp(min=0).long()
+    if is_dtensor(logits) and any(pl.is_shard(logits.dim() - 1)
+                                  for pl in logits.placements):
+        from torch.distributed.tensor import Partial
+
+        mesh, last = logits.device_mesh, logits.dim() - 1
+        # the max and the sum over the shards summed whole (all-reduces of
+        # (B, C) floats): left Partial, DTensor would reduce-scatter them
+        # over the batch and move the logits to match in the backward
+        m = reduce_partial(logits.detach().amax(dim=-1, keepdim=True))
+        logz = m + torch.log(reduce_partial(
+            torch.exp(logits - m).sum(-1, keepdim=True)))
+        # the gold logit on the shard that holds it, the vocabulary ids
+        # placed like the logits' last dim
+        ids = index_on(torch.arange(logits.shape[-1],
+                                    device=logits.to_local().device),
+                       logits.placements, last, mesh)
+        gold = sharded_call(
+            lambda lg, lab, own: torch.where(own == lab[..., None], lg,
+                                             0.0).sum(-1),
+            (logits, lb, ids),
+            (tuple(logits.placements), tuple(lb.placements),
+             tuple(ids.placements)),
+            tuple(Partial() if pl.is_shard(last) else pl
+                  for pl in logits.placements), mesh)
+        return logz[..., 0] - gold
+    logz = torch.logsumexp(logits, dim=-1)
+    return logz - torch.gather(logits, -1, lb[..., None])[..., 0]
 
 
 def lm_loss(cfg: ArchConfig, params: dict, tokens: torch.Tensor | None,
@@ -239,22 +316,19 @@ def lm_loss(cfg: ArchConfig, params: dict, tokens: torch.Tensor | None,
     if loss_chunk is None:
         loss_chunk = cfg.loss_chunk
     C = min(loss_chunk, S) if loss_chunk > 0 else S
-    pad = (-S) % C
-    if pad:
-        h = F.pad(h, (0, 0, 0, pad))
-        labels = F.pad(labels, (0, pad), value=-1)
+    n_pad = (-S) % C
+    if n_pad:
+        h = pad(h, (0, 0, 0, n_pad))
+        labels = pad(labels, (0, n_pad), value=-1)
     vocab_mask = torch.arange(cfg.padded_vocab, device=h.device) < cfg.vocab
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     count = torch.zeros((), dtype=torch.long, device=h.device)
     for c0 in range(0, h.shape[1], C):
         lb = labels[:, c0:c0 + C]
-        logits = (h[:, c0:c0 + C] @ w).float()
+        logits = shard(h[:, c0:c0 + C] @ w, ("dp", None, "model")).float()
         logits = torch.where(vocab_mask, logits, -1e30)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            lb.clamp(min=0).long()[..., None])[..., 0]
         valid = lb >= 0
-        total = total + torch.where(valid, logz - gold, 0.0).sum()
+        total = total + torch.where(valid, token_nll(logits, lb), 0.0).sum()
         count = count + valid.sum()
     return total / torch.clamp(count, min=1) + aux_weight * aux
 
@@ -285,7 +359,7 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
                      for key in leaves} for name, leaves in per[0].items()}
     h = rms_norm(h[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = (h @ unembed_matrix(cfg, params))[:, 0, :cfg.vocab]
-    return logits, {"layers": layers, "length": S}
+    return shard(logits, ("dp", None)), {"layers": layers, "length": S}
 
 
 def init_decode_cache(cfg: ArchConfig, batch: int, capacity: int,
@@ -298,8 +372,9 @@ def init_decode_cache(cfg: ArchConfig, batch: int, capacity: int,
     for i, spec in enumerate(cfg.period):
         if spec.kind == "attn":
             layers[f"l{i}"] = {
-                "k": torch.zeros(shape, dtype=dt, device=device),
-                "v": torch.zeros(shape, dtype=dt, device=device)}
+                key: shard(torch.zeros(shape, dtype=dt, device=device),
+                           (None, "dp", "sp", "model", None))
+                for key in ("k", "v")}
         else:
             st = init_mamba_state(cfg, batch, dt, device=device)
             layers[f"l{i}"] = {key: t[None].repeat(cfg.n_periods,
@@ -335,7 +410,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
                 vc[:, length] = v[:, 0].to(vc.dtype)
                 o = decode_attention(q, kc, vc, length + 1, scale,
                                      layout=cfg.decode_cache_layout)
-                h = h + o.reshape(B, 1, cfg.n_heads * cfg.d_head) @ ap["wo"]
+                h = h + merge_dims(o, 2) @ ap["wo"]
             else:
                 st, h = mamba_decode_step(
                     cfg, pp[f"l{i}"]["mamba"],
@@ -348,4 +423,5 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
                 h, _ = moe_block(cfg, pp[f"l{i}"]["moe"], h)
     h = rms_norm(h[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = (h @ unembed_matrix(cfg, params))[:, 0, :cfg.vocab]
-    return logits, {"layers": cache["layers"], "length": length + 1}
+    return shard(logits, ("dp", None)), {"layers": cache["layers"],
+                                         "length": length + 1}

@@ -20,9 +20,11 @@ row of the expert buffer and gather a zero row, and each token sums its k
 weighted expert outputs in float32 (a deterministic sum, not an atomic
 scatter).
 
-The reference's sharding (``shard`` annotations, the ``shard_map`` routing)
-waits for the distributed slice: on one card ``moe_ffn_shard_map`` is
-``moe_ffn``, as the reference's is without a mesh.
+The reference's ``shard`` annotations are kept at its places (no-ops
+outside a mesh).  ``moe_ffn_shard_map`` is the reference's per-data-shard
+routing: under a mesh each rank routes its own tokens (``local_map`` over
+the dp axes) and runs the experts it holds; without one it is ``moe_ffn``,
+as the reference's is.
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from .common import DTYPES, ArchConfig
+from .sharding import (fit_spec, index_on, is_dtensor, logical_spec,
+                       placements, shard, sharded_call)
 from .layers import init_norm, randn, rms_norm
 
 __all__ = ["init_moe", "moe_block", "moe_ffn", "moe_ffn_shard_map",
@@ -108,8 +112,11 @@ def moe_route(cfg: ArchConfig, router: torch.Tensor,
             "keep": keep, "pair_slot": pair_slot, "aux": aux, "C": C}
 
 
-def moe_ffn(cfg: ArchConfig, p: dict, x: torch.Tensor):
-    """x: (B, S, d) -> (y, aux_loss)."""
+def moe_ffn(cfg: ArchConfig, p: dict, x: torch.Tensor,
+            experts: torch.Tensor | None = None):
+    """x: (B, S, d) -> (y, aux_loss).  With `experts` (the ids of the
+    experts whose weights `p` holds, in order) only those experts run, and
+    y is their share of the output (``moe_ffn_shard_map``'s local part)."""
     spec = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -123,24 +130,71 @@ def moe_ffn(cfg: ArchConfig, p: dict, x: torch.Tensor):
     xbuf = x.new_zeros((E * C + 1, d))
     xbuf.index_copy_(0, torch.where(r["keep"], r["slot"], E * C),
                      xt[r["tok"]])
-    xbuf = xbuf[:E * C].view(E, C, d)
+    xbuf = shard(xbuf[:E * C].view(E, C, d), ("model", None, None))
+    if experts is not None:
+        xbuf = xbuf.index_select(0, experts)
 
     h = torch.bmm(xbuf, p["w_gate"])
     u = torch.bmm(xbuf, p["w_up"])
-    y = torch.bmm(F.silu(h) * u, p["w_down"]).reshape(E * C, d)
+    y = torch.bmm(F.silu(h) * u, p["w_down"])
+    if experts is not None:
+        y = y.new_zeros((E, C, d)).index_copy(0, experts, y)
+    y = y.reshape(E * C, d)
 
     # combine back to tokens with gate weights, accumulated in float32; a
     # dropped pair gathers the zero row E*C
     y = torch.cat([y, y.new_zeros((1, d))])
     contrib = y[r["pair_slot"]].float() * r["gate"].reshape(-1, 1)
     out = contrib.view(T, k, d).sum(dim=1)
-    return out.to(x.dtype).reshape(B, S, d), r["aux"]
+    return shard(out.to(x.dtype).reshape(B, S, d), ("dp", None, None)), \
+        r["aux"]
 
 
 def moe_ffn_shard_map(cfg: ArchConfig, p: dict, x: torch.Tensor):
-    """The reference's per-data-shard routing; on one card (no mesh) it is
-    ``moe_ffn``, as the reference's is without a mesh."""
-    return moe_ffn(cfg, p, x)
+    """The reference's per-data-shard routing (its ``jax.shard_map``, manual
+    over the dp axes).  Under a mesh each rank routes the tokens of its own
+    data shard (every "model" rank of that shard the same ones) and runs
+    the experts whose weights it holds: their ids travel as a DTensor
+    placed like the weights' expert dim, so a rank reads its own without
+    knowing its coordinate.  Each rank's output is its experts' share, a
+    ``Partial`` sum over "model" (EP on experts, or TP on the ffn dim with
+    ``moe_ffn_tp``); ``aux`` comes back per data shard and is averaged
+    outside.  The reference's GSPMD keeps "model" automatic inside the
+    shard_map and moves the (E, C, d) buffer by all-to-all; here the
+    combine is an all-reduce of the tokens' outputs over "model".  Without
+    a mesh it is ``moe_ffn``."""
+    from torch.distributed.tensor import Partial
+
+    if not is_dtensor(x):
+        return moe_ffn(cfg, p, x)
+    mesh = x.device_mesh
+    dp = (logical_spec(("dp",)) or (None,))[0]
+    xspec = fit_spec((dp, None, None), x.shape, mesh, drop_trivial=True)
+    wg = p["w_gate"]
+    w_pl = [tuple(p[n].placements) for n in ("w_gate", "w_up", "w_down")]
+    ids = index_on(torch.arange(cfg.moe.n_experts,
+                                device=wg.to_local().device), w_pl[0], 0,
+                   mesh)
+    y_pl = list(placements(xspec, mesh))
+    aux_pl = list(placements((xspec[0],), mesh))
+    parts = 1
+    for i in range(mesh.ndim):
+        if any(pl[i].is_shard() for pl in w_pl):
+            y_pl[i] = aux_pl[i] = Partial()
+            parts *= mesh.shape[i]
+
+    def local(xl, router, g, u, dn, own):
+        lp = {"router": router, "w_gate": g, "w_up": u, "w_down": dn}
+        y, aux = moe_ffn(cfg, lp, xl, experts=own)
+        # each "model" rank's share of the (replicated) aux loss, so that
+        # its gradient, like the outputs', sums over the ranks
+        return y, (aux / parts)[None]
+
+    y, aux = sharded_call(
+        local, (x, p["router"], wg, p["w_up"], p["w_down"], ids),
+        (xspec, (), *w_pl, tuple(ids.placements)),
+        [tuple(y_pl), tuple(aux_pl)], mesh)
+    return y, aux.mean()
 
 
 def moe_block(cfg: ArchConfig, p: dict, x: torch.Tensor):

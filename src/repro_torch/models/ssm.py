@@ -12,7 +12,8 @@ backward kernels on a card and the plain chunked backward on the CPU
 (``kernels/ssd_scan/ref.py::ssd_bwd_ref``).  With ``return_state``
 (prefill) it runs the plain chunked form ``_ssd_chunked`` on both devices,
 and decode the recurrence ``ssd_decode_step``, as the reference does on
-every backend.
+every backend.  Under a mesh the scan runs on each rank's local shards
+(``_scan``: batch over the dp axes, heads over "model").
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ from ..kernels.ssd_scan.ref import (pad_chunks, ssd_decode_step,
                                     ssd_states_ref)
 from .common import DTYPES, ArchConfig
 from .layers import init_norm, randn, rms_norm
+from .sharding import (fit_spec, is_dtensor, logical_spec, mesh_axis_size,
+                       pad, shard, sharded_call, split_dim, whole_dim)
 
 __all__ = ["init_mamba", "mamba_block", "mamba_decode_step",
            "init_mamba_state"]
@@ -64,8 +67,9 @@ def init_mamba(cfg: ArchConfig, gen: "torch.Generator | None",
 def _split(cfg: ArchConfig, proj: torch.Tensor):
     s, d_inner, H, _ = _dims(cfg)
     gn = s.n_groups * s.d_state
-    z, xbc, dt_raw = torch.split(proj, [d_inner, d_inner + 2 * gn, H],
-                                 dim=-1)
+    # the parts' boundaries are not the column split's (under a mesh)
+    z, xbc, dt_raw = torch.split(whole_dim(proj, -1),
+                                 [d_inner, d_inner + 2 * gn, H], dim=-1)
     return z, xbc, dt_raw
 
 
@@ -75,8 +79,8 @@ def _conv(cfg: ArchConfig, p: dict, xbc: torch.Tensor) -> torch.Tensor:
     w = p["conv_w"]                                  # (K, C)
     K = w.shape[0]
     S = xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, K - 1, 0))
-    out = sum(pad[:, i:i + S, :] * w[i] for i in range(K))
+    padded = pad(xbc, (0, 0, K - 1, 0))
+    out = sum(padded[:, i:i + S, :] * w[i] for i in range(K))
     return F.silu(out + p["conv_b"])
 
 
@@ -93,9 +97,9 @@ def _ssd_inputs(cfg: ArchConfig, p: dict, xbc: torch.Tensor,
     gn = s.n_groups * s.d_state
     B_, S = xbc.shape[0], xbc.shape[1]
     x, b, c = torch.split(xbc, [d_inner, gn, gn], dim=-1)
-    x = x.reshape(B_, S, H, s.d_head)
-    b = b.reshape(B_, S, s.n_groups, s.d_state)
-    c = c.reshape(B_, S, s.n_groups, s.d_state)
+    x = split_dim(x, 2, (H, s.d_head))
+    b = split_dim(b, 2, (s.n_groups, s.d_state))
+    c = split_dim(c, 2, (s.n_groups, s.d_state))
     dt_v = _softplus(dt_raw.float() + p["dt_bias"])              # (B, S, H)
     a = torch.exp(-torch.exp(p["a_log"]) * dt_v)                 # decay (0, 1]
     x_in = x * dt_v[..., None].to(x.dtype)
@@ -111,10 +115,11 @@ def mamba_block(cfg: ArchConfig, p: dict, x: torch.Tensor,
     z, xbc_raw, dt_raw = _split(cfg, proj)
     xbc = _conv(cfg, p, xbc_raw)
     xs, x_in, a, b, c = _ssd_inputs(cfg, p, xbc, dt_raw)
+    xs = shard(xs, ("dp", None, "model", None))
     if return_state:
-        y, hfinal = _ssd_chunked(x_in, a, b, c, s.chunk)
+        y, hfinal = _scan(x_in, a, b, c, s.chunk, True)
     else:
-        y = ssd_scan(x_in, a, b, c, chunk=s.chunk)
+        y = _scan(x_in, a, b, c, s.chunk, False)
     y = y + xs * p["d_skip"][None, None, :, None].to(xs.dtype)
     y = y.reshape(x.shape[0], x.shape[1], d_inner)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
@@ -129,6 +134,36 @@ def mamba_block(cfg: ArchConfig, p: dict, x: torch.Tensor,
     else:
         conv_state = F.pad(xbc_raw, (0, 0, K - 1 - S, 0))
     return out, {"h": hfinal, "conv": conv_state}
+
+
+def _scan(x, a, b, c, chunk: int, return_state: bool):
+    """The SSD scan (``ssd_scan``; with `return_state`, or on ``meta``, the
+    chunked form, and then with `return_state` its final state too).  On DTensors it runs on each rank's local shards:
+    batch over the dp axes, heads over "model" where they divide and the
+    groups allow it (one group, or groups that split the axis too)."""
+    if return_state:
+        fn = lambda x_, a_, b_, c_: _ssd_chunked(x_, a_, b_, c_, chunk)
+    elif x.device.type == "meta":
+        # shapes only (the dry run): the chunked form, the reference's own
+        # path off the TPU; the scan's plain version, a recurrence, would
+        # trace S steps a layer
+        fn = lambda x_, a_, b_, c_: _ssd_chunked(x_, a_, b_, c_, chunk)[0]
+    else:
+        fn = lambda x_, a_, b_, c_: ssd_scan(x_, a_, b_, c_, chunk=chunk)
+    if not is_dtensor(x):
+        return fn(x, a, b, c)
+    mesh = x.device_mesh
+    dp, model = logical_spec(("dp", "model")) or (None, None)
+    H, G = x.shape[2], b.shape[2]
+    tp = mesh_axis_size(mesh, model)
+    heads = model if tp > 1 and H % tp == 0 and (G == 1 or G % tp == 0) \
+        else None
+    groups = heads if G > 1 else None
+    xs = fit_spec((dp, None, heads, None), x.shape, mesh, drop_trivial=True)
+    bs = (xs[0], None, groups, None)
+    specs = (xs, xs[:3], bs, bs)
+    out = [xs, (xs[0], xs[2], None, None)] if return_state else xs
+    return sharded_call(fn, (x, a, b, c), specs, out, mesh)
 
 
 def _ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,

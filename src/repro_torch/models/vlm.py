@@ -11,6 +11,7 @@ import torch
 
 from .common import ArchConfig
 from .lm import embed_tokens, init_lm, lm_loss, prefill
+from .sharding import shard
 
 __all__ = ["init_vlm", "vlm_loss", "vlm_prefill"]
 
@@ -23,7 +24,8 @@ def init_vlm(cfg: ArchConfig, gen: "torch.Generator | None",
 def _embeds(cfg: ArchConfig, params: dict, patches: torch.Tensor,
             tokens: torch.Tensor) -> torch.Tensor:
     text = embed_tokens(cfg, params, tokens)
-    return torch.cat([patches.to(text.dtype), text], dim=1)
+    return shard(torch.cat([patches.to(text.dtype), text], dim=1),
+                 ("dp", None, None))
 
 
 def vlm_loss(cfg: ArchConfig, params: dict, patches: torch.Tensor,

@@ -7,10 +7,13 @@ The bucket-order hook: gradients are grouped into buckets of leaf paths
 ``repro_torch.dist.planner``, the G-DM permutation over the step's
 collectives) is the order in which the buckets' all-reduces are issued.
 The reference pins that launch order in its compiled step with
-``jax.lax.optimization_barrier``; on one card there is no collective, so
-the port walks the buckets in the planned order, which is where a
-per-bucket all-reduce would be issued (``_apply_bucket_order``).  Neither
-changes a value.
+``jax.lax.optimization_barrier``.  Under a mesh (DTensor parameters) the
+port redistributes each bucket's gradients, ``Partial`` sums over the data
+axes, to their moments' placements bucket by bucket in the planned order,
+so the eager call order is the launch order of the gradient all-reduces
+and reduce-scatters (``_apply_bucket_order``).  On one card there is no
+collective and the gradients come back as they are.  Neither changes a
+value.
 
 On a card every attention of the loss runs the flash_attention kernel (K4)
 forward and backward, and every mamba layer the ssd_scan kernel (K5)
@@ -28,7 +31,8 @@ import torch
 from ..models import (ArchConfig, encdec_loss, init_encdec, init_lm,
                       init_vlm, lm_loss, vlm_loss)
 from ..models.lm import tree_leaves
-from .optim import OptConfig, adamw_init, adamw_update
+from ..models.sharding import is_dtensor
+from .optim import OptConfig, adamw_init, adamw_update, zeros_f32
 
 __all__ = ["TrainState", "init_params", "init_train_state",
            "build_train_step", "loss_for", "leaf_paths", "path_str"]
@@ -109,18 +113,55 @@ def tree_unflatten(like, leaves: list):
     return out
 
 
-def _apply_bucket_order(grads: dict, order: list[list[str]] | None) -> dict:
+def _apply_bucket_order(grads: dict, order: list[list[str]] | None,
+                        like: dict | None = None) -> dict:
     """Walk the gradient buckets in the planner's order: `order` is a list
     of buckets, each a list of '/'-joined leaf paths (paths not in the tree
     are skipped, as the reference skips them; unlisted leaves keep no
-    order).  A data-parallel run issues each bucket's all-reduce here; one
-    card has none, so the gradients come back unchanged."""
+    order).  DTensor gradients are redistributed here, bucket by bucket,
+    to the placements of their leaf in `like` (the moments: the
+    parameters' placements, or the ZeRO specs), ``Replicate`` for a
+    ``Partial`` sum without `like`; the leaves no bucket lists follow in
+    the tree's order.  Each redistribution issues that leaf's all-reduce
+    or reduce-scatter, so the call order is the launch order.  One card
+    has no collective, so its gradients come back unchanged."""
+    leaves = tree_leaves(grads)
+    if any(is_dtensor(g) for g in leaves):
+        from torch.distributed.tensor import Replicate
+
+        paths = leaf_paths(grads)
+        flat = dict(zip(paths, leaves))
+        target = dict(zip(paths, tree_leaves(like))) if like else {}
+        walk = [p for bucket in (order or []) for p in bucket if p in flat]
+        for p in dict.fromkeys(walk + paths):
+            g, t = flat[p], target.get(p)
+            want = tuple(t.placements) if t is not None else tuple(
+                Replicate() if pl.is_partial() else pl for pl in g.placements)
+            if tuple(g.placements) != want:
+                flat[p] = g.redistribute(g.device_mesh, want)
+        return tree_unflatten(grads, [flat[p] for p in paths])
     if order:
         known = set(leaf_paths(grads))
         for bucket in order:
             issued = [p for p in bucket if p in known]  # noqa: F841
             # a data-parallel run all-reduces the `issued` leaves here
     return grads
+
+
+def _micro(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Microbatch `i` of `n` of a batch leaf: rows [i B/n, (i+1) B/n).  A
+    DTensor split over the batch gives each rank's i-th slice of its own
+    rows instead (slicing the global rows would gather them): the same
+    rows overall, summed in the same mean, in another grouping."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import DTensor
+
+        loc = x.to_local()
+        m = loc.shape[0] // n
+        return DTensor.from_local(loc[i * m:(i + 1) * m], x.device_mesh,
+                                  x.placements, run_check=False)
+    m = x.shape[0] // n
+    return x[i * m:(i + 1) * m]
 
 
 def _value_and_grad(loss_fn: Callable, params: dict, batch: dict):
@@ -158,10 +199,9 @@ def build_train_step(
         n = B // micro_steps
         dev = tree_leaves(params)[0].device
         loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
-        g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
-                 for p in tree_leaves(params)]
+        g_acc = [zeros_f32(p) for p in tree_leaves(params)]
         for i in range(micro_steps):
-            mb = {key: x[i * n:(i + 1) * n] for key, x in batch.items()}
+            mb = {key: _micro(x, i, micro_steps) for key, x in batch.items()}
             loss, g = _value_and_grad(loss_fn, params, mb)
             g_acc = [a + b.to(a.dtype) for a, b in zip(g_acc, tree_leaves(g))]
             loss_acc = loss_acc + loss
@@ -174,7 +214,7 @@ def build_train_step(
         if grad_compression:
             from ..dist.compression import compress_decompress
             grads = compress_decompress(grads)
-        grads = _apply_bucket_order(grads, bucket_order)
+        grads = _apply_bucket_order(grads, bucket_order, state.opt["m"])
         params, opt, stats = adamw_update(state.params, grads, state.opt,
                                           opt_cfg)
         new_state = TrainState(params=params, opt=opt, step=state.step + 1)

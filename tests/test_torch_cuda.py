@@ -1817,3 +1817,58 @@ def test_crash_resume_on_card_is_bit_exact(tmp_path, arch):
     clean = mk(d="b").run(12)
     for a, b in zip(tree_leaves(resumed.params), tree_leaves(clean.params)):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-2.7b"])
+def test_mesh_step_on_one_rank_nccl_equals_the_step_without(arch):
+    """A training step of the smoke config on a (1, 1) ("data", "model")
+    mesh over a real NCCL group of one rank (an in-memory store), the
+    state distributed by the rule table, against the same step with no
+    mesh from the same seed and batch: the same bits of the loss, the grad
+    norm, every updated parameter and both moments, and the kernels
+    launched through ``local_map`` as often as without a mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.partition import (batch_pspecs, distribute,
+                                            distribute_state)
+    from repro_torch.launch.mesh import (make_production_mesh, mesh_rules,
+                                         one_rank_group)
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.models.sharding import mesh_context
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.step import build_train_step, init_train_state
+
+    dev = _card()
+    cfg = get_config(arch).smoke()
+    g = torch.Generator(dev).manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 64), generator=g,
+                              device=dev, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    step = build_train_step(cfg, OptConfig(warmup_steps=1))
+
+    def state():
+        return init_train_state(cfg, torch.Generator(dev).manual_seed(0),
+                                device=dev)
+
+    kernel = flash_attention if arch == "qwen3-1.7b" else ssd_scan
+    before = kernel.launches
+    s0, m0 = step(state(), batch)
+    plain = kernel.launches - before
+    with one_rank_group("nccl"):
+        mesh = make_production_mesh(shape=(1, 1), device_type="cuda")
+        st = distribute_state(state(), mesh)
+        b = distribute(batch, batch_pspecs(batch, mesh), mesh)
+        before = kernel.launches
+        with mesh_context(mesh, mesh_rules(mesh)):
+            s1, m1 = step(st, b)
+        torch.cuda.synchronize()
+        meshed = kernel.launches - before
+        loss = m1["loss"].full_tensor() if hasattr(m1["loss"],
+                                                   "full_tensor") \
+            else m1["loss"]
+        assert torch.equal(loss, m0["loss"])
+        assert torch.equal(m1["grad_norm"], m0["grad_norm"])
+        for tree in (lambda s: s.params, lambda s: s.opt["m"],
+                     lambda s: s.opt["v"]):
+            for a, p in zip(tree_leaves(tree(s0)), tree_leaves(tree(s1))):
+                assert torch.equal(a, p.full_tensor())
+    assert plain > 0 and meshed == plain

@@ -195,12 +195,13 @@ def test_plan_defaults_to_the_card(monkeypatch):
 
 
 def test_dist_package_names_only_the_planner():
-    """The port's dist package names the planner and (since the training
-    slice) compression; the reference's partition rules wait for the
-    distributed slice."""
+    """The port's dist package names the planner, compression (since the
+    training slice) and the partition rules (since the mesh slice); the
+    planner has the reference's names, ``extract_collectives`` included,
+    and the recorder that reads the same list from a DTensor step."""
     import repro_torch.dist as dist
 
-    assert dist.__all__ == ["compression", "planner"]
-    assert not hasattr(planner, "extract_collectives")
-    assert set(planner.__all__) == set(ref_planner.__all__) - \
-        {"extract_collectives"}
+    assert dist.__all__ == ["compression", "partition", "planner"]
+    assert hasattr(planner, "extract_collectives")
+    assert set(planner.__all__) == set(ref_planner.__all__) | \
+        {"CollectiveRecorder", "record_collectives"}

@@ -272,6 +272,19 @@ def test_port_imports_neither_jax_nor_repro():
         "    train.main(['--arch', 'mamba2-2.7b', '--smoke', '--steps', '1',\n"
         "                '--seq-len', '20', '--global-batch', '2',\n"
         "                '--ckpt-dir', d, '--device', 'cpu'])\n"
+        "from repro_torch.dist import partition\n"
+        "from repro_torch.launch import dryrun, mesh as lmesh\n"
+        "from repro_torch.models import sharding\n"
+        "dryrun.init_fake_group(8)\n"
+        "m8 = lmesh.make_production_mesh(shape=(2, 4), device_type='cpu')\n"
+        "for sh in ('train_4k', 'decode_32k'):\n"
+        "    r = dryrun.run_cell('tinyllama-1.1b', sh, mesh=m8, verbose=False,\n"
+        "                        cfg=get_config('tinyllama-1.1b').smoke())\n"
+        "    assert r['status'] == 'ok' and r['collectives']['n_ops'], sh\n"
+        "assert planner.extract_collectives(\n"
+        "    '%a = f32[4]{0} all-reduce(f32[4]{0} %x)')[0].bytes == 16\n"
+        "specs.input_specs(get_config('qwen3-1.7b'), 'decode_32k')\n"
+        "sharding.shard(t, ('dp', None))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith('jax.') or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"
