@@ -72,15 +72,18 @@ Phases; any failure exits non-zero and prints no result line:
    repairs; the python path's through ``bna_step``).  Every fix-up bucket
    of the gdm_rt_bf pipeline plan is held against ``bna_decompose``'s
    plain version on the same inputs.  Then ``BF_LARGE``: ``gdm_bf`` and
-   ``om_alg_bf`` at 0.35 and ``gdm_rt_bf`` at 0.25 through the pipeline,
-   each feasible and no worse than its plan (scale 1.0 does not fit the
-   time limit: the host's packet sweep grows faster than the trace).  The
+   ``om_alg_bf`` at 0.25 and ``gdm_rt_bf`` at 0.2 through the pipeline,
+   each feasible and no worse than its plan (cut from 0.35 and 0.25 to
+   leave room under the time limit: the host's packet sweep grows faster
+   than the trace, and scale 1.0 does not fit at all).  The
    CPU runs, the python path's card runs and the larger scales run in
    spawned worker processes while this one runs the pipeline's 0.1 plans,
    so they share the host and the card.  Each run's wall is split into
    the plan, the prefetch, the fix-up (its walk, batch and emission; in
    the batch the ``bna_decompose`` device time by CUDA events,
-   ``_steps_to_lists`` and the staging), the sweep and the rest.
+   ``_steps_to_lists`` and the staging), the sweep and the rest.  The
+   record keeps the second at which each worker job ended
+   (``pool_done_s``): the last ones set the phase's length.
 6d. The online scheduler at the paper's cluster size (run in this process
    while 6c's workers run): ``plan_online`` of ``paper_workload(m=150,
    mu_bar=5, seed=0, scale=0.35)`` with ``poisson_releases(theta=a *
@@ -116,7 +119,8 @@ Phases; any failure exits non-zero and prints no result line:
    CPU side runs in 6c's pool (its plain versions take minutes on the
    FB-calibrated scenarios' gdm_rt); the card side in this process while
    the pool works.  Card == CPU means equal twct, job completions,
-   makespan and transcript sha256.
+   makespan and transcript sha256.  The card side's three FB-calibrated
+   gdm_rt runs (host-bound) go to the pool too, ahead of the CPU side.
    a. Every scenario at its builder's defaults (seed 0; online_poisson
       through ``strip_releases``) x gdm, gdm_rt, om_alg with
       ``scheduler_opts``: card == CPU; ``verify_transcript`` and the
@@ -366,6 +370,18 @@ Phases; any failure exits non-zero and prints no result line:
       before and read just after), against the same step without a mesh
       from the same seed and batch: the loss must be the same bits, and
       K4 must launch as often; the grad norm's difference is printed.
+18. The port's contract checker (``_checker``, host only; this machine's
+   Python and PyTorch, not the CPU tests'): (a) ``repro_torch.analysis``'s
+   ``scan_paths`` over src/repro_torch in process, with ``--strict``'s
+   semantics: 0 unsuppressed findings, an empty
+   ``analysis_baseline_torch.json`` and no stale entry; prints the rule,
+   file and suppressed counts and the scan's wall; (b) every launch site
+   ``overflow-range`` resolves (13: each ``kernels/*/ops.py`` call of a
+   ctypes entry): each entry it may call must be a symbol that its
+   kernel's built library exports (``getattr`` on the loaded ``CDLL``),
+   with the argtypes of the entry's ``extern "C"`` declaration in its
+   ``.cu`` source; and every kernel of the ``kernels`` line
+   (``<name>_launch``) must be among them.  It launches nothing.
 
 float32 matrix products run in full float32 (``allow_tf32`` is set False,
 PyTorch's default, for matmul and cuDNN).
@@ -433,12 +449,13 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 4e-2}
 SSD_TOL = {"float32": 1e-4, "bfloat16": 8e-3}   # relative to max |y|
 CHECK_SCALE = 0.25                  # phase 4's checked pipeline plan
 # phase 6c: the *_bf schedulers at scale 0.1 (card == CPU on both plan
-# backends), then through the pipeline at the largest scales the time
-# limit allows (the packet sweep on the host takes minutes at 0.35; 0.35
-# is the reference's figure scale, paper_figs.DEFAULT_SCALE)
+# backends), then through the pipeline at larger scales: the reference's
+# figure scale (0.35, paper_figs.DEFAULT_SCALE) took 204.9 s for gdm_bf,
+# 161.9 of it the host's packet sweep, which grows about as scale^2.6, so
+# the scales are cut to leave the whole run room under its time limit
 BF_SCHEDS = ("gdm_bf", "gdm_rt_bf", "om_alg_bf")
 BF_SCALE = 0.1
-BF_LARGE = {"gdm_bf": 0.35, "om_alg_bf": 0.35, "gdm_rt_bf": 0.25}
+BF_LARGE = {"gdm_bf": 0.25, "om_alg_bf": 0.25, "gdm_rt_bf": 0.2}
 BF_WORKERS = 7                      # spawned processes for phase 6c's runs
 # phases 6d-6f: the online scheduler.  6d: the figure's pair (paper_figs.
 # fig_c: gdm with nested=False, seed=0, against om_alg) at the figure's
@@ -2845,6 +2862,56 @@ def _mesh(dev, counts) -> dict:
     return out
 
 
+def _checker(kernel_names) -> dict:
+    """Phase 18: the port's contract checker (``repro_torch.analysis``) on
+    this machine's host, in process.  (a) ``--strict`` over src/repro_torch:
+    0 unsuppressed findings and an empty ``analysis_baseline_torch.json``.
+    (b) Every launch site ``overflow-range`` resolves: each entry it may
+    call is a symbol its kernel's built library exports, with the argtypes
+    of the entry's ``extern "C"`` declaration; and each kernel the kernels
+    line holds against its plain version (``<name>_launch``) is among
+    them."""
+    from repro_torch.analysis import baseline, names, scan_paths
+    from repro_torch.analysis.rules import overflow_range
+    from repro_torch.kernels import load_kernel
+
+    t0 = time.perf_counter()
+    src = ROOT / "src" / "repro_torch"
+    report = scan_paths([src], root=ROOT)
+    entries = baseline.load(ROOT / baseline.DEFAULT_BASELINE)
+    ratchet = baseline.diff(report, entries)
+    scan_s = time.perf_counter() - t0
+    if report.unsuppressed or entries or not ratchet.ok():
+        _fail("18(a): the checker is not clean under --strict:\n"
+              + "\n".join(f.render() for f in report.unsuppressed)
+              + f"\nbaseline entries: {entries}")
+    sites = overflow_range.resolve_launches([src / "kernels"], ROOT)
+    exported = set()
+    for site in sites:
+        lib = load_kernel(site.kernel)
+        for entry in site.entries:
+            if not hasattr(lib, entry):
+                _fail(f"18(b): {site.path}:{site.line} launches {entry}, "
+                      f"which the {site.kernel} library does not export")
+            cite = overflow_range.INT32_INDEXED[(site.kernel, entry)][1]
+            cu = (src / "kernels" / cite.split(":")[0]).read_text()
+            if list(site.argtypes or ()) != \
+                    overflow_range.c_signature(cu, entry):
+                _fail(f"18(b): {site.path}:{site.line}: {entry}'s argtypes "
+                      f"{site.argtypes} differ from its CUDA declaration")
+            exported.add(entry)
+    missing = sorted(n for n in kernel_names if f"{n}_launch" not in exported)
+    if missing:
+        _fail(f"18(b): kernels of the kernels line with no resolved launch "
+              f"site: {missing}")
+    return {"rules": len(names()), "files": report.n_files,
+            "findings": len(report.unsuppressed),
+            "suppressed": len(report.suppressed),
+            "baseline_entries": len(entries), "scan_s": scan_s,
+            "launch_sites": len(sites), "entries": sorted(exported),
+            "wall_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3682,7 +3749,13 @@ def main() -> int:
     # phase 6g's CPU side (the zoo) goes to the same pool: its three
     # longest runs right after the larger scales, the rest at the end
     zoo_cpu = _zoo_jobs("cpu")
+    # the card side's three FB-calibrated gdm_rt runs (47-60 s each, host
+    # bound: the fix-up's walk) go to the pool too, right after the larger
+    # scales: in this process they set the phase's length (on one run the
+    # pool ended at 331 s, this process at 407 s; ``pool_done_s``)
+    zoo_card_jobs = _zoo_jobs("cuda")
     submissions = [(_bf_worker, j) for j in worker_jobs[:len(large_jobs)]] \
+        + [(_zoo_worker, j) for j in zoo_card_jobs[:3]] \
         + [(_zoo_worker, j) for j in zoo_cpu[:3]] \
         + [(_bf_worker, j) for j in worker_jobs[len(large_jobs):len(
             large_jobs) + 2 * len(bf_jobs)]] \
@@ -3695,8 +3768,17 @@ def main() -> int:
     t_bf = time.perf_counter()
     pool = ProcessPoolExecutor(max_workers=BF_WORKERS,
                                mp_context=multiprocessing.get_context("spawn"))
+    pool_done: dict = {}     # worker job -> the second it ended
+
+    def done_at(label: str) -> None:
+        pool_done[label] = round(time.perf_counter() - t_bf, 1)
+
     try:
-        futures = {job: pool.submit(fn, job) for fn, job in submissions}
+        futures = {}
+        for fn, job in submissions:
+            futures[job] = pool.submit(fn, job)
+            futures[job].add_done_callback(
+                lambda _f, label=f"{fn.__name__} {job}": done_at(label))
         bf_runs: dict = {}
         for j in bf_jobs:
             job = (*j, "cuda", "pipeline")
@@ -3713,7 +3795,7 @@ def main() -> int:
         online_pair_s = time.perf_counter() - t_online
         t_zoo = time.perf_counter()
         zoo_card: dict = {}
-        for job in _zoo_jobs("cuda"):     # phase 6g's card side, meanwhile
+        for job in zoo_card_jobs[3:]:     # phase 6g's card side, meanwhile
             try:
                 zoo_card[job[:3]] = _zoo_run(job)
             except RuntimeError as err:
@@ -3729,6 +3811,7 @@ def main() -> int:
         pool.shutdown(wait=True, cancel_futures=True)
     bf_s = time.perf_counter() - t_bf
     bf_runs.update({j: pool_runs.pop(j) for j in worker_jobs})
+    zoo_card.update({j[:3]: pool_runs.pop(j) for j in zoo_card_jobs[:3]})
     for j in bf_jobs:
         for pb in backends:
             card, cpu = bf_runs[(*j, "cuda", pb)], bf_runs[(*j, "cpu", pb)]
@@ -3757,6 +3840,10 @@ def main() -> int:
             "verify_s")
     record["bf_check"] = dict(bf_check)
     record["bf_s"] = bf_s
+    record["pool_done_s"] = pool_done
+    print("phase 6c's pool, the last jobs to end (s from its start): "
+          + json.dumps(dict(sorted(pool_done.items(),
+                                   key=lambda kv: kv[1])[-5:])))
     record["bf_plans"] = [{k: r[k] for k in keep} for r in bf_runs.values()]
     record["bf_large"] = {s_: {k: r[k] for k in keep}
                           for s_, r in bf_large.items()}
@@ -3872,7 +3959,8 @@ def main() -> int:
                 f"(B, w) {r['widest_bucket']}")
 
     print(f"zoo (phase 6g) on {smi_zoo}; card runs {zoo_card_s:.1f} s in "
-          "this process beside the pool; every card run equal to the CPU's")
+          "this process beside the pool (the three FB-calibrated gdm_rt "
+          "runs in the pool); every card run equal to the CPU's")
     for (kind, what, sched), r in rows_by.items():
         if kind == "defaults":
             print(f"zoo {what} (defaults, m={r['m']}, {r['coflows']} "
@@ -5092,6 +5180,18 @@ def main() -> int:
         if name in ("flash_attention", *BWD_KERNELS):
             row.setdefault("launches_by_path", {})["mesh step (1, 1)"] = \
                 ms["step"]["launches"]["mesh"][name]
+
+    # 18. the port's contract checker, and the launch sites it resolves
+    # held against the built libraries (host only) ------------------------
+    mark("18")
+    record["checker"] = ck = _checker([k["name"] for k in kernels_line])
+    print(f"18. checker: {ck['rules']} rules over {ck['files']} files, "
+          f"{ck['findings']} findings, {ck['suppressed']} suppressed, "
+          f"baseline {ck['baseline_entries']} entries, scan "
+          f"{ck['scan_s']:.2f} s; {ck['launch_sites']} launch sites, "
+          f"{len(ck['entries'])} entries, each exported by its library "
+          f"with its CUDA declaration's argtypes; phase 18 "
+          f"{ck['wall_s']:.2f} s")
 
     # the modelled fields go to the record: the line keeps bound_ms and
     # what this run measured

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..kernels import resolve_device
+# repro: allow(backend-dispatch): this IS the resolved dispatch site of the python path's BNA step (bna_many)
 from ..kernels.bna_step import bna_step, stage_state
 from .bna import (_NO_MATCH, expand_pieces, support_restrict,
                   verify_bna_schedule)

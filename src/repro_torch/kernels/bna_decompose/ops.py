@@ -7,11 +7,13 @@ launches the kernel in ``csrc/bna_decompose.cu`` or raises.
 
 The caller guards the int32 range (every row and column load below
 2^31 - 1; ``core/pipeline.py`` sends a bucket past it down the batched
-path instead).  Storage: the kernel stores the first ``t_store`` steps of
-each lane; if a lane took more, the wrapper launches again with room for
-all of them, so the result never depends on ``t_store``.  Any width
-runs: past 1024 senders a lane's state leaves shared memory for a device
-scratch that the wrapper allocates (``layout``).
+path instead).  B, w, T_cap and T_out go to the kernel as C ints, so each
+past 2^31 - 1 raises before the launch.  Storage: the kernel stores the
+first ``t_store`` steps of each lane; if a lane took more, the wrapper
+launches again with room for all of them, so the result never depends on
+``t_store``.  Any width runs: past 1024 senders a lane's state leaves
+shared memory for a device scratch that the wrapper allocates
+(``layout``).
 """
 from __future__ import annotations
 
@@ -48,6 +50,9 @@ def layout(B: int, w: int) -> dict:
     computes it: lanes (warps) per block, dynamic shared memory per block
     in bytes, and the int32 scratch words per lane of the layout past 1024
     senders (0 at w <= 1024, where a lane's state is in shared memory)."""
+    if not (0 <= B <= _I32_MAX and 0 <= w <= _I32_MAX):
+        raise ValueError(f"bna_decompose's layout takes B and w in "
+                         f"[0, 2^31 - 1], got B={B}, w={w}")
     fn = load_kernel("bna_decompose").bna_decompose_layout
     fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
@@ -60,6 +65,12 @@ def layout(B: int, w: int) -> dict:
 
 def _launch(d, ks, T_cap: int, T_out: int):
     B, w, _ = d.shape
+    if max(B, w) > _I32_MAX or ks.shape != (B,) or not (
+            0 <= T_cap <= _I32_MAX and 0 <= T_out <= _I32_MAX):
+        # B, w, T_cap and T_out go to the kernel as C ints, and it indexes
+        # ks, D_final and nsteps with an int
+        raise ValueError(f"bna_decompose takes B, w, T_cap and T_out in "
+                         f"[0, 2^31 - 1], got {B}, {w}, {T_cap}, {T_out}")
     dev = d.device
     work = torch.empty_like(d)
     state = torch.empty(B * layout(B, w)["state_words"], dtype=torch.int32,

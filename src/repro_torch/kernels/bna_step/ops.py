@@ -5,8 +5,10 @@ checks, and dispatch by device.
 device.  Every value is bounded by the effective size D, so it stages int32
 while max D < 2^31 - 1 (the reference's guard for its int32 kernel,
 ``repro/kernels/bna_step/ops.py``) and int64 otherwise, where the
-reference's numpy step works in int64 too.  The kernel indexes with 64-bit
-offsets, so the stack's element count has no limit of its own.
+reference's numpy step works in int64 too.  The kernel indexes the stack
+with 64-bit offsets, so its element count has no limit of its own; B and w
+go to the kernel as C ints, so either past 2^31 - 1 raises (on every
+device).
 
 ``bna_step`` runs one step in place on int32 or int64 tensors.  A CPU
 tensor takes the plain version (``ref.bna_step_ref``); a CUDA tensor
@@ -66,11 +68,15 @@ def bna_step(d: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
     (B, 2 + 2w) rows ``[t | D' | piece | invalid]`` in the state's type
     (``ref.unpack_step`` splits them).  Equal to ``ref.bna_step_ref``."""
     _check(d, row, col, D, match)
+    B, w, _ = d.shape
+    if max(B, w) > _I32_MAX or D.shape != (B,):
+        # B and w go to the kernel as C ints, and it indexes D with an int
+        raise ValueError(f"bna_step takes B and w up to 2^31 - 1, got "
+                         f"B={B}, w={w}")
     if d.device.type == "cpu":
         return bna_step_ref(d, row, col, D, match)
     if d.device.type != "cuda":
         raise ValueError(f"bna_step runs on cpu or cuda, not {d.device}")
-    B, w, _ = d.shape
     out = torch.empty((B, 2 + 2 * w), dtype=d.dtype, device=d.device)
     lib = load_kernel("bna_step")
     fn = lib.bna_step_launch if d.dtype == torch.int32 \

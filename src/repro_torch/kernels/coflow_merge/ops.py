@@ -13,7 +13,8 @@ with their counts.
 Guard: the per-port counts are int32 and bounded by the number of edge
 activations E, so E >= 2^31 - 1 raises (as in
 ``repro/kernels/coflow_merge/ops.py``).  The kernel indexes the delta array
-with 64-bit offsets, so a large K * 2m needs no fallback.
+with 64-bit offsets, so a large K * 2m needs no fallback; the port count P
+goes to it as a C int, so P past 2^31 - 1 raises.
 """
 from __future__ import annotations
 
@@ -65,12 +66,16 @@ def coflow_merge(delta: torch.Tensor) -> torch.Tensor:
                          f"{tuple(delta.shape)} {delta.dtype}")
     if not delta.is_contiguous():
         raise ValueError("delta must be contiguous")
+    K, P = delta.shape
+    if P > _I32_MAX:
+        # the port count goes to the kernel as a C int
+        raise ValueError(f"coflow_merge takes at most 2^31 - 1 ports, got "
+                         f"{P}")
     if delta.device.type == "cpu":
         return alphas_ref(delta)
     if delta.device.type != "cuda":
         raise ValueError(f"coflow_merge runs on cpu or cuda, not "
                          f"{delta.device}")
-    K, P = delta.shape
     alphas = torch.empty(K, dtype=torch.int32, device=delta.device)
     if K == 0:
         return alphas

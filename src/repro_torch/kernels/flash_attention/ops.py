@@ -10,7 +10,9 @@ launches the kernel in ``csrc/flash_attention.cu`` or raises.  The kernel
 reads q, k and v through their strides (only the head dim must be
 contiguous), so a (B, S, H, d) tensor seen through ``transpose(1, 2)`` needs
 no copy, and the output takes q's memory layout.  It indexes with 64-bit
-offsets, so the reference's int32 index-space guard has no counterpart.
+offsets, so the reference's int32 index-space guard has no counterpart;
+but the extents (B, Hq, Hkv, Sq, Sk, d) go to every kernel of this file as
+C ints, so one past 2^31 - 1 raises (on every device).
 
 When a gradient is wanted (grad mode on and an input that requires it),
 ``flash_attention`` is a ``torch.autograd.Function``: the forward also
@@ -55,6 +57,7 @@ __all__ = ["flash_attention", "flash_attention_lse", "flash_attention_bwd",
 MAX_HEAD_DIM = 256          # the forward kernel's largest head-dim tile
 MAX_BWD_HEAD_DIM = 128      # the backward kernels' (every config's d)
 _DTYPES = (torch.float32, torch.bfloat16)
+_I32_MAX = 2**31 - 1        # the extents go to the kernels as C ints
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -76,6 +79,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"{name} is on {a.device}, q on {q.device}")
 
 
+def _extents_error(name: str, q: torch.Tensor, k: torch.Tensor) -> str:
+    return (f"{name} takes every extent up to 2^31 - 1 (its kernels' int "
+            f"arguments), got q {tuple(q.shape)}, k {tuple(k.shape)}")
+
+
 def _strides(*tensors) -> list[int]:
     return [a.stride(i) for a in tensors for i in range(3)]
 
@@ -95,6 +103,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     no key."""
     B, Hq, Sq, d = q.shape
     _, Hkv, Sk, _ = k.shape
+    if max(B, Hq, Hkv, Sq, Sk, d) > _I32_MAX:
+        raise ValueError(_extents_error("flash_attention", q, k))
     if q.device.type in PLAIN_DEVICES:
         out = attention_ref(q, k, v, causal=causal, scale=scale)
         lse = attention_lse_ref(q, k, causal=causal, scale=scale) \
@@ -211,9 +221,11 @@ def _bwd_checks(q, k, v, dout, lse) -> None:
 
 def attn_bwd_prep(o: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     """D = rowsum(dO o O) in float32, (B, Hq, Sq)."""
+    B, Hq, Sq, d = o.shape
+    if max(B, Hq, Sq, d) > _I32_MAX:
+        raise ValueError(_extents_error("attn_bwd_prep", o, o))
     if o.device.type in PLAIN_DEVICES:
         return attention_bwd_prep_ref(o, dout)
-    B, Hq, Sq, d = o.shape
     D = torch.empty((B, Hq, Sq), dtype=torch.float32, device=o.device)
     if D.numel() == 0:
         return D
@@ -313,9 +325,11 @@ def _cuda_only(name: str, q: torch.Tensor) -> None:
 def attn_bwd_dkdv(q, k, v, dout, lse, D, *, causal: bool, scale: float):
     """(dk, dv) in k's and v's types and layouts, each summed over the kv
     head's query heads.  CUDA tensors only."""
-    _cuda_only("attn_bwd_dkdv", q)
     B, Hq, Sq, d = q.shape
     _, Hkv, Sk, _ = k.shape
+    if max(B, Hq, Hkv, Sq, Sk, d) > _I32_MAX:
+        raise ValueError(_extents_error("attn_bwd_dkdv", q, k))
+    _cuda_only("attn_bwd_dkdv", q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
@@ -344,9 +358,11 @@ attn_bwd_dkdv.staged = 0
 def attn_bwd_dq(q, k, v, dout, lse, D, *, causal: bool, scale: float):
     """dq in q's type and layout; 0 on a row that sees no key.  CUDA
     tensors only."""
-    _cuda_only("attn_bwd_dq", q)
     B, Hq, Sq, d = q.shape
     _, Hkv, Sk, _ = k.shape
+    if max(B, Hq, Hkv, Sq, Sk, d) > _I32_MAX:
+        raise ValueError(_extents_error("attn_bwd_dq", q, k))
+    _cuda_only("attn_bwd_dq", q)
     dq = torch.empty_like(q)
     if dq.numel() == 0:
         return dq

@@ -15,7 +15,9 @@ Guard: the per-port counts are int32 and bounded by the number of edge
 activations E, so E >= 2^31 - 1 raises (as in
 ``repro/kernels/merge_fix/ops.py``).  Durations are int64 on every path.
 The kernel's endpoint records hold ports below 2^22 and rows below 2^31,
-so m >= 2^22 or K >= 2^31 - 1 raises on the card.
+so m >= 2^22 or K >= 2^31 - 1 raises on the card; m and the tiling's
+chunk, bin and tile counts go to it as C ints, so any of them outside
+[0, 2^31 - 1] raises on every device.
 
 Scratch (``scratch``; no (K + 1) x 2m array): the bucket table (up to
 2(K + 1) int32), the endpoints' rows (2E int32) and records (2E int64), each chunk's bin offsets, and the carry:
@@ -80,13 +82,21 @@ def merge_fix(events: torch.Tensor, t0: torch.Tensor, t1: torch.Tensor,
         if name != "events" and a.numel() != E:
             raise ValueError(f"{name} has {a.numel()} entries, t0 has {E}")
     _check_edge_count(E)
+    K = int(events.numel()) - 1
+    lay = tile_layout(K, E)
+    C, nbins, lg = lay.C, lay.nbins, lay.lg
+    if not 0 <= m <= _I32_MAX or min(C, nbins, lg) < 0 \
+            or max(C, nbins, lg) > _I32_MAX:
+        # m and the tiling go to the kernel as C ints
+        raise ValueError(f"merge_fix takes m, and tiles K and E into "
+                         f"chunks, bins and tiles, in [0, 2^31 - 1]: got "
+                         f"m={m}, C={C}, nbins={nbins}, lg={lg}")
     if events.device.type == "cpu":
         return merge_fix_ref(events, t0, t1, s, r, m)
     if events.device.type != "cuda":
         raise ValueError(f"merge_fix runs on cpu or cuda, not "
                          f"{events.device}")
     dev = events.device
-    K = int(events.numel()) - 1
     alphas = torch.empty(max(K, 0), dtype=torch.int64, device=dev)
     deltas = torch.empty(max(K, 0), dtype=torch.int64, device=dev)
     if K < 1:
@@ -94,7 +104,6 @@ def merge_fix(events: torch.Tensor, t0: torch.Tensor, t1: torch.Tensor,
     if m >= _PORT_LIMIT or K >= _I32_MAX:
         raise ValueError(f"merge_fix on the card takes m < 2^22 and "
                          f"K < 2^31 - 1, got m={m}, K={K}")
-    lay = tile_layout(K, E)
     sc = scratch(K, E, m, dev)
     fn = load_kernel("merge_fix").merge_fix_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] \
@@ -104,8 +113,8 @@ def merge_fix(events: torch.Tensor, t0: torch.Tensor, t1: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(events.data_ptr(), K, t0.data_ptr(), t1.data_ptr(),
-                 s.data_ptr(), r.data_ptr(), E, m, lay.nb, lay.Ec, lay.C,
-                 lay.nbins, lay.lg,
+                 s.data_ptr(), r.data_ptr(), E, m, lay.nb, lay.Ec, C, nbins,
+                 lg,
                  *(sc[k].data_ptr() for k in ("table", "rows", "recs", "seg",
                                               "carry")),
                  alphas.data_ptr(), deltas.data_ptr(), stream)

@@ -11,7 +11,9 @@ padded with zeros and a with 1 to a multiple of L (padded steps leave the
 state unchanged), loga = log(max(a, 1e-37)) in float32, the output sliced
 back to S.  The reference falls back to its oracle past 2^31 - 1 elements
 because Pallas indexes in int32; these kernels index with 64-bit
-offsets, so that guard has no counterpart here.
+offsets, so that guard has no counterpart here.  The extents (B, S, H, G,
+P, N and the chunk) go to them as C ints, so one past 2^31 - 1 (S past
+2^31 - 1 - 128, room for the padding) raises, on every device.
 
 The kernels read x, b and c through their (batch, seq, head or group)
 strides, so the views that ``models.ssm`` splits out of one projection
@@ -71,6 +73,13 @@ BWD_KERNELS = {torch.bfloat16: {"ssd_bwd_state": (5,),
                torch.float32: {"ssd_bwd_state": (1, 2),
                                "ssd_bwd_chunk": (3, 4)}}
 _DTYPES = (torch.float32, torch.bfloat16)
+_I32_MAX = 2**31 - 1        # the extents go to the kernels as C ints
+
+
+def _extents_error(name: str, x: torch.Tensor, b: torch.Tensor) -> str:
+    return (f"{name} takes every extent up to 2^31 - 1 (its kernels' int "
+            f"arguments; S up to 2^31 - 1 - {MAX_TILE}, room for a chunk's "
+            f"padding), got x {tuple(x.shape)}, b {tuple(b.shape)}")
 
 
 def _check(x, a, b, c) -> None:
@@ -147,16 +156,20 @@ def _forward(x, a, b, c, chunk: int, keep: bool):
     forward's log decay and scratch (states: the state entering each chunk,
     (B, nC, H, N, P) float32; decay: each chunk's summed log decay; three
     Nones for an empty x), else ()."""
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    if max(B, S + MAX_TILE, H, G, P, N) > _I32_MAX:
+        raise ValueError(_extents_error("ssd_scan", x, b))
     if x.device.type in PLAIN_DEVICES:
         return ssd_ref(x, a, b, c), ()
     L = _check_cuda(x, a, b, c, chunk)
     if x.numel() == 0:
         return torch.empty_like(x), ((None,) * 3 if keep else ())
-    B, S, H, P = x.shape
-    G, N = b.shape[2], b.shape[3]
+    if not 1 <= L <= MAX_TILE:     # _check_cuda's limit, where it is used
+        raise ValueError(f"ssd_scan's chunk is {L}")
     x, a, b, c = pad_chunks(L, x, a, b, c)
     _contiguous_last(x=x, b=b, c=c)
-    Sp = x.shape[1]
+    Sp = S + (-S) % L              # x.shape[1]: S padded to chunks
     loga = log_decay(a.float()).contiguous()
     y = torch.empty((B, Sp, H, P), dtype=x.dtype, device=x.device)
     nC = Sp // L
@@ -222,9 +235,12 @@ def ssd_bwd_state(c: torch.Tensor, dy: torch.Tensor, loga: torch.Tensor,
     kernel's products take it), CUDA tensors only (dy and c of one type; c
     through its strides, the rest dense).  Its plain version is
     ``ref.ssd_bwd_state_ref``."""
-    _cuda_only("ssd_bwd_state", c)
     B, S, H, P = dy.shape
     G, N = c.shape[2], c.shape[3]
+    if max(B, S, H, G, P, N) > _I32_MAX or not 1 <= chunk <= MAX_TILE:
+        raise ValueError(_extents_error("ssd_bwd_state", dy, c)
+                         + f", chunk {chunk}")
+    _cuda_only("ssd_bwd_state", c)
     if not (dy.is_contiguous() and loga.is_contiguous()
             and decay.is_contiguous()):
         raise ValueError("ssd_bwd_state takes dense dy, loga and decay")
@@ -262,9 +278,12 @@ def ssd_bwd_chunk(x, a, loga, b, c, dy, states, grads, *, chunk: int):
     float32: two), CUDA tensors only (x, b, c through their strides; a
     float32; the rest dense).  Its plain version is
     ``ref.ssd_bwd_chunk_ref``."""
-    _cuda_only("ssd_bwd_chunk", x)
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
+    if max(B, S, H, G, P, N) > _I32_MAX or not 1 <= chunk <= MAX_TILE:
+        raise ValueError(_extents_error("ssd_bwd_chunk", x, b)
+                         + f", chunk {chunk}")
+    _cuda_only("ssd_bwd_chunk", x)
     if not all(t.is_contiguous() for t in (a, loga, dy, states, grads)):
         raise ValueError("ssd_bwd_chunk takes dense a, loga, dy, states and "
                          "grads")

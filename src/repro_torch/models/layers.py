@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+# repro: allow(backend-dispatch): K4 is the NN stack's own kernel, dispatched by its tensors' device, not scheduler backend dispatch
 from ..kernels.flash_attention import flash_attention
 from .common import DTYPES, ArchConfig
 from .sharding import (fit_spec, index_on, is_dtensor, logical_spec,

@@ -20,7 +20,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+# repro: allow(backend-dispatch): K5 is the NN stack's own kernel, dispatched by its tensors' device, not scheduler backend dispatch
 from ..kernels.ssd_scan import ssd_scan
+# repro: allow(backend-dispatch): chunked-form and decode-step refs are plain tensor math shared with the kernel package, no dispatch layer exists for them
 from ..kernels.ssd_scan.ref import (pad_chunks, ssd_decode_step,
                                     ssd_states_ref)
 from .common import DTYPES, ArchConfig

@@ -403,3 +403,149 @@ def test_resolve_device_without_a_card(monkeypatch):
         resolve_device("cuda")
     with pytest.raises(ValueError, match="unsupported"):
         resolve_device("meta")
+
+
+# ---------------------------------------------------------------------------
+# int32 launch guards: every extent a wrapper hands to a ctypes.c_int
+# argument raises past 2^31 - 1 (ctypes would wrap it without a word),
+# before any device is touched; ``meta`` tensors carry the shapes with no
+# memory behind them
+# ---------------------------------------------------------------------------
+
+_BIG = 2**31             # one past the largest C int
+
+
+def _meta(*shape, dtype=torch.int32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _guard_bna_step():
+    B = _BIG
+    bna_step(_meta(B, 1, 1), _meta(B, 1), _meta(B, 1), _meta(B),
+             _meta(B, 1))
+
+
+def _guard_bna_decompose_layout():
+    from repro_torch.kernels.bna_decompose import ops
+    ops.layout(_BIG, 8)
+
+
+def _guard_bna_decompose_layout_negative():
+    from repro_torch.kernels.bna_decompose import ops
+    ops.layout(4, -1)
+
+
+def _guard_bna_decompose_batch():
+    from repro_torch.kernels.bna_decompose import ops
+    ops._launch(_meta(_BIG, 1, 1), _meta(_BIG), 1, 1)
+
+
+def _guard_bna_decompose_steps():
+    from repro_torch.kernels.bna_decompose import ops
+    ops._launch(_meta(2, 4, 4), _meta(2), _BIG, 1)
+
+
+def _guard_coflow_merge():
+    coflow_merge(_meta(1, _BIG))
+
+
+def _merge_fix_args():
+    ev = torch.tensor([0, 5, 9], dtype=torch.int64)
+    e = torch.tensor([0], dtype=torch.int64)
+    return ev, e, e + 5, e, e
+
+
+def _guard_merge_fix_ports():
+    from repro_torch.kernels.merge_fix import merge_fix
+    merge_fix(*_merge_fix_args(), _BIG)
+
+
+def _guard_merge_fix_tiling():
+    from repro_torch.kernels.merge_fix import ops
+    from repro_torch.kernels.merge_fix.ref import TileLayout
+    real = ops.tile_layout
+    ops.tile_layout = lambda K, E: TileLayout(1, 0, 1, 1, _BIG, 1)
+    try:
+        ops.merge_fix(*_merge_fix_args(), 4)
+    finally:
+        ops.tile_layout = real
+
+
+def _qkv(Sq):
+    f = torch.float32
+    return _meta(1, 1, Sq, 8, dtype=f), _meta(1, 1, 4, 8, dtype=f), \
+        _meta(1, 1, 4, 8, dtype=f)
+
+
+def _guard_flash_attention():
+    flash_attention(*_qkv(_BIG))
+
+
+def _guard_attn_bwd_prep():
+    from repro_torch.kernels.flash_attention import attn_bwd_prep
+    o = _meta(_BIG, 1, 1, 8, dtype=torch.float32)
+    attn_bwd_prep(o, o)
+
+
+def _guard_attn_bwd(which):
+    from repro_torch.kernels.flash_attention import ops
+    q, k, v = _qkv(_BIG)
+    rows = _meta(1, 1, _BIG, dtype=torch.float32)
+    getattr(ops, which)(q, k, v, q, rows, rows, causal=True, scale=1.0)
+
+
+def _ssd(S, dtype=torch.float32):
+    return (_meta(1, S, 2, 4, dtype=dtype), _meta(1, S, 2, dtype=dtype),
+            _meta(1, S, 1, 4, dtype=dtype), _meta(1, S, 1, 4, dtype=dtype))
+
+
+def _guard_ssd_scan():
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    # S itself fits a C int; padded to a chunk it would not
+    ssd_scan(*_ssd(2**31 - 100))
+
+
+def _guard_ssd_bwd_state(S, chunk):
+    from repro_torch.kernels.ssd_scan import ssd_bwd_state
+    x, a, b, c = _ssd(S)
+    ssd_bwd_state(c, x, a, _meta(1, 1, 2, dtype=torch.float32), chunk=chunk)
+
+
+def _guard_ssd_bwd_chunk(S, chunk):
+    from repro_torch.kernels.ssd_scan import ssd_bwd_chunk
+    x, a, b, c = _ssd(S)
+    st = _meta(1, 1, 2, 4, 4, dtype=torch.float32)
+    ssd_bwd_chunk(x, a, a, b, c, x, st, st, chunk=chunk)
+
+
+@pytest.mark.parametrize("call", [
+    _guard_bna_step, _guard_bna_decompose_layout,
+    _guard_bna_decompose_layout_negative, _guard_bna_decompose_batch,
+    _guard_bna_decompose_steps, _guard_coflow_merge, _guard_merge_fix_ports,
+    _guard_merge_fix_tiling, _guard_flash_attention, _guard_attn_bwd_prep,
+    lambda: _guard_attn_bwd("attn_bwd_dkdv"),
+    lambda: _guard_attn_bwd("attn_bwd_dq"), _guard_ssd_scan,
+    lambda: _guard_ssd_bwd_state(_BIG, 4),
+    lambda: _guard_ssd_bwd_state(8, 4096),
+    lambda: _guard_ssd_bwd_chunk(_BIG, 4),
+    lambda: _guard_ssd_bwd_chunk(8, 0),
+], ids=["bna_step", "bna_decompose_layout", "bna_decompose_layout_negative",
+        "bna_decompose_batch", "bna_decompose_steps", "coflow_merge",
+        "merge_fix_ports", "merge_fix_tiling", "flash_attention",
+        "attn_bwd_prep", "attn_bwd_dkdv", "attn_bwd_dq", "ssd_scan",
+        "ssd_bwd_state_extent", "ssd_bwd_state_chunk", "ssd_bwd_chunk_extent",
+        "ssd_bwd_chunk_chunk"])
+def test_int32_launch_guard_raises(call):
+    with pytest.raises(ValueError, match=r"2\^31 - 1|chunk"):
+        call()
+
+
+def test_int32_launch_guards_leave_the_plain_path_alone():
+    """Extents inside the range keep the CPU's plain versions as before."""
+    from repro_torch.kernels.merge_fix import merge_fix
+    from repro_torch.kernels.merge_fix.ref import merge_fix_ref
+    args = _merge_fix_args()
+    for m in (1, 4, 300):
+        got = merge_fix(*args, m)
+        want = merge_fix_ref(*args, m)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))

@@ -285,6 +285,14 @@ def test_port_imports_neither_jax_nor_repro():
         "    '%a = f32[4]{0} all-reduce(f32[4]{0} %x)')[0].bytes == 16\n"
         "specs.input_specs(get_config('qwen3-1.7b'), 'decode_32k')\n"
         "sharding.shard(t, ('dp', None))\n"
+        "import importlib, pkgutil\n"
+        "import repro_torch.analysis\n"
+        "for sub in pkgutil.walk_packages(repro_torch.analysis.__path__,\n"
+        "                                 'repro_torch.analysis.'):\n"
+        "    importlib.import_module(sub.name)\n"
+        "from repro_torch.analysis import scan_paths\n"
+        "assert scan_paths(['src/repro_torch/kernels'],\n"
+        "                  rules=['overflow-range']).ok(), 'analysis'\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith('jax.') or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"
