@@ -151,8 +151,9 @@ Phases; any failure exits non-zero and prints no result line:
    cell's wall, launches and widest bucket, beside the card's name and
    power limit.
 7. ``flash_attention`` (K4) against its plain version on the card, float32
-   (FMA path) and bfloat16 (tensor-core path, ``mma.sync``), causal and
-   not, at the reference sweep's shapes (d = 24, 32, 48, 64, 128),
+   (FMA path) and bfloat16 (``wgmma`` on TMA tiles at d = 64 and 128,
+   ``mma.sync`` at the other head dims), causal and not, at the reference
+   sweep's shapes (d = 24, 32, 48, 64, 128),
    qwen3-1.7b's prefill shapes (B=1, Hq=16, Hkv=8, d=128, S in {1, 127,
    2048}) and the families' of phase 14b (``FAMILY_ATTN``: whisper's
    encoder, 20 heads of d = 64 over 1500 frames, and its cross-attention,
@@ -168,7 +169,9 @@ Phases; any failure exits non-zero and prints no result line:
    version on the same q/k/v; then, with the counts set to 0, 8 requests
    (prompts of 512-3072 tokens, 32 new tokens each) must all complete with
    28 K4 launches per prefill.  Prints prefill seconds per request, decode
-   ms per token, tokens/s and the peak device memory.
+   ms per token, tokens/s and the peak device memory.  A profiled prefill
+   of the longest prompt (after 8b) must launch K4's ``wgmma`` kernel
+   (``flash_fwd_wgmma``) 28 times.
 8b. The same 8 requests served again with ``admission="coflow"``: the
    engine's ``SchedulerSession`` plans on the card (pipeline) at every
    arrival tick.  Its calls are logged and replayed on a CPU session; each
@@ -182,10 +185,11 @@ Phases; any failure exits non-zero and prints no result line:
    the largest logit (bf16 keeps 8 bits: its unit roundoff is 2^-9, and the
    two devices round at other places in each of 28 layers), and whether
    the argmax agrees.
-10. ``ssd_scan`` (K5: chunk-parallel, three CUDA launches a call)
-   against its plain version (``ssd_ref``, the sequential recurrence) on
-   the card, float32 (FMA path) and bfloat16 (tensor cores: C B^T in bf16,
-   the products with a computed float32 operand in TF32), at the
+10. ``ssd_scan`` (K5) against its plain version (``ssd_ref``, the
+   sequential recurrence) on the card, float32 (three FMA kernels,
+   chunk-parallel) and bfloat16 (one launch that walks the chunks, its
+   products on ``wgmma``; an operand it computes as high and low bf16
+   parts), at the
    reference sweep's shapes, mamba2-2.7b's (B=2, H=80, G=1, N=128, P=64,
    L=128, S in {1, 127, 128, 4096}) and a G=8 shape (jamba's).  Tolerances,
    relative to the largest |y|: 1e-4 in float32 (the reference's test),
@@ -196,8 +200,8 @@ Phases; any failure exits non-zero and prints no result line:
    parameters from seed 0) at B=2, S=4096: a checked pass holds each of
    its 64 K5 calls against ``ssd_ref`` on the same inputs; then, with
    the counts set to 0, an unchecked pass must call K5 exactly 64 times
-   (``ssd_scan.launches`` counts calls).  A profiled pass counts the
-   launches of K5's three kernels and must find each launched once a call.
+   (``ssd_scan.launches`` counts calls).  A profiled pass counts K5's CUDA
+   launches and must find one a call, the chunk walk (``ssd_walk_wgmma``).
    Prints its wall seconds, peak memory and a ``torch.profiler`` split of
    its device time (K5, GEMMs, the rest) with the busy share.
 12. Teacher forcing at full width: prefill 64 tokens (the chunked form) and
@@ -267,18 +271,19 @@ Phases; any failure exits non-zero and prints no result line:
    and at the families' shapes as their paths run them, each beside
    ``scaled_dot_product_attention``, its launches on granite's serve (this
    slice's path) and per prefill of each family; K5 at mamba2's B=2, S=4096 (no
-   PyTorch call computes the SSD scan, so its library time is null).  K4's
+   PyTorch call computes the SSD scan, so its library time is null), which
+   must hold less device memory than the chunk states it does not keep.
+   K4's and K5's bounds come from ``attn_fwd_bounds`` and
+   ``ssd_fwd_bounds``.  K4's
    and K5's rows add their design, TFLOP/s, and the registers, local
    memory (spills) and dynamic shared memory of each kernel as the loaded
    library reports them; K4 its ratio to ``library_ms``; K2, K3 and K5 the
    CUDA launches per call counted under the profiler (phases 5 and 11) and
    the device bytes one call holds at its peak (``alloc_bytes``: outputs
    and scratch, read from the caching allocator).  What a model computes
-   rather than the run measures (K5's and ``bna_decompose``'s design
-   floors, the parts of K5's bound) goes to the record's
-   ``kernel_models``, not the line; K5's floor is the algorithm's bytes
-   plus the chunk states written, read, written and read, over 3.35 TB/s,
-   beside ``bound_ms``, which stays the algorithm's.  Print the
+   rather than the run measures (``bna_decompose``'s design floor, the
+   parts of K5's bound) goes to the record's ``kernel_models``, not the
+   line.  Print the
    ``kernels`` line, the plan, serve and training timings
    and counts, and the card's name and power limit.  The last line is the
    result line.
@@ -312,7 +317,10 @@ Phases; any failure exits non-zero and prints no result line:
       three), SDPA's backward (``torch.autograd.grad`` of SDPA with
       ``enable_gqa=True``, minus its forward) and, at the training shape,
       the plain version; two runs of the training shape's backward must
-      give the same bits.
+      give the same bits; the forward with lse at the training shape beside
+      its bound.  The capture pass (one step's forward and backward at B =
+      1) runs under the profiler and must launch K4's ``wgmma`` kernel 56
+      times.
    c. Card against CPU: one ``build_train_step`` of qwen3-1.7b at full
       width cut to 2 periods, float32, B = 1, S = 256, from one state
       (loss, grad norm, every parameter after the step); every gradient
@@ -345,7 +353,10 @@ Phases; any failure exits non-zero and prints no result line:
       (``ssd_scan.BWD_KERNELS``, named by ``ssd_bwd_kernel_name``; a bf16
       kernel with local memory fails), and the CUDA launches one call of
       each wrapper makes under the profiler (each named kernel once, none
-      other, or it fails); two runs must give the same bits.
+      other, or it fails); two runs must give the same bits.  The forward
+      that keeps its states at the training shape beside its bound
+      (``ssd_fwd_bounds(keep=True)``), profiled in the same window: one
+      CUDA launch, the chunk walk.
 17. The mesh (``_mesh``): the dry run and its collectives on the card.
    a. ``python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape
       train_4k``, on the 16 x 16 mesh and, with ``--multi-pod``, on the
@@ -437,7 +448,12 @@ FAMILY_ATTN = {(1, 20, 20, 1500, 1500, 64): False,
                (1, 24, 8, 3072, 3072, 64): True,
                (1, 64, 4, 2048, 2048, 128): True,
                (1, 32, 8, 3008, 3008, 128): True}
-K5_NAMES = ("ssd_state_", "ssd_pass", "ssd_out_")   # K5's three kernels
+# K5's forward kernels by type, as the profiler names them: bf16 one
+# launch that walks the chunks; float32 chunk states, the state pass over
+# the chunks and chunk outputs
+K5_NAMES = {"bfloat16": ("ssd_walk_",),
+            "float32": ("ssd_state_", "ssd_pass", "ssd_out_")}
+K4_FWD_WGMMA = "flash_fwd_wgmma"    # K4's forward kernel at bf16, d 64 / 128
 K2_NAMES = ("carry_clear", "merge_pass")              # K2's two kernels
 K3_NAMES = ("bucket_index", "bin_sort", "tile_scan")  # K3's three kernels
 # fields of the kernels line that a model computes rather than the run
@@ -446,6 +462,16 @@ MODEL_KEYS = ("bound_bytes_ms", "bound_ops_ms", "bound_f32_cuda_core_ms",
               "design_floor_ms", "design_floor_round_trips",
               "cycles_per_round_trip")
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 4e-2}
+# within ATTN_TOL, a K4 launch on the wgmma route (bf16, d 64 or 128) is
+# held to the size of its own output (attn_rel_err): each query row within
+# 2e-2 of the row's largest |value|, each (batch, head) within 1e-2 in L2.
+# A correct kernel and the plain version each round a float32 result (the
+# kernel's P too) to bf16, so they differ by an ulp, at most 2^-7 of the
+# row's largest value, or two where the results lie a few 1e-3 apart; a
+# CPU model of the kernel read 0.0078 and 0.0025 over 400k rows.  A kernel
+# that drops one key stage of a long row misses about sqrt(keys of a stage
+# / keys of the row) of it, 0.2 in L2 and 0.7 in a row at 64 of 1500 keys
+WGMMA_REL_TOL = {"row": 2e-2, "head": 1e-2}
 SSD_TOL = {"float32": 1e-4, "bfloat16": 8e-3}   # relative to max |y|
 CHECK_SCALE = 0.25                  # phase 4's checked pipeline plan
 # phase 6c: the *_bf schedulers at scale 0.1 (card == CPU on both plan
@@ -456,7 +482,10 @@ CHECK_SCALE = 0.25                  # phase 4's checked pipeline plan
 BF_SCHEDS = ("gdm_bf", "gdm_rt_bf", "om_alg_bf")
 BF_SCALE = 0.1
 BF_LARGE = {"gdm_bf": 0.25, "om_alg_bf": 0.25, "gdm_rt_bf": 0.2}
-BF_WORKERS = 7                      # spawned processes for phase 6c's runs
+# spawned processes for phase 6c's runs: one a core of an 8-core H100
+# host (the main process's own 6c work ends well before the pool's, which
+# sets the phase)
+BF_WORKERS = 8
 # phases 6d-6f: the online scheduler.  6d: the figure's pair (paper_figs.
 # fig_c: gdm with nested=False, seed=0, against om_alg) at the figure's
 # scale and arrival rates theta = a * theta0, session and batch drivers on
@@ -578,6 +607,48 @@ SSD_BWD_SHAPES = [(1, S, 80, 1, 128, 64, 128) for S in (1, 127, 128, 129,
                                                         4096)] \
     + [(1, 384, 256, 8, 128, 64, 128), (2, 24, 16, 1, 16, 8, 16),
        (2, 50, 6, 3, 16, 8, 16)]
+
+
+def attn_rel_err(got, want) -> dict:
+    """K4's output against its plain version, relative to the output's own
+    size: "row", the largest over query rows of max |got - want| over the
+    row's max |want|; "head", the largest over (batch, head) of
+    ||got - want|| over ||want||.  Rows where `want` is not finite
+    (``attention_ref`` gives NaN on a row that sees no key) are left out."""
+    import torch
+
+    g, w = got.float(), want.float()
+    ok = torch.isfinite(w).all(-1, keepdim=True)
+    diff = torch.where(ok, g - w, 0.0)
+    w = torch.where(ok, w, 0.0)
+    tiny = torch.finfo(torch.float32).tiny
+    row = diff.abs().amax(-1) / w.abs().amax(-1).clamp_min(tiny)
+    head = diff.flatten(2).norm(dim=-1) / \
+        w.flatten(2).norm(dim=-1).clamp_min(tiny)
+    return {"row": float(row.max()), "head": float(head.max())}
+
+
+def zero_staged() -> None:
+    """Sets the staged-copy counts of K4's and K5's forwards to 0."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    flash_attention.staged = ssd_scan.staged = 0
+
+
+def check_staged(what: str) -> dict:
+    """Fails unless K4's and K5's forwards have read every operand since
+    ``zero_staged()`` by TMA as it lay, with no staged copy (a layout change
+    in the models would add a copy to every call); returns the counts."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    staged = {"flash_attention": flash_attention.staged,
+              "ssd_scan": ssd_scan.staged}
+    if any(staged.values()):
+        _fail(f"{what}: the forwards staged copies of operands that TMA "
+              f"should read as they lie: {staged}")
+    return staged
 
 
 def _fail(msg: str) -> None:
@@ -1391,8 +1462,9 @@ def _serve_run(cfg_, params_, reqs, counts, admission="fifo"):
 
 def _families(dev, note_attn, counts) -> dict:
     """Phase 14b: the MoE, encoder-decoder and VLM families at full width,
-    each model freed before the next.  `note_attn(err, dtype, what)` holds
-    a K4 launch's difference from its plain version to ``ATTN_TOL``;
+    each model freed before the next.  `note_attn(got, want, q, what)`
+    holds a K4 launch's output to its plain version (``ATTN_TOL``, and
+    ``WGMMA_REL_TOL`` on the wgmma route);
     ``counts`` = (zero_counts, read_counts).  Returns the record."""
     import numpy as np
     import torch
@@ -1428,9 +1500,8 @@ def _families(dev, note_attn, counts) -> dict:
         def check(q, k, v, *, causal=True, scale=None):
             o = orig(q, k, v, causal=causal, scale=scale)
             want = attention_ref(q, k, v, causal=causal, scale=scale)
-            note_attn(float((o.float() - want.float()).abs().max()), q.dtype,
-                      f"{what} (Sq={q.shape[2]}, Sk={k.shape[2]}, "
-                      f"causal={causal})")
+            note_attn(o, want, q, f"{what} (Sq={q.shape[2]}, "
+                      f"Sk={k.shape[2]}, causal={causal})")
             n[0] += 1
             return o
 
@@ -1865,9 +1936,10 @@ def _train_full_width(dev, counts, arch, steps, seq, batch,
     `seq` tokens with ``--plan-buckets``, the counts set to 0 just before
     and read just after.  Fails unless every loss and grad norm is finite,
     each wrapper of `per_step` (name -> launches a step) ran that many
-    times a step, the bucket plan ran on the card's pipeline and the model
-    computed in bf16.  Returns (the launcher's result, the run's
-    record)."""
+    times a step, the bucket plan ran on the card's pipeline, the model
+    computed in bf16 and K4's and K5's forwards read every operand by TMA
+    as it lay (``check_staged``).  Returns (the launcher's result, the
+    run's record)."""
     import gc
     import shutil
 
@@ -1892,11 +1964,13 @@ def _train_full_width(dev, counts, arch, steps, seq, batch,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    zero_staged()
     t0 = time.perf_counter()
     res = launch_train.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
+    staged = check_staged(f"{arch} training")
     peak = torch.cuda.max_memory_allocated()
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     log = res["runner"].metrics_log
@@ -1927,6 +2001,7 @@ def _train_full_width(dev, counts, arch, steps, seq, batch,
         "loss": [r["loss"] for r in log],
         "grad_norm": [r["grad_norm"] for r in log],
         "max_memory_allocated": peak, "wall_s": wall, "launches": launches,
+        "forward_staged_copies": staged,
         "launches_per_step": {k: launches[k] / steps for k in per_step},
         "planned_buckets": len(res["outcome"].order),
         "bucket_order": res["outcome"].order,
@@ -2026,12 +2101,27 @@ def _training(dev, counts) -> dict:
             o.register_hook(lambda g: seen.setdefault("do", g.clone()))
         return o
 
+    # the same step's forward and backward under the profiler: every K4
+    # forward (2 a layer under remat "full") runs the wgmma kernel
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     layers.flash_attention = capture
     try:
-        _value_and_grad(loss_for(cfg), params, batch)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _value_and_grad(loss_for(cfg), params, batch)
+            torch.cuda.synchronize()
     finally:
         layers.flash_attention = orig
-    del params
+    n_wgmma = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and K4_FWD_WGMMA in e.key)
+    out["profiled_step_k4_fwd_wgmma"] = n_wgmma
+    if n_wgmma != 2 * cfg.n_layers:
+        _fail(f"a profiled {cfg.name} training step launched "
+              f"{K4_FWD_WGMMA} {n_wgmma} times, expected {2 * cfg.n_layers}")
+    del params, prof
     free()
 
     def check_bwd(q, k, v, do, causal, what):
@@ -2177,14 +2267,9 @@ def _training(dev, counts) -> dict:
                       f"bits")
             del runs
         tm.update(attn_bwd_bound(B, Hq, Hkv, S, S, d, True))
-        # the forward with lse: two products (S and P V) over the kept
-        # pairs, or q, k, v and the output once and lse written
-        fwd_ops = 2 * 2 * B * Hq * (S * (S + 1) // 2) * d
-        fwd_bytes = 2 * d * B * (2 * Hq * S + 2 * Hkv * S) + 4 * B * Hq * S
-        fwd = {"operations": fwd_ops / BF16_FLOPS * 1e3,
-               "bytes": fwd_bytes / HBM_BYTES_PER_S * 1e3}
-        tm["fwd_lse_bound_by"] = max(fwd, key=fwd.get)
-        tm["fwd_lse_bound_ms"] = fwd[tm["fwd_lse_bound_by"]]
+        fwd = attn_fwd_bounds(B, Hq, Hkv, S, S, d, True, lse=True)
+        tm["fwd_lse_bound_by"] = fwd["bound_by"]
+        tm["fwd_lse_bound_ms"] = fwd["bound_ms"]
         tm["bounds"] = {
             "attn_bwd_prep": {"bound_ms": 2 * 2 * B * Hq * S * d
                               / HBM_BYTES_PER_S * 1e3 + 4 * B * Hq * S
@@ -2333,6 +2418,44 @@ def _training(dev, counts) -> dict:
           f"({', '.join(out['crash_resume'])}).  16(a)-(c) took "
           f"{out['wall_s']:.1f} s")
     return out
+
+
+def attn_fwd_bounds(B, Hq, Hkv, Sq, Sk, d, causal, lse=False,
+                    nbytes=2) -> dict:
+    """The least time of K4's forward: two products (S = Q K^T and P V) of
+    2 d flops a kept (query, key) pair and head at the bf16 peak (float32's
+    outside the tensor cores for 4-byte inputs); or q, k and v read and the
+    output (and, with `lse`, the float32 row log-sum-exp) written once over
+    the memory rate."""
+    pairs = Sq * Sk - (Sq * (Sq - 1) // 2 if causal else 0)
+    ops = 2 * 2 * B * Hq * pairs * d
+    moved = nbytes * d * B * (2 * Hq * Sq + 2 * Hkv * Sk) \
+        + (4 * B * Hq * Sq if lse else 0)
+    bound = {"operations": ops / (BF16_FLOPS if nbytes == 2 else F32_FLOPS)
+             * 1e3, "bytes": moved / HBM_BYTES_PER_S * 1e3}
+    by = max(bound, key=bound.get)
+    return {"bound_ms": bound[by], "bound_by": by, "flops": ops,
+            "bytes": moved}
+
+
+def ssd_fwd_bounds(B, S, H, G, N, P, L, keep=False, nbytes=2) -> dict:
+    """The least time of K5's forward at (B, S, H, G, N, P, L): x read and
+    y written, b, c and the float32 loga read once, and, with `keep` (the
+    training forward), the float32 state entering each chunk (B, nC, H, N,
+    P) and each chunk's log decay written, over the memory rate; or its
+    operations at the inputs' peak: per chunk and head C B^T and its
+    product with X over the L (L + 1) / 2 pairs i >= j, C h and the state
+    update, 2 L N P each."""
+    nC = -(-S // L)
+    peak = BF16_FLOPS if nbytes == 2 else F32_FLOPS
+    moved = 2 * nbytes * B * S * (H * P + G * N) + 4 * B * S * H \
+        + (4 * B * nC * H * (N * P + 1) if keep else 0)
+    ops = B * H * nC * 2 * (L * (L + 1) // 2 * (N + P) + 2 * L * N * P)
+    bound = {"bytes": moved / HBM_BYTES_PER_S * 1e3,
+             "operations": ops / peak * 1e3}
+    by = max(bound, key=bound.get)
+    return {"bound_ms": bound[by], "bound_by": by, "flops": ops,
+            "bytes": moved}
 
 
 def ssd_bwd_bounds(B, S, H, G, N, P, L, nbytes=2) -> dict:
@@ -2537,6 +2660,7 @@ def _ssm_training(dev, counts) -> dict:
     del runs
     free()
     tm["bounds"] = ssd_bwd_bounds(B, S, H, G, N, P, L)
+    tm["forward_kept_bound"] = ssd_fwd_bounds(B, S, H, G, N, P, L, keep=True)
     tm["share_of_bound"] = {k: tm["bounds"][k]["bound_ms"] / tm[k]
                             for k in SSD_BWD}
     tm["tflops"] = {k: tm["bounds"][k]["flops"] / tm[k] / 1e9
@@ -2563,11 +2687,24 @@ def _ssm_training(dev, counts) -> dict:
             torch.cuda._sleep(1000)
         torch.cuda._sleep(2_000_000_000)
         torch.cuda.synchronize()
+        ssd_forward(x, a, b, c, L, True)
         ssd_bwd_state(c, dy, loga, decay, chunk=L)
         ssd_bwd_chunk(x, af, loga, b, c, dy, states, grads, chunk=L)
         torch.cuda.synchronize()
-    ran = [e for e in prof.key_averages()
+    ka = prof.key_averages()
+    ran = [e for e in ka
            if e.device_type == DeviceType.CUDA and "ssd_bwd" in e.key]
+    # the forward that keeps its states: one CUDA launch, the chunk walk
+    tm["forward_cuda_launches"] = {
+        n: sum(e.count for e in ka if e.device_type == DeviceType.CUDA
+               and n in e.key)
+        for names in K5_NAMES.values() for n in names}
+    if tm["forward_cuda_launches"] != {
+            n: int(n in K5_NAMES["bfloat16"])
+            for names in K5_NAMES.values() for n in names}:
+        _fail(f"one bf16 forward keeping its states at {shape} launched "
+              f"{tm['forward_cuda_launches']}, expected "
+              f"{K5_NAMES['bfloat16']} once and nothing else")
 
     def launched(n: str) -> int:
         return sum(e.count for e in ran
@@ -2604,6 +2741,11 @@ def _ssm_training(dev, counts) -> dict:
               f"{out['max_rel_err'][k]}); CUDA launches a call (profiled) "
               f"{tm['cuda_launches'][k]}; kernels "
               f"{json.dumps(tm['attributes'][k])}")
+    kb = tm["forward_kept_bound"]
+    print(f"16(e) K5's forward keeping its states at {shape} (bf16): "
+          f"{tm['forward_kept_ms']:.4f} ms (bound {kb['bound_ms']:.4f} ms by "
+          f"{kb['bound_by']}); CUDA launches a call (profiled) "
+          f"{tm['forward_cuda_launches']}")
     print(f"16(e) K5's backward at the training shape: {tm['bwd_ms']:.4f} "
           f"ms a layer, {cfg.n_layers} a step: "
           f"{tm['bwd_ms'] * cfg.n_layers / 1e3:.4f} s; two runs the same "
@@ -2941,7 +3083,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import (attn_bwd_dkdv,
                                                      attn_bwd_dq,
                                                      attn_bwd_prep,
-                                                     flash_attention)
+                                                     flash_attention,
+                                                     forward_kernel)
+    from repro_torch.kernels.flash_attention.ops import FORWARD_KERNELS
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.ssd_scan import CUDA_LAUNCHES as \
         SSD_CUDA_LAUNCHES
@@ -4108,20 +4252,31 @@ def main() -> int:
     from repro_torch.serve import Request, ServeConfig, ServingEngine
     from repro_torch.serve import engine as serve_engine
 
-    def attn_err(q, k, v, causal, scale=None) -> float:
-        got = flash_attention(q, k, v, causal=causal, scale=scale)
-        want = attention_ref(q, k, v, causal=causal, scale=scale)
-        if got.dtype != q.dtype or got.shape != q.shape:
-            return float("inf")
-        return float((got.float() - want.float()).abs().max())
+    # the largest attn_rel_err over every wgmma-route launch checked
+    wgmma_rel = {"row": 0.0, "head": 0.0, "checked": 0}
 
-    def note_attn(err: float, dtype, what: str) -> None:
-        name = str(dtype).split(".")[-1]
+    def note_attn(got, want, q, what: str) -> None:
+        """Holds a K4 launch's output `got` on q to its plain version `want`:
+        within ATTN_TOL, and on the wgmma route within WGMMA_REL_TOL."""
+        name = str(q.dtype).split(".")[-1]
+        if got.dtype != q.dtype or got.shape != q.shape:
+            _fail(f"flash_attention on {what}: {got.dtype} "
+                  f"{tuple(got.shape)}, expected {q.dtype} {tuple(q.shape)}")
+        err = float((got.float() - want.float()).abs().max())
         max_err["flash_attention"] = max(max_err["flash_attention"], err)
         checked["flash_attention"] += 1
         if not err < ATTN_TOL[name]:
             _fail(f"flash_attention != plain version on {what} "
                   f"({name}, max |diff| {err} >= {ATTN_TOL[name]})")
+        if forward_kernel(q.dtype, q.shape[3]) != "wgmma":
+            return
+        rel = attn_rel_err(got, want)
+        wgmma_rel["checked"] += 1
+        for key, tol in WGMMA_REL_TOL.items():
+            wgmma_rel[key] = max(wgmma_rel[key], rel[key])
+            if not rel[key] <= tol:
+                _fail(f"flash_attention (wgmma) != plain version on {what}: "
+                      f"{key} relative error {rel[key]} > {tol}")
 
     attn_shapes = [(1, 2, 2, 16, 16, 32), (2, 4, 2, 33, 33, 24),
                    (1, 8, 2, 64, 128, 48), (1, 4, 1, 1, 96, 64),
@@ -4135,16 +4290,22 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.as_tensor(a).to(dev, dtype) for a in arrays)
             for causal in (True, False):
-                note_attn(attn_err(q, k, v, causal), dtype,
+                note_attn(flash_attention(q, k, v, causal=causal),
+                          attention_ref(q, k, v, causal=causal), q,
                           f"shape {shape}, causal={causal}")
     torch.cuda.synchronize()
     print(f"flash_attention: within tolerance of the plain version on "
           f"{checked['flash_attention']} cases ({len(attn_shapes)} shapes x "
           f"f32/bf16 x "
-          f"causal or not; max |diff| {max_err['flash_attention']:.3g})")
+          f"causal or not; max |diff| {max_err['flash_attention']:.3g}); "
+          f"the wgmma route's {wgmma_rel['checked']} within "
+          f"{WGMMA_REL_TOL} of their own size: worst row "
+          f"{wgmma_rel['row']:.3g}, worst (batch, head) "
+          f"{wgmma_rel['head']:.3g}")
 
     # 8. serve qwen3-1.7b at full width -------------------------------------
     mark("8")
+    zero_staged()
     cfg = get_config(SERVE_ARCH)
     t0 = time.perf_counter()
     params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0))
@@ -4166,7 +4327,7 @@ def main() -> int:
     def checked_fa(q, k, v, *, causal=True, scale=None):
         out = orig_fa(q, k, v, causal=causal, scale=scale)
         want = attention_ref(q, k, v, causal=causal, scale=scale)
-        note_attn(float((out.float() - want.float()).abs().max()), q.dtype,
+        note_attn(out, want, q,
                   f"a full-width prefill layer (S={q.shape[2]})")
         return out
 
@@ -4235,6 +4396,13 @@ def main() -> int:
                         e for e in ka if any(k in e.key.lower()
                                              for k in keys)]) / 1e3
                        for name, keys in kernel_keys.items()},
+                    # the CUDA launches of each named kernel, as the
+                    # profiler counts them
+                    "launches": {name: sum(
+                        e.count for e in ka
+                        if e.device_type == DeviceType.CUDA
+                        and any(k in e.key.lower() for k in keys))
+                        for name, keys in kernel_keys.items()},
                     "top_device_ms": {e.key[:60]: device_us([e]) / 1e3
                                       for e in top}}
         breakdown["decode"]["busy_share_unprofiled"] = \
@@ -4373,10 +4541,17 @@ def main() -> int:
 
     record["serve_profile"] = serve_profile(
         cfg, params, eng, serve_reqs, run,
-        {"flash_attention": ("flash_attention",)})
+        {"flash_attention": ("flash_attention", "flash_fwd"),
+         K4_FWD_WGMMA: (K4_FWD_WGMMA,)})
     print("serve profile (one prefill at S="
           f"{record['serve_profile']['prompt_len']}; 8 decode ticks of one "
           "slot): " + json.dumps(record["serve_profile"]))
+    # bf16 at d = 128: every prefill attention runs K4's wgmma kernel
+    n_wgmma = record["serve_profile"]["prefill"]["launches"][K4_FWD_WGMMA]
+    if n_wgmma != cfg.n_layers:
+        _fail(f"the profiled {cfg.name} prefill launched {K4_FWD_WGMMA} "
+              f"{n_wgmma} times, expected {cfg.n_layers}")
+    record["serve"]["staged_copies"] = check_staged(f"serving {cfg.name}")
 
     # 9. the same weights on the CPU ----------------------------------------
     mark("9")
@@ -4456,6 +4631,7 @@ def main() -> int:
 
     # 11. mamba2-2.7b lm_forward at full width ------------------------------
     mark("11")
+    zero_staged()
     scfg = get_config(SSM_ARCH)
     del params, eng                             # qwen3's weights
     torch.cuda.empty_cache()
@@ -4538,22 +4714,23 @@ def main() -> int:
             prof_wall_us = (time.perf_counter() - t0) * 1e6
         prof_calls = ssd_scan.launches
     ka = prof.key_averages()
-    # K5's CUDA launches in the profiled pass, by kernel: each of the three
-    # must run once a call
+    # K5's CUDA launches in the profiled pass, by kernel: bf16 runs one,
+    # the chunk walk, once a call
+    k5_names = K5_NAMES["bfloat16"]
     k5_cuda = {n: sum(e.count for e in ka if n in e.key
                       and e.device_type == DeviceType.CUDA)
-               for n in K5_NAMES}
+               for n in k5_names}
     spin = sum(e.count for e in ka if "spin" in e.key.lower()
                and e.device_type == DeviceType.CUDA)
     k5_per_call = sum(k5_cuda.values()) / prof_calls if prof_calls else 0
     if any(c != prof_calls for c in k5_cuda.values()) \
-            or k5_per_call != SSD_CUDA_LAUNCHES:
+            or k5_per_call != SSD_CUDA_LAUNCHES[torch.bfloat16]:
         _fail(f"mamba2 lm_forward (profiled): {prof_calls} ssd_scan calls "
               f"launched {k5_cuda}, expected each kernel once a call "
-              f"({SSD_CUDA_LAUNCHES} a call; the spin kernel before them "
-              f"recorded {spin} times)")
+              f"({SSD_CUDA_LAUNCHES[torch.bfloat16]} a call; the spin kernel "
+              f"before them recorded {spin} times)")
     total = device_us(ka)
-    k5 = device_us([e for e in ka if any(n in e.key for n in K5_NAMES)])
+    k5 = device_us([e for e in ka if any(n in e.key for n in k5_names)])
     gemm = device_us([e for e in ka if any(g in e.key.lower()
                                            for g in gemm_keys)])
     top = sorted(ka, key=lambda e: -device_us([e]))[:6]
@@ -4575,6 +4752,8 @@ def main() -> int:
           f"parameters, bf16, B={fwd_B}, S={fwd_S}): {fwd_wall:.3f} s, "
           f"peak memory {fwd_peak / 2**30:.2f} GiB, launches {fwd_launches}; "
           f"profile {json.dumps(record['mamba2_forward']['profile'])}")
+    record["mamba2_forward"]["staged_copies"] = check_staged(
+        f"{scfg.name} lm_forward")
 
     # 12. teacher forcing at full width -------------------------------------
     # the three forms of the scan (K5 in lm_forward, the chunked prefill,
@@ -4882,11 +5061,6 @@ def main() -> int:
           f"{json.dumps(record['merge_fix_1e5'])}")
     import torch.nn.functional as F
 
-    def attn_bound_ms(B, Hq, Hkv, S, d, nbytes) -> float:
-        flops = 4 * B * Hq * S * S * d / 2           # causal: half the keys
-        moved = nbytes * d * S * B * (2 * Hq + 2 * Hkv)   # q, o, k, v once
-        return max(flops / BF16_FLOPS, moved / HBM_BYTES_PER_S) * 1e3
-
     def attn_timing(S, reps, plain):
         Hq, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
         g = torch.Generator(device=dev).manual_seed(S)
@@ -4903,9 +5077,9 @@ def main() -> int:
                    lambda: F.scaled_dot_product_attention(
                        q, k, v, is_causal=True, scale=scale,
                        enable_gqa=True), reps=reps, rounds=3),
-               "bound_ms": attn_bound_ms(1, Hq, Hkv, S, d, 2),
-               "bound_by": "operations"}
-        row["tflops"] = 4 * Hq * S * S * d / 2 / row["ms"] / 1e9
+               **attn_fwd_bounds(1, Hq, Hkv, S, S, d, True)}
+        row["tflops"] = row.pop("flops") / row["ms"] / 1e9
+        del row["bytes"]
         return row
 
     S_main = max(prompt_lens)
@@ -4929,12 +5103,7 @@ def main() -> int:
                    .to(torch.bfloat16) for sz in
                    ((B, Hq, Sq, d), (B, Hkv, Sk, d), (B, Hkv, Sk, d)))
         scale = d ** -0.5
-        # the (query, key) pairs the mask keeps
-        pairs = Sq * Sk - (Sq * (Sq - 1) // 2 if causal else 0)
-        bound = {"operations": 4 * B * Hq * pairs * d / BF16_FLOPS * 1e3,
-                 "bytes": 2 * d * B * (2 * Hq * Sq + 2 * Hkv * Sk)
-                 / HBM_BYTES_PER_S * 1e3}
-        by = max(bound, key=bound.get)
+        bound = attn_fwd_bounds(B, Hq, Hkv, Sq, Sk, d, causal)
         row = {"shape": list(shape), "dtype": "bfloat16", "causal": causal,
                "ms": _cuda_ms(lambda: flash_attention(
                    q, k, v, causal=causal, scale=scale), reps=10, rounds=3),
@@ -4944,8 +5113,8 @@ def main() -> int:
                    lambda: F.scaled_dot_product_attention(
                        q, k, v, is_causal=causal, scale=scale,
                        enable_gqa=True), reps=10, rounds=3),
-               "bound_ms": bound[by], "bound_by": by}
-        row["tflops"] = 4 * B * Hq * pairs * d / row["ms"] / 1e9
+               "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+        row["tflops"] = bound["flops"] / row["ms"] / 1e9
         return row
 
     attn_families = [family_attn_timing(sh, causal)
@@ -4967,6 +5136,7 @@ def main() -> int:
                                  **families["k4_launches_per_prefill"]},
         "family_shapes": attn_families,
         "max_abs_err": max_err["flash_attention"],
+        "wgmma_rel_err": wgmma_rel, "wgmma_rel_tol": WGMMA_REL_TOL,
         "ms": attn_main["ms"], "plain_ms": attn_main["plain_ms"],
         "bound_ms": attn_main["bound_ms"], "bound_by": "operations",
         "library_ms": attn_main["library_ms"],
@@ -4974,11 +5144,23 @@ def main() -> int:
         "shape": attn_main["shape"], "dtype": "bfloat16",
         "tflops": attn_main["tflops"],
         "vs_library": attn_main["ms"] / attn_main["library_ms"],
-        "design": "tensor cores: mma.sync m16n8k16 bf16 with ldmatrix, "
-                  "a 2-stage cp.async ring of 32-key K/V tiles, 128-row q "
-                  "tiles of 4 warps",
+        "design": "bf16 at d = 64 and 128: wgmma on TMA tiles, a block "
+                  "(two consumer warpgroups) a 128-row query tile, Q "
+                  "resident, K/V in a ring under mbarriers (128 keys x 3 "
+                  "stages at d = 128; 64 x 4 and two blocks an SM at d = "
+                  "64); S = Q K^T from shared memory, the online softmax on "
+                  "the accumulators, O += P V with P from registers; the "
+                  "next stage's Q K^T issued under this stage's softmax; "
+                  "heaviest query tiles first; other bf16 head dims "
+                  "mma.sync, float32 FMAs",
+        "kernel_by_dtype_d": {f"{dt} d={dd}": forward_kernel(
+            getattr(torch, dt), dd) for dt in ("bfloat16", "float32")
+            for dd in (24, 32, 48, 64, 128, 256)},
+        "staged_copies": flash_attention.staged,
         **_attributes(kernels.load_kernel("flash_attention")
-                      .flash_attention_attributes, 1, cfg.d_head)})
+                      .flash_attention_attributes, FORWARD_KERNELS.index(
+                          forward_kernel(torch.bfloat16, cfg.d_head)),
+                      cfg.d_head)})
     print(f"flash_attention at S={S_main}: {json.dumps(attn_main)}")
     print(f"flash_attention at S=32768: {json.dumps(attn_32k)}")
     for row in attn_families:
@@ -4991,30 +5173,24 @@ def main() -> int:
     L5 = min(s_ssm.chunk, fwd_S)
     x5, a5, b5, c5 = ssd_inputs((fwd_B, fwd_S, H5, G5, N5, P5),
                                 torch.bfloat16, 5)
-    # x and y once (bf16), loga (f32), b and c (bf16)
-    k5_bytes = 2 * 2 * fwd_B * fwd_S * H5 * P5 + 4 * fwd_B * fwd_S * H5 \
-        + 2 * 2 * fwd_B * fwd_S * G5 * N5
-    # per (batch, head, chunk): C B^T and its product with X over the
-    # L(L+1)/2 causal (i >= j) pairs, C h and the state update B^T X
-    k5_flops = fwd_B * H5 * (fwd_S // L5) * 2 * (
-        L5 * (L5 + 1) // 2 * (N5 + P5) + 2 * L5 * N5 * P5)
     k5_ms = _cuda_ms(lambda: ssd_scan(x5, a5, b5, c5, chunk=L5), reps=10,
                      rounds=3)
     k5_plain_ms = _cuda_ms(lambda: ssd_ref(x5, a5, b5, c5), reps=1,
                            rounds=2)
-    k5_bound = {"bytes": k5_bytes / HBM_BYTES_PER_S * 1e3,
+    k5_b = ssd_fwd_bounds(fwd_B, fwd_S, H5, G5, N5, P5, L5)
+    k5_flops = k5_b["flops"]
+    k5_bound = {"bytes": k5_b["bytes"] / HBM_BYTES_PER_S * 1e3,
                 "operations": k5_flops / BF16_FLOPS * 1e3}
-    k5_by = max(k5_bound, key=k5_bound.get)
-    # the design's float32 scratch: chunk states (B, nC, H, N, P) and each
-    # chunk's log decay (B, nC, H); the states are written (kernel 1), read
-    # and written (kernel 2) and read (kernel 3)
-    nC5 = fwd_S // L5
-    k5_floor_ms = (k5_bytes + 4 * 4 * fwd_B * nC5 * H5 * N5 * P5) \
-        / HBM_BYTES_PER_S * 1e3
+    k5_by = k5_b["bound_by"]
     ssd_attrs = kernels.load_kernel("ssd_scan").ssd_scan_attributes
-    k5_kernels = {label: _attributes(ssd_attrs, 1, which, L5, N5, P5)
-                  for label, which in (("chunk_states", 1), ("state_pass", 2),
-                                       ("chunk_outputs", 3))}
+    k5_kernels = {"chunk_walk": _attributes(ssd_attrs, 1, 1, L5, N5, P5)}
+    # serving keeps nothing: one call holds its output, the padded loga
+    # and no state scratch ((B, nC, H, N, P) float32, 84 MB here)
+    k5_alloc = alloc_bytes(lambda: ssd_scan(x5, a5, b5, c5, chunk=L5))
+    k5_states_bytes = 4 * fwd_B * (fwd_S // L5) * H5 * N5 * P5
+    if k5_alloc >= k5_states_bytes:
+        _fail(f"a serving ssd_scan call held {k5_alloc} B, at least the "
+              f"{k5_states_bytes} B of the chunk states it does not keep")
     kernels_line.append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
@@ -5030,14 +5206,17 @@ def main() -> int:
         "bound_ops_ms": k5_bound["operations"],
         "bound_f32_cuda_core_ms": k5_flops / F32_FLOPS * 1e3,
         "tflops": k5_flops / k5_ms / 1e9,
-        "design": "chunk-parallel, 3 launches (chunk states, state pass, "
-                  "chunk outputs); tensor cores: mma.sync, C B^T bf16 "
-                  "m16n8k16, the products with a computed float32 operand "
-                  "TF32 m16n8k8",
+        "design": "bf16: one launch, a block (two warpgroups) a (batch, "
+                  "head, 64 columns of P) walking the chunks with the "
+                  "state in float32 accumulators; C, B and x tiles by TMA "
+                  "in a 2-stage mbarrier ring; C h, C B^T, the decayed "
+                  "scores times X and the state update on wgmma, the "
+                  "operands the block computes (h, the scores, w o X) as "
+                  "high and low bf16 parts; the states written only when "
+                  "kept; float32: three FMA kernels through a scratch",
         "cuda_launches_per_call": k5_per_call,
-        "alloc_bytes": alloc_bytes(
-            lambda: ssd_scan(x5, a5, b5, c5, chunk=L5)),
-        "design_floor_ms": k5_floor_ms,
+        "alloc_bytes": k5_alloc, "states_bytes_not_kept": k5_states_bytes,
+        "staged_copies": ssd_scan.staged,
         "kernels": k5_kernels})
     print(f"ssd_scan at B={fwd_B}, S={fwd_S}: {json.dumps(kernels_line[-1])}")
     del x5, a5, b5, c5
@@ -5111,6 +5290,11 @@ def main() -> int:
     k5_row["launches_per_train_step"] = \
         st["train"]["launches_per_step"]["ssd_scan"]
     stm = st["timing"]
+    # the training forward, keeping its states, at the training shape
+    k5_row["kept"] = {"shape": stm["shape"], "ms": stm["forward_kept_ms"],
+                      **{k: stm["forward_kept_bound"][k]
+                         for k in ("bound_ms", "bound_by")},
+                      "cuda_launches": stm["forward_cuda_launches"]}
     for name in SSD_BWD:
         kernels_line.append({
             "name": name, "route": "cuda",

@@ -61,11 +61,12 @@ def main() -> int:
         ev = sorted((e for e in prof.events()
                      if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
-        k5 = [e.time_range.start for e in ev if K5_NAMES[0] in e.name]
+        names = K5_NAMES["bfloat16"]       # mamba2 computes in bf16
+        k5 = [e.time_range.start for e in ev if names[0] in e.name]
         readings.append({
             "after": label, "calls": ssd_scan.launches,
             "by_kernel": {n: sum(n in e.name for e in ev)
-                          for n in K5_NAMES},
+                          for n in names},
             "cuda_events": len(ev),
             "first_k5_offset_us": k5[0] - ev[0].time_range.start
             if k5 else None})

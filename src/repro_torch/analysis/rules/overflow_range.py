@@ -77,20 +77,20 @@ INT32_INDEXED: dict[tuple[str, str], tuple[tuple[int, ...], str]] = {
         (), "merge_fix/csrc/merge_fix.cu:378; edges and rows at int64 "
             "offsets (:152-215), chunk-local bin offsets"),
     ("flash_attention", "flash_attention_launch"): (
-        (), "flash_attention/csrc/flash_attention.cu:1484; long long "
-            "strides, lse at long long offsets (:331)"),
+        (), "flash_attention/csrc/flash_attention.cu:1821; long long "
+            "strides, lse at long long offsets (:357, :1455)"),
     ("flash_attention", "attn_bwd_prep_launch"): (
-        (), "flash_attention/csrc/flash_attention.cu:1535; long long rows "
-            "(:1541, D[row] at :660)"),
+        (), "flash_attention/csrc/flash_attention.cu:1892; long long rows "
+            "(:1898, D[row] at :686)"),
     ("flash_attention", "attn_bwd_dkdv_launch"): (
-        (), "flash_attention/csrc/flash_attention.cu:1659; long long "
-            "strides and row bases (:1372)"),
+        (), "flash_attention/csrc/flash_attention.cu:2016; long long "
+            "strides and row bases (:1665)"),
     ("flash_attention", "attn_bwd_dq_launch"): (
-        (), "flash_attention/csrc/flash_attention.cu:1607; long long "
-            "strides and row bases (:1089, :1245)"),
+        (), "flash_attention/csrc/flash_attention.cu:1964; long long "
+            "strides and row bases (:1115, :1538)"),
     ("ssd_scan", "ssd_scan_launch"): (
-        (), "ssd_scan/csrc/ssd_scan.cu:728; long long strides and chunk "
-            "offsets (:100-108)"),
+        (), "ssd_scan/csrc/ssd_scan.cu:907; long long strides and chunk "
+            "offsets (:117, :375, :440, :532)"),
     ("ssd_scan", "ssd_bwd_state_launch"): (
         (), "ssd_scan/csrc/ssd_scan_bwd.cu:680; long long offsets "
             "(:315-325)"),

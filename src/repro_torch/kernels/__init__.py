@@ -18,17 +18,21 @@ Kernels (what each one replaces is named in its source note):
                   tile scan and the Lemma 6 durations, with no dense
                   interval x port array
   flash_attention — blocked online-softmax GQA attention (prefill and
-                  training): bfloat16 on the tensor cores (mma.sync, a
-                  cp.async ring of K/V tiles), float32 as float32 FMAs;
-                  float32 accumulators; and its backward (D = rowsum(dO o
-                  O), dk and dv a key block, dq a query tile, from the
-                  forward's row log-sum-exp; no atomics): bfloat16 on
-                  wgmma with TMA tiles under mbarriers, float32 as FMAs
-  ssd_scan      — the Mamba2 SSD chunked scan (lm_forward's mamba layers),
-                  chunk-parallel in three launches (chunk states, the state
-                  pass over the chunks, chunk outputs): bfloat16 on the
-                  tensor cores (bf16 and TF32 mma.sync), float32 as float32
-                  FMAs; and its backward (the chunk state gradients and
+                  training), float32 accumulators: bfloat16 at d = 64 and
+                  128 on wgmma with TMA tiles under mbarriers, at other
+                  head dims on mma.sync (a cp.async ring of K/V tiles),
+                  float32 as float32 FMAs (``ops.forward_kernel`` states
+                  the rule); and its backward (D = rowsum(dO o O), dk and
+                  dv a key block, dq a query tile, from the forward's row
+                  log-sum-exp; no atomics): bfloat16 on wgmma with TMA
+                  tiles under mbarriers, float32 as FMAs
+  ssd_scan      — the Mamba2 SSD chunked scan (lm_forward's mamba layers):
+                  bfloat16 in one launch that walks the chunks with the
+                  state on chip, every product on wgmma (TMA tiles under
+                  mbarriers; the operands it computes as high and low bf16
+                  parts), float32 chunk-parallel in three launches of
+                  float32 FMAs (chunk states, the state pass over the
+                  chunks, chunk outputs); and its backward (the chunk state gradients and
                   their reverse pass, then dx, da and the per-head db, dc
                   a chunk, summed over each state group; no atomics):
                   bfloat16 on the tensor cores in
@@ -40,10 +44,13 @@ Kernels (what each one replaces is named in its source note):
 Headers shared between kernels (``*/csrc/*.cuh``) are included by path:
 ``flash_attention/csrc/tensor_core.cuh`` holds the mma.sync, ldmatrix and
 cp.async primitives of K4 and K5, ``flash_attention/csrc/hopper.cuh`` the
-wgmma, TMA and mbarrier primitives of K4's backward (its tensor maps are
+wgmma, TMA and mbarrier primitives of K4, its backward and K5's bf16
+forward (its tensor maps are
 encoded through `cudaGetDriverEntryPoint`, so no library needs
 ``-lcuda``), ``coflow_merge/csrc/merge_scan.cuh`` the
 scan of coflow_merge and merge_fix (the carry between tiles, the row max).
+``tma.py`` holds the host side those TMA kernels share: which operands a
+tensor map can describe as they lie, and the staged copy of the others.
 
 Dispatch is by device, never by a knob: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises.  Nothing here falls

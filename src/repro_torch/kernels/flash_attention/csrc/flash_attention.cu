@@ -1,6 +1,13 @@
 // flash_attention: blocked online-softmax GQA attention (FlashAttention's
-// forward pass) for bfloat16 inputs on the tensor cores, and for float32
-// inputs as float32 FMAs; float32 accumulators in both.
+// forward pass) with float32 accumulators, and its backward (below).  Which
+// forward kernel runs is a fixed rule on the type and the head dim, chosen
+// by ops.py's forward_kernel and passed to flash_attention_launch as its
+// route (a route the head dim does not fit is refused):
+//   * bfloat16, d = 64 or 128 (every configuration's head dim):
+//     flash_fwd_wgmma, wgmma on TMA tiles (the forward section after the
+//     backward's wgmma kernels, whose primitives it shares);
+//   * bfloat16, any other d up to 256: flash_attention_mma, mma.sync;
+//   * float32: flash_attention_fma, float32 FMAs.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/flash_attention.py
 // (_attn_kernel, launched by flash_attention_padded).  That kernel walks a
@@ -11,14 +18,38 @@
 // stays in registers.
 //
 // Bound on the card: operations.  Attention does 4 * B * Hq * Sq * Sk * d
-// FLOPs (half of it when causal) on O((Sq + Sk) * d) bytes, far above the
-// card's balance point, so the products must run on the tensor cores.
+// FLOPs (about half of it when causal) on O((Sq + Sk) * d) bytes, far above
+// the card's balance point, so the products must run at the tensor cores'
+// rate, which on Hopper only wgmma reaches.
 //
-// bfloat16 (the serving path): mma.sync.m16n8k16 with ldmatrix, FlashAttention
-// 2's register dataflow.  Not wgmma: wgmma reads its B operand (and here A)
-// from shared memory through swizzled-layout descriptors and wants a
-// producer warp feeding a TMA ring; that is the next step (a warp-specialised
-// ping-pong), and mma.sync already puts both products on the tensor cores.
+// bfloat16 at d = 64 and 128: flash_fwd_wgmma.  A block is two consumer
+// warpgroups (256 threads: at 288 or 384 ptxas caps the registers and
+// serialises every wgmma, C7512, as the backward found, so there is no
+// producer warpgroup; an elected thread issues the TMA loads ahead).
+//   * Q (a 128-row query tile, 64 rows a warpgroup) stays resident; K and V
+//     arrive by TMA in the 128-byte swizzle through 4-d tensor maps over
+//     their (batch, head, seq) strides, so the transposed views the model
+//     hands in need no copy (ops.py stages one TMA cannot describe), in a
+//     ring of stages under mbarriers, each refilled by the warp whose
+//     arrival completes its `empty` barrier.  d = 128: 128 keys a stage,
+//     three stages, 225 KB, one block an SM, 251 registers; d = 64: 64 keys
+//     a stage, four stages, 81 KB, two blocks an SM at 122 registers.
+//   * S = Q K^T with both operands K-major in shared memory (wgmma_ss); the
+//     online softmax in base 2 on the accumulators (a row's max over the
+//     four threads that hold it); P rounded to bf16 in registers is the A
+//     operand of O += P V, V read MN-major (wgmma_rs_tb).
+//   * The next stage's Q K^T is issued before this stage's softmax and
+//     retires under it and under this stage's P V (FlashAttention 3's
+//     in-warpgroup pipelining); every group retires before the loop's back
+//     edge (an accumulator in flight across it serialises: C7515).
+//   * A stage wholly past a warpgroup's causal end is only waited for and
+//     released; only tiles that cross the diagonal (or Sk) are masked.  The
+//     grid runs (head, batch) fastest and the query tiles from the last, so
+//     every head's longest causal tiles start first.
+//   * lse (the training forward's) is written per row from the registers.
+//
+// bfloat16 at other head dims: flash_attention_mma, mma.sync.m16n8k16 with
+// ldmatrix, FlashAttention 2's register dataflow.
 //   * One block of 4 warps per (q tile, q head, batch); a warp owns MT
 //     16-row m tiles of q (MT = 2, a 128-row tile, for head dims up to 128,
 //     so that every K and V fragment read from shared memory feeds two
@@ -26,18 +57,10 @@
 //   * K and V tiles of 32 keys come through a ring of two shared-memory
 //     stages filled with cp.async (16 bytes a thread, zero-filled past Sk and
 //     past d), the next tile's copy in flight while this one is multiplied.
-//     The q tile is copied once, with the first K and V tile.  Rows are
-//     padded by 16 bytes, so the eight rows of an ldmatrix hit distinct banks.
-//   * S = Q K^T: A fragments of Q and B fragments of K by ldmatrix, bf16
-//     products into float32 accumulators.
-//   * The online softmax runs on the S accumulators in registers, in base 2
-//     (scores scaled by scale * log2 e, exp2): a thread holds two rows of
-//     each m tile, and a row's max reduces across the quad of threads that
-//     holds it (two shuffles).  The denominator is kept per thread and
-//     reduced across the quad once, at the end.
-//   * O += P V: the S accumulators, rounded to bf16 in registers, are the A
-//     fragments of the second product as they lie (FlashAttention 2's
-//     layout identity); V's B fragments come by ldmatrix.trans.
+//     Rows are padded by 16 bytes, so the eight rows of an ldmatrix hit
+//     distinct banks.
+//   * S = Q K^T and O += P V as above, P's accumulators rounded to bf16 as
+//     the A fragments as they lie; V's B fragments by ldmatrix.trans.
 //   * Where a row stride or a pointer is not 16-byte aligned, or d is not a
 //     multiple of 8, the tiles are copied element by element instead of by
 //     cp.async (the same kernel; no other path).
@@ -49,7 +72,7 @@
 // rows 4tr..4tr+3: scores of key columns tc + 8j, output columns tc + 8j; a
 // row's max and denominator reduce over its 8 neighbouring lanes.
 //
-// What both paths keep from the Pallas kernel:
+// What every path keeps from the Pallas kernel:
 //   * GQA: q head h reads kv head h / (Hq / Hkv) through the index; K and V
 //     are never repeated in memory.
 //   * Scores are scaled, then keys past Sk and, when causal, keys after query
@@ -57,13 +80,16 @@
 //     -1e30.  A causal tile that lies wholly after the block's last query is
 //     skipped: on every row that sees a key (key 0 is in the first tile)
 //     such a tile adds exp(-1e30 - m) = 0.  The output divides by the
-//     denominator, or by 1 where it is 0.
+//     denominator; the wgmma kernel writes 0 (and lse -inf) on a row that
+//     sees no key, the others divide by 1 where the denominator is 0.
 //   * q, k, v and the output are read and written through their (batch, head,
 //     seq) strides with 64-bit offsets; only the head dim is contiguous.
-//   * The head dim is a template tile DT in {16, 32, 64, 128, 256} >= d (a
-//     multiple of 16), the columns past d zero.  Dynamic shared memory, set
-//     by cudaFuncSetAttribute: bf16 68 KB at DT = 128, 99 KB at 256; float32
-//     72.6 KB at 128, 137 KB at 256.
+//   * No atomics and no split of the keys across blocks: two runs give the
+//     same bits.
+//   * The mma.sync and FMA kernels' head dim is a template tile DT in {16,
+//     32, 64, 128, 256} >= d (a multiple of 16), the columns past d zero.
+//     Dynamic shared memory, set by cudaFuncSetAttribute: bf16 68 KB at DT
+//     = 128, 99 KB at 256; float32 72.6 KB at 128, 137 KB at 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1178,6 +1204,273 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                 acc, scale, g, t, pair);
 }
 
+// --- forward, bfloat16 at d = 64 and 128: wgmma on TMA tiles ----------------
+//
+// One block a 128-row query tile of one query head: two consumer warpgroups
+// of 64 rows, the tile's Q resident, K and V in a ring of FwdTile<DT>::
+// kStages stages of BK keys under mbarriers (refilled as the backward's:
+// by the warp whose arrival completes a stage's `empty` barrier).  Per
+// stage, S = Q K^T (wgmma, both operands K-major in shared memory), the
+// online softmax in base 2 on the accumulators, P rounded to bf16 in
+// registers as the A operand of O += P V (V read MN-major).  The Q K^T of
+// the next stage is issued before this stage's softmax and retires under
+// it and under this stage's P V (FlashAttention 3's in-warpgroup
+// pipelining); every group retires before the loop's back edge (C7515).
+
+constexpr int kFwdBQ = 128;               // query rows a block (64 each)
+
+// keys a K / V stage, stages, and blocks an SM: at DT = 128, 128 keys in
+// three stages (225 KB, one block an SM; the S accumulators of two stages,
+// O and P take 251 registers; two stages were slower on the H100 at qwen3's
+// prefill); at DT = 64, 64 keys in four stages (81 KB, two blocks an SM at
+// 128 registers a thread; 128 keys a stage, one block an SM, was slower at
+// granite's)
+template <int DT>
+struct FwdTile {
+  static constexpr int kBK = DT > 64 ? 128 : 64;
+  static constexpr int kStages = DT > 64 ? 3 : 4;
+  static constexpr int kBlocks = DT > 64 ? 1 : 2;
+};
+
+// shared memory of the forward: Q resident ([DT / 64][128][64]), the K and
+// V ring ([stages][DT / 64][BK][64]), the mbarriers (Q's, then full and
+// empty a stage)
+template <int DT>
+struct FwdSmem {
+  static constexpr int kBK = FwdTile<DT>::kBK, kStages = FwdTile<DT>::kStages;
+  static constexpr int kQ = kFwdBQ * DT * 2;
+  static constexpr int kK = kBK * DT * 2;         // a K or V stage
+  static constexpr int q = 0, k = kQ, v = k + kStages * kK;
+  static constexpr int bars = v + kStages * kK;
+  static constexpr int bytes = bars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// S (64 x BK) = Q K^T of one warpgroup's rows and one K stage, issued and
+// committed (not waited for)
+template <int DT, int BK>
+__device__ __forceinline__ void fwd_scores(float (&s)[BK / 8][4],
+                                           const __nv_bfloat16* qt,
+                                           const __nv_bfloat16* ks, int wg) {
+  const uint64_t qa = desc_k<kFwdBQ>(qt, 64 * wg);
+  const uint64_t kb = desc_k<BK>(ks, 0);
+  hop::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DT / 16; ++kk)
+    hop::wgmma_ss(s, qa + kstep<kFwdBQ>(kk), kb + kstep<BK>(kk), kk > 0);
+  hop::wgmma_commit();
+}
+
+template <int DT>
+__global__ void __launch_bounds__(kBwdThreads, FwdTile<DT>::kBlocks)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int B, int Hq, int group, int Sq, int Sk, int d, Strides os,
+                float scale_log2, int causal, int pair) {
+  using L = FwdSmem<DT>;
+  constexpr int BK = L::kBK, kStages = L::kStages;
+  constexpr int NP = DT / 64;          // panels of a row
+  constexpr int OT = DT / 8;           // n8 tiles of an O row block
+  constexpr int NT = BK / 8;           // n8 tiles of an S row block
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  __nv_bfloat16* qt = reinterpret_cast<__nv_bfloat16*>(sm + L::q);
+  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(sm + L::k);
+  __nv_bfloat16* vt = reinterpret_cast<__nv_bfloat16*>(sm + L::v);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::bars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  // the block index runs over (head, batch) fastest and over the query
+  // tiles from the last: every head's longest causal tile starts first
+  const int hb = Hq * B;
+  const int nq = (Sq + kFwdBQ - 1) / kFwdBQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x / hb)) * kFwdBQ;
+  const int h = static_cast<int>(blockIdx.x % Hq);
+  const int b = static_cast<int>((blockIdx.x / Hq) % B);
+  const int hk = h / group;
+  const int offset = Sk - Sq;
+  int k_end = Sk;
+  if (causal) {
+    const int last_q = min(q0 + kFwdBQ, Sq) - 1;
+    k_end = max(0, min(Sk, last_q + offset + 1));
+  }
+  const int ntiles = (k_end + BK - 1) / BK;
+  const int wg = hop::warpgroup();
+  const int lane = threadIdx.x & 31;
+
+  // stage s takes the K and V rows of key tile j
+  auto load_stage = [&](int j, int s) {
+    hop::mbar_arrive_expect_tx(&full[s], 2 * L::kK);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      hop::tma_load_4d(kt + (s * NP + p) * BK * 64, &tk, &full[s], 64 * p,
+                       j * BK, hk, b);
+      hop::tma_load_4d(vt + (s * NP + p) * BK * 64, &tv, &full[s], 64 * p,
+                       j * BK, hk, b);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    hop::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], kReaders);
+    }
+    hop::fence_barrier_init();
+    if (ntiles > 0) {
+      hop::mbar_arrive_expect_tx(q_full, L::kQ);
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        hop::tma_load_4d(qt + p * kFwdBQ * 64, &tq, q_full, 64 * p, q0, h, b);
+      for (int j = 0; j < min(kStages, ntiles); ++j) load_stage(j, j);
+    }
+  }
+  __syncthreads();
+
+  const int warp = (threadIdx.x >> 5) & 3;   // in the warpgroup
+  const int g = lane >> 2, t = lane & 3;
+  const int qw0 = q0 + 64 * wg;        // this warpgroup's first query row
+  // the key tiles this warpgroup's rows see (the rest it waits for and
+  // releases, so that every warp arrives on every stage)
+  int k_wg = qw0 < Sq ? Sk : 0;
+  if (causal && qw0 < Sq)
+    k_wg = max(0, min(Sk, min(qw0 + 64, Sq) - 1 + offset + 1));
+  const int nt_wg = min(ntiles, (k_wg + BK - 1) / BK);
+
+  float acc[OT][4];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int ot = 0; ot < OT; ++ot)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[ot][e] = 0.f;
+
+  float sc[NT][4];                     // S, then P, of the current stage
+  if (ntiles > 0) hop::mbar_wait(q_full, 0);
+  if (nt_wg > 0) {
+    hop::mbar_wait(&full[0], 0);
+    fwd_scores<DT, BK>(sc, qt, kt, wg);
+    hop::wgmma_wait<0>();
+    hop::fence_regs(sc);
+  }
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % kStages;
+    if (it < nt_wg) {
+      const int k0 = it * BK;
+      const bool next = it + 1 < nt_wg;
+      float sn[NT][4];                 // S of the next stage, in flight
+      if (next) {
+        const int s1 = (it + 1) % kStages;
+        hop::mbar_wait(&full[s1], ((it + 1) / kStages) & 1);
+        fwd_scores<DT, BK>(sn, qt, kt + s1 * NP * BK * 64, wg);
+      }
+      // the mask (keys past Sk; causal: keys after the row's end), the
+      // scale, the running max (a row's four threads by two shuffles)
+      const bool whole = k0 + BK <= Sk &&
+                         (!causal || qw0 + offset >= k0 + BK - 1);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[j][e] * scale_log2;
+          if (!whole) {
+            const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+            const int qpos = qw0 + warp * 16 + g + (e >> 1) * 8;
+            const bool ok = kpos < Sk && (!causal || qpos + offset >= kpos);
+            x = ok ? x : kNegInf;
+          }
+          sc[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        corr[r] = hop::ex2(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = hop::ex2(sc[j][e] - m[e >> 1]);
+          sc[j][e] = p;
+          l[e >> 1] += p;
+        }
+      uint32_t pa[NT / 2][4];
+      acc_to_a<NT / 2>(pa, sc);
+#pragma unroll
+      for (int ot = 0; ot < OT; ++ot) {
+        acc[ot][0] *= corr[0];
+        acc[ot][1] *= corr[0];
+        acc[ot][2] *= corr[1];
+        acc[ot][3] *= corr[1];
+      }
+      // O += P V
+      const uint64_t vb = desc_mn<BK>(vt + s * NP * BK * 64);
+      hop::fence_regs(pa);
+      hop::fence_regs(acc);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk)
+        hop::wgmma_rs_tb(acc, pa[kk], vb + kk * kMnStep);
+      hop::wgmma_commit();
+      if (next) {
+        hop::wgmma_wait<1>();          // the next S is done, P V may run on
+        hop::fence_regs(sn);
+      }
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc);
+      if (next) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] = sn[j][e];
+      }
+    } else {
+      hop::mbar_wait(&full[s], (it / kStages) & 1);
+    }
+    if (release_last(&empty[s], lane) && it + kStages < ntiles)
+      load_stage(it + kStages, s);
+  }
+
+  hop::wgmma_wait<0>();                // as in the backward
+  hop::fence_regs(acc);
+  __nv_bfloat16* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float den = l[r];
+    den += __shfl_xor_sync(0xffffffffu, den, 1);
+    den += __shfl_xor_sync(0xffffffffu, den, 2);
+    const int qpos = qw0 + warp * 16 + g + 8 * r;
+    if (qpos >= Sq) continue;
+    // a row that sees no key (causal, Sq > Sk): output 0, lse -inf
+    const bool sees = !causal || qpos + offset >= 0;
+    if (lse != nullptr && t == 0)
+      lse[(static_cast<long long>(b) * Hq + h) * Sq + qpos] =
+          row_lse(causal, qpos + offset, m[r] + log2f(den), kLn2);
+    const float inv = sees && den > 0.f ? 1.f / den : 0.f;
+    __nv_bfloat16* orow = ob + static_cast<long long>(qpos) * os.s;
+#pragma unroll
+    for (int ot = 0; ot < OT; ++ot) {
+      const int col = ot * 8 + 2 * t;
+      const float lo = acc[ot][2 * r] * inv, hi = acc[ot][2 * r + 1] * inv;
+      if (pair && col + 1 < d) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(lo, hi);
+      } else {
+        if (col < d) orow[col] = __float2bfloat16(lo);
+        if (col + 1 < d) orow[col + 1] = __float2bfloat16(hi);
+      }
+    }
+  }
+}
+
 // --- float32: FMAs from shared memory --------------------------------------
 //
 // 128 threads; thread (tr, tc) = (tid / 8, tid % 8) owns 4 rows 4 tr .. of
@@ -1475,53 +1768,117 @@ int set_smem(K kern, size_t bytes) {
       static_cast<int>(bytes)));
 }
 
+// the forward's routes, as the wrapper chooses them (ops.forward_kernel,
+// whose FORWARD_KERNELS lists them in this order)
+enum FwdRoute { kRouteFma = 0, kRouteMma = 1, kRouteWgmma = 2 };
+
+bool route_fits(int route, int d) {
+  return route == kRouteFma || route == kRouteMma ||
+         (route == kRouteWgmma && (d == 64 || d == 128));
+}
+
+// the wgmma forward: q, k and v read by TMA (each base and each (batch,
+// head, seq) stride a multiple of 16 bytes; the wrapper stages a copy of
+// an operand that is not); a tensor map that cuTensorMapEncodeTiled
+// refuses returns 1000 + its CUresult
+template <int DT>
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
+                     float* lse, int B, int Hq, int Hkv, int Sq, int Sk,
+                     int d, Strides qs, Strides ks, Strides vs, Strides os,
+                     float scale, int causal, cudaStream_t stream) {
+  using L = FwdSmem<DT>;
+  const long long blocks =
+      static_cast<long long>((Sq + kFwdBQ - 1) / kFwdBQ) * Hq * B;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv;
+  int err = hop::encode_bf16_panels(&mq, q, d, Sq, Hq, B, qs.s, qs.h, qs.b,
+                                    kFwdBQ);
+  if (!err)
+    err = hop::encode_bf16_panels(&mk, k, d, Sk, Hkv, B, ks.s, ks.h, ks.b,
+                                  L::kBK);
+  if (!err)
+    err = hop::encode_bf16_panels(&mv, v, d, Sk, Hkv, B, vs.s, vs.h, vs.b,
+                                  L::kBK);
+  if (err) return err;
+  err = set_smem(flash_fwd_wgmma<DT>, L::bytes);
+  if (err) return err;
+  const int pair = d % 2 == 0 && reinterpret_cast<uintptr_t>(o) % 4 == 0 &&
+                   os.b % 2 == 0 && os.h % 2 == 0 && os.s % 2 == 0;
+  flash_fwd_wgmma<DT><<<static_cast<unsigned>(blocks), kBwdThreads, L::bytes,
+                        stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, B, Hq, Hq / Hkv, Sq,
+      Sk, d, os, scale * kLog2e, causal, pair);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, k, v, o: device pointers; lse: a contiguous float32 (B, Hq, Sq) that
 // takes each query row's log-sum-exp (the backward's input), or null;
-// is_bf16 selects bfloat16 (else float32); strides in elements, (batch,
+// route: the kernel (FwdRoute: FMAs on float32, mma.sync or wgmma on
+// bfloat16; wgmma only at d = 64 or 128); strides in elements, (batch,
 // head, seq) for each of q, k, v, o.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, float* lse,
-    int is_bf16, int B,
+    int route, int B,
     int Hq, int Hkv, int Sq, int Sk, int d, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss, long long vsb,
     long long vsh, long long vss, long long osb, long long osh, long long oss,
     float scale, int causal, void* stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv != 0 || Sk <= 0 || d <= 0)
+  if (Hkv <= 0 || Hq % Hkv != 0 || Sk <= 0 || d <= 0 || !route_fits(route, d))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == kRouteWgmma)
+    return d == 64 ? launch_fwd_wgmma<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk,
+                                          d, qs, ks, vs, os, scale, causal, st)
+                   : launch_fwd_wgmma<128>(q, k, v, o, lse, B, Hq, Hkv, Sq,
+                                           Sk, d, qs, ks, vs, os, scale,
+                                           causal, st);
   // cp.async moves 16 bytes (8 bf16) from 16-byte aligned addresses
   const long long strides[] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss};
   bool vec = d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
   for (long long s : strides) vec = vec && s % 8 == 0;
   return by_tile(d, [&](auto tile) {
     constexpr int DT = decltype(tile)::value;
-    return is_bf16 ? launch_mma<DT>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, d,
-                                    qs, ks, vs, os, scale, causal, vec, st)
-                   : launch_fma<DT>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, d,
-                                    qs, ks, vs, os, scale, causal, st);
+    return route == kRouteMma
+               ? launch_mma<DT>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, d, qs, ks,
+                                vs, os, scale, causal, vec, st)
+               : launch_fma<DT>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, d, qs, ks,
+                                vs, os, scale, causal, st);
   });
 }
 
-// the compiled kernel that a launch for head dim d runs: its registers a
-// thread, its local memory a thread (spills), and the dynamic shared memory
-// the launch requests
-extern "C" int flash_attention_attributes(int is_bf16, int d, int* regs,
+// the compiled kernel that a launch of this route (FwdRoute) for head dim d
+// runs: its registers a thread, its local memory a thread (spills), and the
+// dynamic shared memory the launch requests
+extern "C" int flash_attention_attributes(int route, int d, int* regs,
                                           int* local_bytes, long long* smem) {
-  return by_tile(d, [&](auto tile) {
-    constexpr int DT = decltype(tile)::value;
+  if (!route_fits(route, d)) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == kRouteWgmma) {
     cudaFuncAttributes attr;
     const cudaError_t err =
-        is_bf16 ? cudaFuncGetAttributes(&attr, flash_attention_mma<DT>)
-                : cudaFuncGetAttributes(&attr, flash_attention_fma<DT>);
+        d == 64 ? cudaFuncGetAttributes(&attr, flash_fwd_wgmma<64>)
+                : cudaFuncGetAttributes(&attr, flash_fwd_wgmma<128>);
     if (err != cudaSuccess) return static_cast<int>(err);
     *regs = attr.numRegs;
     *local_bytes = static_cast<int>(attr.localSizeBytes);
-    *smem = is_bf16 ? mma_smem_bytes<DT>() : fma_smem_bytes<DT>();
+    *smem = d == 64 ? FwdSmem<64>::bytes : FwdSmem<128>::bytes;
+    return 0;
+  }
+  return by_tile(d, [&](auto tile) {
+    constexpr int DT = decltype(tile)::value;
+    cudaFuncAttributes attr;
+    const bool mma = route == kRouteMma;
+    const cudaError_t err =
+        mma ? cudaFuncGetAttributes(&attr, flash_attention_mma<DT>)
+            : cudaFuncGetAttributes(&attr, flash_attention_fma<DT>);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *regs = attr.numRegs;
+    *local_bytes = static_cast<int>(attr.localSizeBytes);
+    *smem = mma ? mma_smem_bytes<DT>() : fma_smem_bytes<DT>();
     return 0;
   });
 }

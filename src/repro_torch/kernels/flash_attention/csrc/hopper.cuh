@@ -1,15 +1,16 @@
-// hopper.cuh: the Hopper (sm_90a) primitives of K4's backward, as inline PTX
+// hopper.cuh: the Hopper (sm_90a) primitives of K4 and K5, as inline PTX
 // in the style of tensor_core.cuh: the Tensor Memory Accelerator (TMA)
 // loads of a tile into shared memory, the mbarriers that report them, and
 // the warpgroup matrix products (wgmma) that read the tiles where they lie.
 //
-// Their user, flash_attention.cu's attn_bwd_dkdv and attn_bwd_dq, replaces
-// jax.grad of the reference's attention (src/repro/models/layers.py:92; the
-// reference has no backward kernel).  Those kernels are bound by operations
-// (four and three products of 2 B Hq Sq Sk d), so they want the tensor
-// cores' full rate, which on Hopper only wgmma reaches; wgmma reads its
-// operands from shared memory in swizzled layouts, which TMA writes
-// directly, so no thread copies a tile.
+// Their users: flash_attention.cu's bf16 forward (flash_fwd_wgmma) and its
+// backward (attn_bwd_dkdv and attn_bwd_dq, which replace jax.grad of the
+// reference's attention, src/repro/models/layers.py:92), bound by
+// operations (two, four and three products of 2 B Hq Sq Sk d), and
+// ssd_scan.cu's bf16 chunk walk (ssd_walk_wgmma), whose every product is a
+// wgmma.  They want the tensor cores' full rate, which on Hopper only wgmma
+// reaches; wgmma reads its operands from shared memory in swizzled layouts,
+// which TMA writes directly, so no thread copies a tile.
 //
 // Shared-memory tiles are bf16 panels of 64 columns (128 bytes a row) in
 // TMA's 128-byte swizzle (the 16-byte chunk c of row r lands at c ^ (r % 8)),
@@ -313,6 +314,36 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[16][4],
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 64) += A B; A and B from shared memory, both MN-major (imm-trans-a
+// = imm-trans-b = 1): A^T as k rows of m columns, as B^T's rows hold the
+// state product's A (the product's m is the tile's column)
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[8][4], uint64_t a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// orders this thread's generic-proxy writes to shared memory before later
+// async-proxy (TMA, wgmma) accesses of it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // --- host: tensor maps -------------------------------------------------------

@@ -6,13 +6,21 @@ k, v (B, Hkv, Sk, d), and computes what
 ``repro/kernels/flash_attention/ops.py::flash_attention`` computes: GQA
 softmax attention with the causal mask aligned to the end of the keys.  A
 CPU tensor takes the plain version (``ref.attention_ref``); a CUDA tensor
-launches the kernel in ``csrc/flash_attention.cu`` or raises.  The kernel
-reads q, k and v through their strides (only the head dim must be
-contiguous), so a (B, S, H, d) tensor seen through ``transpose(1, 2)`` needs
-no copy, and the output takes q's memory layout.  It indexes with 64-bit
-offsets, so the reference's int32 index-space guard has no counterpart;
-but the extents (B, Hq, Hkv, Sq, Sk, d) go to every kernel of this file as
-C ints, so one past 2^31 - 1 raises (on every device).
+launches a kernel in ``csrc/flash_attention.cu`` or raises.  Which kernel
+is a fixed rule on the type and the head dim (``forward_kernel``):
+bfloat16 at d = 64 or 128, every configuration's, runs ``flash_fwd_wgmma``
+(wgmma on TMA tiles); bfloat16 at another d the ``mma.sync`` kernel;
+float32 the FMA kernel.  The kernels read q, k and v through their strides
+(only the head dim must be contiguous), so a (B, S, H, d) tensor seen
+through ``transpose(1, 2)`` needs no copy, and the output takes q's memory
+layout; for the wgmma kernel an operand whose base or (batch, head, seq)
+stride is not a multiple of 16 bytes goes as a staged copy
+(``kernels.tma``), counted on ``flash_attention.staged``.  A query row that
+sees no key (causal, Sq > Sk) comes out 0 from the wgmma kernel, with lse
+-inf.  The kernels index with 64-bit offsets, so the reference's int32
+index-space guard has no counterpart; but the extents (B, Hq, Hkv, Sq, Sk,
+d) go to every kernel of this file as C ints, so one past 2^31 - 1 raises
+(on every device).
 
 When a gradient is wanted (grad mode on and an input that requires it),
 ``flash_attention`` is a ``torch.autograd.Function``: the forward also
@@ -29,14 +37,15 @@ row that sees no key gets dq 0.
 ``attn_bwd_prep.launches``, ``attn_bwd_dkdv.launches`` and
 ``attn_bwd_dq.launches`` the backward's.
 
-bfloat16 dk/dv and dq read q, k, v and dout by TMA, whose tensor maps
-describe an operand as it lies: a contiguous head dim, a base and (batch,
-head, seq) strides that are multiples of 16 bytes (``tma_describable``).
-An operand that is not (a view offset by an element, a head dim of odd
-bytes) goes to its kernel as a staged copy (``tma_staged``: contiguous, the
-head dim's row padded to 16 bytes); so do dk/dv's lse and D where Sq is not
-a multiple of 4 (their rows padded to 16 bytes); ``attn_bwd_dkdv.staged``
-and ``attn_bwd_dq.staged`` count those copies.  The choice is made from the
+bfloat16 dk/dv and dq (and the wgmma forward) read q, k, v and dout by
+TMA, whose tensor maps describe an operand as it lies: a contiguous head
+dim, a base and (batch, head, seq) strides that are multiples of 16 bytes
+(``kernels.tma``).  An operand that is not (a view offset by an element, a
+head dim of odd bytes) goes to its kernel as a staged copy (contiguous,
+the head dim's row padded to 16 bytes); so do dk/dv's lse and D where Sq
+is not a multiple of 4 (their rows padded to 16 bytes);
+``flash_attention.staged``, ``attn_bwd_dkdv.staged`` and
+``attn_bwd_dq.staged`` count those copies.  The choice is made from the
 layout before the launch, never after a failure.
 """
 from __future__ import annotations
@@ -46,17 +55,20 @@ import ctypes
 import torch
 
 from .. import PLAIN_DEVICES, load_kernel
+from ..tma import TMA_ALIGN, tma_operands, tma_staged, tma_strides
 from .ref import (attention_bwd_prep_ref, attention_bwd_ref, attention_ref,
                   attention_lse_ref)
 
 __all__ = ["flash_attention", "flash_attention_lse", "flash_attention_bwd",
-           "attn_bwd_prep", "attn_bwd_dkdv", "attn_bwd_dq", "MAX_HEAD_DIM",
-           "MAX_BWD_HEAD_DIM", "tma_describable", "tma_staged",
-           "tma_strides"]
+           "forward_kernel", "FORWARD_KERNELS", "attn_bwd_prep",
+           "attn_bwd_dkdv", "attn_bwd_dq", "MAX_HEAD_DIM",
+           "MAX_BWD_HEAD_DIM"]
 
 MAX_HEAD_DIM = 256          # the forward kernel's largest head-dim tile
 MAX_BWD_HEAD_DIM = 128      # the backward kernels' (every config's d)
 _DTYPES = (torch.float32, torch.bfloat16)
+# the forward's kernels, by the route code flash_attention_launch takes
+FORWARD_KERNELS = ("fma", "mma", "wgmma")
 _I32_MAX = 2**31 - 1        # the extents go to the kernels as C ints
 
 
@@ -130,6 +142,12 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         if with_lse else None
     if out.numel() == 0:
         return out, lse
+    route = _route(q.dtype, d)
+    if FORWARD_KERNELS[route] == "wgmma":
+        q, k, v = tma_operands(flash_attention, q, k, v)
+        strides = _operand_strides(q, k, v)
+    else:
+        strides = _strides(q, k, v)
     fn = load_kernel("flash_attention").flash_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 12
@@ -138,10 +156,27 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     _launch(fn, "flash_attention", q, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse is not None else None,
-            int(q.dtype == torch.bfloat16), B, Hq, Hkv, Sq, Sk, d,
-            *_strides(q, k, v, out), float(scale), int(bool(causal)))
+            route, B, Hq, Hkv, Sq, Sk, d,
+            *strides, *_strides(out), float(scale), int(bool(causal)))
     flash_attention.launches += 1
     return out, lse
+
+
+def _route(dtype: torch.dtype, d: int) -> int:
+    """The route code ``flash_attention_launch`` takes: the index in
+    ``FORWARD_KERNELS`` of ``forward_kernel(dtype, d)``."""
+    if dtype == torch.bfloat16:
+        return 2 if d in (64, 128) else 1
+    return 0
+
+
+def forward_kernel(dtype: torch.dtype, d: int) -> str:
+    """The forward kernel a CUDA call of this type and head dim runs:
+    ``"wgmma"`` for bfloat16 at d = 64 or 128 (every configuration's head
+    dim), ``"mma"`` (``mma.sync``) for bfloat16 at any other d, ``"fma"``
+    for float32.  The launch takes it as a route code (``_route``) and
+    refuses a route that its d does not fit."""
+    return FORWARD_KERNELS[_route(dtype, d)]
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -179,6 +214,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.staged = 0
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -243,58 +279,6 @@ def attn_bwd_prep(o: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 attn_bwd_prep.launches = 0
 
 
-TMA_ALIGN = 16              # bytes: a TMA base address and stride
-
-
-def tma_describable(t: torch.Tensor) -> bool:
-    """Whether a (B, H, S, d) operand can be read by TMA as it lies: a
-    contiguous head dim, a 16-byte aligned base, and a (batch, head, seq)
-    stride that is a positive multiple of 16 bytes on every dim longer than
-    1 (a dim of length 1 is never stepped along)."""
-    es = t.element_size()
-    if t.data_ptr() % TMA_ALIGN or (t.shape[3] > 1 and t.stride(3) != 1):
-        return False
-    return all(n == 1 or (st > 0 and st * es % TMA_ALIGN == 0)
-               for n, st in zip(t.shape[:3], t.stride()[:3]))
-
-
-def tma_strides(t: torch.Tensor) -> list[int]:
-    """t's (batch, head, seq) strides in elements for its tensor map; a dim
-    of length 1 takes the extent of the whole tensor, rounded up to 16
-    bytes, since its stride is never stepped along but must still be a
-    multiple of 16 bytes."""
-    unit = TMA_ALIGN // t.element_size()
-    extent = max(n * st for n, st in zip(t.shape, t.stride()))
-    packed = -(-extent // unit) * unit
-    return [st if n > 1 else packed
-            for n, st in zip(t.shape[:3], t.stride()[:3])]
-
-
-def tma_staged(t: torch.Tensor) -> torch.Tensor:
-    """A copy of t that TMA can describe: contiguous, each row of its last
-    dim padded to a multiple of 16 bytes (the padding is never read: the
-    tensor map's width is the row's length)."""
-    unit = TMA_ALIGN // t.element_size()
-    n = t.shape[-1]
-    buf = t.new_empty((*t.shape[:-1], -(-n // unit) * unit))
-    view = buf[..., :n]
-    view.copy_(t)
-    return view
-
-
-def _tma_operands(wrapper, *tensors) -> list[torch.Tensor]:
-    """The operands as the bf16 kernels read them: each one TMA cannot
-    describe as it lies replaced by its staged copy, counted on
-    ``wrapper.staged``."""
-    out = []
-    for t in tensors:
-        if not tma_describable(t):
-            t = tma_staged(t)
-            wrapper.staged += 1
-        out.append(t)
-    return out
-
-
 def _tma_rows(wrapper, *rows) -> tuple[list[torch.Tensor], int]:
     """lse and D, contiguous float32 (B, Hq, Sq), as the bf16 dk/dv kernel
     reads them by TMA: B Hq rows of Sq values whose row stride is a
@@ -335,7 +319,7 @@ def attn_bwd_dkdv(q, k, v, dout, lse, D, *, causal: bool, scale: float):
         return dk, dv
     row_ld = Sq
     if q.dtype == torch.bfloat16:
-        q, k, v, dout = _tma_operands(attn_bwd_dkdv, q, k, v, dout)
+        q, k, v, dout = tma_operands(attn_bwd_dkdv, q, k, v, dout)
         (lse, D), row_ld = _tma_rows(attn_bwd_dkdv, lse, D)
     fn = load_kernel("flash_attention").attn_bwd_dkdv_launch
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
@@ -367,7 +351,7 @@ def attn_bwd_dq(q, k, v, dout, lse, D, *, causal: bool, scale: float):
     if dq.numel() == 0:
         return dq
     if q.dtype == torch.bfloat16:
-        q, k, v, dout = _tma_operands(attn_bwd_dq, q, k, v, dout)
+        q, k, v, dout = tma_operands(attn_bwd_dq, q, k, v, dout)
     fn = load_kernel("flash_attention").attn_bwd_dq_launch
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 15

@@ -19,18 +19,24 @@ The kernels read x, b and c through their (batch, seq, head or group)
 strides, so the views that ``models.ssm`` splits out of one projection
 need no copy; only the last dim must be contiguous.  They take L, N and P
 up to 128 and float32 or bfloat16 inputs (x, b and c of one type).  One
-call runs the chunk-parallel scan as ``CUDA_LAUNCHES`` (3) kernels on the
-current stream: chunk states, the state pass over the chunks, chunk
-outputs.  The wrapper allocates their float32 scratch with ``torch.empty``:
-the chunk states (B, S / L, H, N, P), 168 MB at mamba2-2.7b's B=2, S=4096,
-and each chunk's summed log decay (B, S / L, H).
+call launches ``CUDA_LAUNCHES[dtype]`` kernels on the current stream.
+bfloat16: one, the chunk walk (``ssd_walk_wgmma``: a block a (batch, head,
+64 columns of P) walking the chunks with the state on chip, every product
+on wgmma); it reads x, b and c by TMA, so an operand whose base or (batch,
+seq, head or group) stride is not a multiple of 16 bytes goes as a staged
+copy (``kernels.tma``), counted on ``ssd_scan.staged``, and it
+allocates no state scratch unless the states are kept.  float32:
+three, chunk-parallel (chunk states, the state pass over the chunks, chunk
+outputs), through a float32 scratch from ``torch.empty``: the chunk states
+(B, S / L, H, N, P) and each chunk's summed log decay (B, S / L, H).
 
 When a gradient is wanted (grad mode on and an input that requires it),
 ``ssd_scan`` is a ``torch.autograd.Function`` whose backward is what
 ``jax.vjp`` of the reference's ``_ssd_chunked_jnp`` computes (``ref.py``
-writes it out).  On a card the forward keeps its scratch, the state
-entering each chunk (335 MB at B=4, S=4096; under remat "full" only the
-layer being differentiated holds one), and the backward is the kernels of
+writes it out).  On a card the forward keeps the state entering each chunk
+(float32, 335 MB at B=4, S=4096; under remat "full" only the layer being
+differentiated holds one) and each chunk's log decay, and the backward is
+the kernels of
 ``csrc/ssd_scan_bwd.cu`` and ``csrc/ssd_scan_bwd_mma.cu`` (built into the
 same library as the forward) behind two wrappers, which ``ssd_scan_bwd``
 chains: ``ssd_bwd_state`` (the gradient of the state leaving each chunk)
@@ -58,13 +64,16 @@ import ctypes
 import torch
 
 from .. import PLAIN_DEVICES, load_kernel
+from ..tma import tma_operands, tma_strides
 from .ref import log_decay, pad_chunks, ssd_bwd_ref, ssd_ref
 
 __all__ = ["ssd_scan", "ssd_scan_bwd", "ssd_bwd_state", "ssd_bwd_chunk",
            "MAX_TILE", "CUDA_LAUNCHES", "BWD_KERNELS"]
 
 MAX_TILE = 128              # the kernels' largest chunk L, d_state N, d_head P
-CUDA_LAUNCHES = 3           # kernels a forward call launches
+# CUDA kernels a forward call launches, by type: bf16 the chunk walk,
+# float32 chunk states, the state pass and chunk outputs
+CUDA_LAUNCHES = {torch.bfloat16: 1, torch.float32: 3}
 # the kernels each backward wrapper launches, in order, by their numbers in
 # csrc/ssd_scan_bwd.cu's table of the backward's kernels (``bwd_kernel``,
 # read through ``ssd_bwd_kernel_name`` and ``ssd_bwd_attributes``)
@@ -173,17 +182,31 @@ def _forward(x, a, b, c, chunk: int, keep: bool):
     loga = log_decay(a.float()).contiguous()
     y = torch.empty((B, Sp, H, P), dtype=x.dtype, device=x.device)
     nC = Sp // L
-    states = torch.empty((B, nC, H, N, P), dtype=torch.float32,
-                         device=x.device)
-    decay = torch.empty((B, nC, H), dtype=torch.float32, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    # float32's three kernels pass the states through this scratch; the
+    # bf16 walk keeps its state on chip and writes them only when kept
+    if keep or not bf16:
+        states = torch.empty((B, nC, H, N, P), dtype=torch.float32,
+                             device=x.device)
+        decay = torch.empty((B, nC, H), dtype=torch.float32, device=x.device)
+    else:
+        states = decay = None
+    if bf16:
+        # each operand TMA cannot describe as it lies goes as a staged
+        # copy, counted on ssd_scan.staged
+        x, b, c = tma_operands(ssd_scan, x, b, c)
+        strides = [st for t in (x, b, c) for st in tma_strides(t)]
+    else:
+        strides = _strides(x, b, c)
     fn = load_kernel("ssd_scan").ssd_scan_launch
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                    + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     _launch(fn, "ssd_scan", x.device, x.data_ptr(), loga.data_ptr(),
-            b.data_ptr(), c.data_ptr(), y.data_ptr(), states.data_ptr(),
-            decay.data_ptr(), int(x.dtype == torch.bfloat16), B, Sp, H, G,
-            P, N, L, *_strides(x, b, c))
+            b.data_ptr(), c.data_ptr(), y.data_ptr(),
+            states.data_ptr() if states is not None else None,
+            decay.data_ptr() if decay is not None else None, int(bf16), B,
+            Sp, H, G, P, N, L, *strides)
     ssd_scan.launches += 1
     return y[:, :S], ((loga, states, decay) if keep else ())
 
@@ -220,6 +243,7 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 
 ssd_scan.launches = 0
+ssd_scan.staged = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1872,3 +1872,196 @@ def test_mesh_step_on_one_rank_nccl_equals_the_step_without(arch):
             for a, p in zip(tree_leaves(tree(s0)), tree_leaves(tree(s1))):
                 assert torch.equal(a, p.full_tensor())
     assert plain > 0 and meshed == plain
+
+
+# ---------------------------------------------------------------------------
+# the forwards' Hopper kernels: K4's wgmma kernel (bf16, d 64 and 128) and
+# K5's chunk walk (bf16, one launch)
+# ---------------------------------------------------------------------------
+
+# (B, Hq, Hkv, Sq, Sk, d): d 64 and 128, GQA ratios 1, 2, 3, 4 and 16, Sq
+# < Sk and Sq > Sk (rows that see no key when causal), S off the 128-row
+# query tile and the 64- and 128-key stages, S = 1
+_WGMMA_SHAPES = [(1, 4, 4, 77, 77, 64), (2, 8, 4, 130, 130, 128),
+                 (1, 6, 2, 300, 100, 64), (1, 6, 2, 100, 300, 128),
+                 (1, 8, 2, 257, 257, 64), (1, 32, 2, 129, 129, 128),
+                 (1, 16, 1, 64, 1500, 64), (1, 2, 2, 1, 1, 128),
+                 (1, 4, 1, 200, 63, 128)]
+
+
+def _assert_within_own_size(got, want, row_tol=2e-2, head_tol=1e-2):
+    """The wgmma route's output held to its own size: each query row within
+    row_tol of the row's largest |value|, each (batch, head) within
+    head_tol in L2 (``chip_smoke.WGMMA_REL_TOL``).  A kernel that drops one
+    key stage of a long row fails both; ATTN_TOL's 4e-2 is about one output
+    value at these lengths."""
+    g, w = got.float(), want.float()
+    diff = g - w
+    tiny = torch.finfo(torch.float32).tiny
+    row = diff.abs().amax(-1) / w.abs().amax(-1).clamp_min(tiny)
+    head = diff.flatten(2).norm(dim=-1) / \
+        w.flatten(2).norm(dim=-1).clamp_min(tiny)
+    assert float(row.max()) <= row_tol, float(row.max())
+    assert float(head.max()) <= head_tol, float(head.max())
+
+
+def _profiled_kernels(fn) -> dict:
+    """CUDA kernel name -> launches of one fn() under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("shape", _WGMMA_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_flash_attention_wgmma_kernel_equals_plain(shape, causal, with_lse):
+    """bf16 at d = 64 and 128 (the wgmma kernel) within 4e-2 of
+    attention_ref on the rows that see a key and within 2e-2 of each row's
+    own size and 1e-2 of each head's (L2), lse within 1e-4 there; a row
+    that sees no key comes out 0 with lse -inf."""
+    dev = _card()
+    B, Hq, Hkv, Sq, Sk, d = shape
+    rng = np.random.default_rng(Sq * d + Hq)
+    q, k, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.bfloat16,
+                               device=dev)
+               for s in ((B, Hq, Sq, d), (B, Hkv, Sk, d), (B, Hkv, Sk, d)))
+    before = flash_attention.launches
+    if with_lse:
+        got, lse = flash_attention_lse(q, k, v, causal=causal)
+    else:
+        got = flash_attention(q, k, v, causal=causal)
+    want = attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    sees = _sees_a_key(Sq, Sk, causal, dev)
+    assert float((got[:, :, sees].float() - want[:, :, sees].float())
+                 .abs().max()) < 4e-2
+    _assert_within_own_size(got[:, :, sees], want[:, :, sees])
+    assert bool((got[:, :, ~sees] == 0).all())
+    if with_lse:
+        wl = attention_lse_ref(q, k, causal=causal)
+        assert float((lse[:, :, sees] - wl[:, :, sees]).abs().max()) < 1e-4
+        assert bool(torch.isneginf(lse[:, :, ~sees]).all())
+
+
+def test_flash_attention_runs_the_kernel_its_rule_names():
+    """Under the profiler: bf16 at d = 128 and 64 launches flash_fwd_wgmma
+    and no other forward kernel; bf16 at d = 32 launches the mma.sync
+    kernel (flash_attention_mma), float32 the FMA kernel."""
+    dev = _card()
+    for dtype, d, name in ((torch.bfloat16, 128, "flash_fwd_wgmma"),
+                           (torch.bfloat16, 64, "flash_fwd_wgmma"),
+                           (torch.bfloat16, 32, "flash_attention_mma"),
+                           (torch.float32, 64, "flash_attention_fma")):
+        q = torch.randn((1, 4, 200, d), device=dev).to(dtype)
+        k = torch.randn((1, 2, 200, d), device=dev).to(dtype)
+        ran = _profiled_kernels(lambda: flash_attention(q, k, k))
+        fwd = {n: c for n, c in ran.items()
+               if any(x in n for x in ("flash_fwd_wgmma",
+                                       "flash_attention_mma",
+                                       "flash_attention_fma"))}
+        assert len(fwd) == 1 and name in next(iter(fwd)), (dtype, d, ran)
+        assert next(iter(fwd.values())) == 1
+
+
+def test_flash_attention_wgmma_reads_views_as_they_lie():
+    """The (B, S, H, d) views through transpose(1, 2) that layers.attention
+    passes go to the wgmma kernel by TMA with no copy; the same views one
+    element into their storage go as staged copies (counted), and both
+    agree with the plain version."""
+    dev = _card()
+    rng = np.random.default_rng(21)
+    B, S, Hq, Hkv, d = 2, 333, 16, 8, 128
+    for misalign, staged in ((0, 0), (1, 3)):
+        def view(h):
+            flat = torch.as_tensor(rng.normal(size=B * S * h * d + misalign),
+                                   dtype=torch.bfloat16, device=dev)
+            return flat[misalign:].view(B, S, h, d).transpose(1, 2)
+
+        q, k, v = view(Hq), view(Hkv), view(Hkv)
+        before = flash_attention.staged
+        got = flash_attention(q, k, v)
+        want = attention_ref(q.contiguous(), k.contiguous(), v.contiguous())
+        torch.cuda.synchronize()
+        assert flash_attention.staged - before == staged
+        assert got.transpose(1, 2).is_contiguous()
+        assert float((got.float() - want.float()).abs().max()) < 4e-2
+        _assert_within_own_size(got, want)
+
+
+def test_forwards_give_the_same_bits_twice():
+    """K4's wgmma forward (with lse, at d = 128 and 64) and K5's walk
+    (keeping its states) give the same bits on two runs."""
+    from repro_torch.kernels.ssd_scan.ops import _forward as ssd_forward
+
+    dev = _card()
+    for d in (128, 64):
+        q, k, v = (torch.randn((2, h, 700, d), device=dev)
+                   .to(torch.bfloat16) for h in (16, 8, 8))
+        a = flash_attention_lse(q, k, v)
+        b = flash_attention_lse(q, k, v)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    x, a_, b_, c_ = _ssd_inputs((2, 600, 16, 1, 128, 64), torch.bfloat16,
+                                dev, seed=4)
+    r1 = ssd_forward(x, a_, b_, c_, 128, True)
+    r2 = ssd_forward(x, a_, b_, c_, 128, True)
+    assert torch.equal(r1[0], r2[0])
+    assert all(torch.equal(u, w) for u, w in zip(r1[1], r2[1]))
+
+
+@pytest.mark.parametrize("shape,chunk", [((2, 1000, 16, 1, 128, 64), 128),
+                                         ((1, 300, 8, 2, 64, 128), 64),
+                                         ((2, 129, 12, 3, 100, 72), 128)])
+def test_ssd_scan_bf16_walk_is_one_launch_keeping_only_what_is_asked(
+        shape, chunk):
+    """A bf16 call launches one CUDA kernel (the chunk walk); without kept
+    states it holds no (B, nC, H, N, P) scratch; the states it keeps for
+    the backward equal the plain chunked states within 8e-3 of their
+    largest |value| (SSD_TOL; they are rounded to TF32) and its log decays
+    within 1e-5."""
+    from repro_torch.kernels.ssd_scan import CUDA_LAUNCHES
+    from repro_torch.kernels.ssd_scan.ops import _forward as ssd_forward
+    from repro_torch.kernels.ssd_scan.ref import log_decay, ssd_states_ref
+
+    dev = _card()
+    B, S, H, G, N, P = shape
+    x, a, b, c = _ssd_inputs(shape, torch.bfloat16, dev, seed=sum(shape))
+    ran = _profiled_kernels(lambda: ssd_scan(x, a, b, c, chunk=chunk))
+    k5 = {n: n_ for n, n_ in ran.items() if "ssd_" in n}
+    assert sum(k5.values()) == CUDA_LAUNCHES[torch.bfloat16] == 1, k5
+    assert "ssd_walk" in next(iter(k5))
+    L = min(chunk, S)
+    nC = -(-S // L)
+
+    def held(keep):
+        """(the call's result, the device bytes it held at its peak)"""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = ssd_forward(x, a, b, c, chunk, keep)
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    (y, kept), held_serve = held(False)
+    (y2, (loga, states, decay)), held_train = held(True)
+    assert kept == ()
+    # the training call holds the states on top of what serving holds
+    assert held_train - held_serve >= 4 * B * nC * H * N * P, \
+        (held_serve, held_train)
+    assert torch.equal(y, y2)
+    xp, ap, bp, _ = pad_chunks(L, x, a, b, c)
+    hs, tot, _ = ssd_states_ref(xp, log_decay(ap.float()), bp, L)
+    torch.cuda.synchronize()
+    assert states.shape == (B, nC, H, N, P) and states.dtype == torch.float32
+    assert float((states - hs).abs().max()) <= 8e-3 * float(hs.abs().max())
+    assert float((decay - tot).abs().max()) < 1e-5 * max(
+        1.0, float(tot.abs().max()))

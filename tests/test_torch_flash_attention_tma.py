@@ -1,7 +1,7 @@
-"""The host side of K4's bf16 backward kernels (src/repro_torch/kernels/
-flash_attention/ops.py): which operands TMA can read as they lie, the
-strides their tensor maps get, the staged copy made of the others, and the
-wrappers' refusal of CPU tensors.  The kernels themselves run only on a card
+"""The host side of the bf16 TMA kernels (src/repro_torch/kernels/tma.py,
+used by flash_attention/ops.py and ssd_scan/ops.py): which operands TMA can
+read as they lie, the strides their tensor maps get, the staged copy made
+of the others, and the wrappers' refusal of CPU tensors.  The kernels themselves run only on a card
 (tests/test_torch_cuda.py)."""
 import numpy as np
 import pytest
@@ -10,11 +10,9 @@ import torch
 from repro_torch.kernels.flash_attention import (attn_bwd_dkdv, attn_bwd_dq,
                                                  attn_bwd_prep,
                                                  flash_attention_lse)
-from repro_torch.kernels.flash_attention.ops import (TMA_ALIGN,
-                                                     _tma_operands,
-                                                     _tma_rows,
-                                                     tma_describable,
-                                                     tma_staged, tma_strides)
+from repro_torch.kernels.flash_attention.ops import _tma_rows
+from repro_torch.kernels.tma import (TMA_ALIGN, tma_describable,
+                                     tma_operands, tma_staged, tma_strides)
 
 BF16 = torch.bfloat16
 
@@ -117,7 +115,7 @@ def test_operands_are_staged_only_where_needed_and_counted():
 
     good = torch.zeros((1, 2, 9, 64), dtype=BF16)
     bad = _offset((1, 2, 9, 64), 1)
-    out = _tma_operands(Wrapper, good, bad, good, bad)
+    out = tma_operands(Wrapper, good, bad, good, bad)
     assert Wrapper.staged == 2
     assert out[0] is good and out[2] is good
     assert out[1] is not bad and tma_describable(out[1])

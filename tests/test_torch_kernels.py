@@ -494,6 +494,21 @@ def _guard_attn_bwd(which):
     getattr(ops, which)(q, k, v, q, rows, rows, causal=True, scale=1.0)
 
 
+def _guard_flash_attention_wgmma():
+    # bf16 at d = 128 takes the wgmma kernel's route (TMA operands)
+    b = torch.bfloat16
+    flash_attention(_meta(1, 2, _BIG, 128, dtype=b),
+                    _meta(1, 1, 4, 128, dtype=b), _meta(1, 1, 4, 128, dtype=b))
+
+
+def _guard_flash_attention_lse_wgmma():
+    from repro_torch.kernels.flash_attention import flash_attention_lse
+    b = torch.bfloat16
+    flash_attention_lse(_meta(1, 2, 4, 64, dtype=b),
+                        _meta(1, 1, _BIG, 64, dtype=b),
+                        _meta(1, 1, _BIG, 64, dtype=b))
+
+
 def _ssd(S, dtype=torch.float32):
     return (_meta(1, S, 2, 4, dtype=dtype), _meta(1, S, 2, dtype=dtype),
             _meta(1, S, 1, 4, dtype=dtype), _meta(1, S, 1, 4, dtype=dtype))
@@ -503,6 +518,20 @@ def _guard_ssd_scan():
     from repro_torch.kernels.ssd_scan import ssd_scan
     # S itself fits a C int; padded to a chunk it would not
     ssd_scan(*_ssd(2**31 - 100))
+
+
+def _guard_ssd_scan_walk():
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    # the bf16 walk's route: S padded to a chunk past a C int
+    ssd_scan(*_ssd(2**31 - 100, torch.bfloat16))
+
+
+def _guard_ssd_scan_kept():
+    from repro_torch.kernels.ssd_scan.ops import _forward
+    # the training forward, which keeps its states: heads past a C int
+    x = _meta(1, 8, _BIG, 4, dtype=torch.bfloat16)
+    b = _meta(1, 8, 1, 4, dtype=torch.bfloat16)
+    _forward(x, _meta(1, 8, _BIG, dtype=torch.float32), b, b, 128, True)
 
 
 def _guard_ssd_bwd_state(S, chunk):
@@ -525,6 +554,8 @@ def _guard_ssd_bwd_chunk(S, chunk):
     _guard_merge_fix_tiling, _guard_flash_attention, _guard_attn_bwd_prep,
     lambda: _guard_attn_bwd("attn_bwd_dkdv"),
     lambda: _guard_attn_bwd("attn_bwd_dq"), _guard_ssd_scan,
+    _guard_flash_attention_wgmma, _guard_flash_attention_lse_wgmma,
+    _guard_ssd_scan_walk, _guard_ssd_scan_kept,
     lambda: _guard_ssd_bwd_state(_BIG, 4),
     lambda: _guard_ssd_bwd_state(8, 4096),
     lambda: _guard_ssd_bwd_chunk(_BIG, 4),
@@ -533,6 +564,8 @@ def _guard_ssd_bwd_chunk(S, chunk):
         "bna_decompose_batch", "bna_decompose_steps", "coflow_merge",
         "merge_fix_ports", "merge_fix_tiling", "flash_attention",
         "attn_bwd_prep", "attn_bwd_dkdv", "attn_bwd_dq", "ssd_scan",
+        "flash_attention_wgmma", "flash_attention_lse_wgmma",
+        "ssd_scan_walk", "ssd_scan_kept",
         "ssd_bwd_state_extent", "ssd_bwd_state_chunk", "ssd_bwd_chunk_extent",
         "ssd_bwd_chunk_chunk"])
 def test_int32_launch_guard_raises(call):
@@ -549,3 +582,72 @@ def test_int32_launch_guards_leave_the_plain_path_alone():
         got = merge_fix(*args, m)
         want = merge_fix_ref(*args, m)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
+# the forwards' kernel choice and their bound models
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 24, "mma"),
+    (torch.bfloat16, 32, "mma"), (torch.bfloat16, 48, "mma"),
+    (torch.bfloat16, 96, "mma"), (torch.bfloat16, 256, "mma"),
+    (torch.float32, 32, "fma"), (torch.float32, 64, "fma"),
+    (torch.float32, 128, "fma")])
+def test_flash_attention_forward_kernel_rule(dtype, d, kernel):
+    """K4's forward kernel is a fixed rule on (dtype, d): wgmma for bf16 at
+    every configuration's head dims, mma.sync for bf16 elsewhere, FMAs for
+    float32; the launch takes it as a route code in the CUDA entry's order
+    (FwdRoute: FMAs 0, mma.sync 1, wgmma 2)."""
+    from repro_torch.kernels.flash_attention import forward_kernel
+    from repro_torch.kernels.flash_attention.ops import _route
+    assert forward_kernel(dtype, d) == kernel
+    assert _route(dtype, d) == ("fma", "mma", "wgmma").index(kernel)
+
+
+def test_ssd_scan_cuda_launches_by_type():
+    from repro_torch.kernels.ssd_scan import CUDA_LAUNCHES
+    assert CUDA_LAUNCHES == {torch.bfloat16: 1, torch.float32: 3}
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_bounds", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# hand counts (H100 SXM: 989 TFLOP/s bf16, 3.35 TB/s).  K4: two products of
+# 2 d flops over the causal pairs S (S + 1) / 2 of each head; K5: x and y,
+# b and c (bf16), loga (float32) once, and the kept float32 states
+_S2852_PAIRS = 2852 * 2853 // 2
+_S4096_PAIRS = 4096 * 4097 // 2
+_BOUND_CASES = [
+    ("attn_fwd_bounds", (1, 16, 8, 2852, 2852, 128, True), {}, 0.0337,
+     "operations", 4 * 16 * _S2852_PAIRS * 128),
+    ("attn_fwd_bounds", (4, 16, 8, 4096, 4096, 128, True), {"lse": True},
+     0.2780, "operations", 4 * 4 * 16 * _S4096_PAIRS * 128),
+    ("ssd_fwd_bounds", (2, 4096, 80, 1, 128, 64, 128), {}, 0.0521, "bytes",
+     2 * 2 * 2 * 4096 * 80 * 64 + 2 * 2 * 2 * 4096 * 128
+     + 4 * 2 * 4096 * 80),
+    ("ssd_fwd_bounds", (4, 4096, 80, 1, 128, 64, 128), {"keep": True},
+     0.2044, "bytes",
+     2 * 2 * 4 * 4096 * 80 * 64 + 2 * 2 * 4 * 4096 * 128
+     + 4 * 4 * 4096 * 80 + 4 * 4 * 32 * 80 * 128 * 64 + 4 * 4 * 32 * 80)]
+
+
+@pytest.mark.parametrize("name,args,kw,ms,by,count", _BOUND_CASES,
+                         ids=["k4_s2852", "k4_train_lse", "k5_b2",
+                              "k5_b4_kept"])
+def test_forward_bounds_against_hand_counts(name, args, kw, ms, by, count):
+    """chip_smoke's bound models of the two forwards: the least time at the
+    main path's shapes, and the operations or bytes that set it."""
+    got = getattr(_chip_smoke(), name)(*args, **kw)
+    assert round(got["bound_ms"], 4) == ms
+    assert got["bound_by"] == by
+    assert got["flops" if by == "operations" else "bytes"] == count
